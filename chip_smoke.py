@@ -7,17 +7,35 @@ Phases, in order; any failure raises, so the exit code is non-zero and no
 result line is printed:
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA device fails;
-2. build the CUDA kernels from ``mellow_tpu_torch/csrc`` (into ``build/``);
+2. build the CUDA kernels from ``mellow_tpu_torch/csrc`` (one nvcc per
+   source, in parallel, into ``build/``);
 3. kernel phase: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes, with CUDA-event timings of both;
-4. slice phase: ``MellowWrapper(config="v0", model="v0", device="cuda")`` at
-   full v0 width with random weights from a seed answers requests one at a
-   time, as a batch, and through ``mellow_tpu.serving.BatchingEngine``; the
-   kernels' launch counts show the path went through them; a repeated
-   request gives identical text; the encoder prefix and the prefill logits
-   agree with the same computation on the CPU (plain versions).
+   at the main path's full v0 shapes (B=1 and B=4; every Swin stage that
+   takes the kernel; decode attention at the prefix length and 31 positions
+   past it), with the tolerance printed, CUDA-event medians of the kernel
+   and of the plain version, the least time the card could take
+   (``bound_ms``) and, where one PyTorch call computes the same function,
+   that call's time (``library_ms``);
+4. fp32 path: ``MellowWrapper(config="v0", device="cuda")`` at full v0 width
+   with random weights from a seed answers requests one at a time, as a
+   batch, and through the port's ``BatchingEngine``; every ``generate``
+   call's kernel launches are checked (log-mel only); a batch of 2 answers
+   as the single requests do;
+5. bf16 path: the same requests at ``compute_dtype="bfloat16"``, every
+   call's launches of each kernel checked against what the path must make;
+   each request's first greedy token equals fp32's; at a batch of 2 the
+   bf16 prefix, prefill logits and one decode step's logits are held
+   against the fp32 CUDA path (and fp32 CUDA against the CPU); the greedy
+   token agreement with fp32 is printed;
+6. timings of both paths by stage (host preprocessing, log-mel, encoder,
+   prefill, decode step as the slope of two lengths, whole request), and
+   torch.profiler over one warm B=1 request of each path (device time,
+   kernel launches, the device's idle share).
 
-The last line is ``{"ok": true, "device": {...}}``.
+The launch counts are set to 0 just before each path is driven and read
+just after. The last line is ``{"ok": true, "device": {...}}``; the line
+before it is the card's name and power limit; before that, the
+``{"kernels": [...]}`` line.
 """
 
 from __future__ import annotations
@@ -28,31 +46,63 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import wave
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from mellow_tpu.config import get_config
-from mellow_tpu.io.tokenizer import ByteTokenizer
-from mellow_tpu.serving import BatchingEngine
-from mellow_tpu.utils.metrics import GLOBAL as metrics
 from mellow_tpu_torch import MellowWrapper
+from mellow_tpu_torch.config import get_config
+from mellow_tpu_torch.io.tokenizer import ByteTokenizer
+from mellow_tpu_torch.models import generate as gen
 from mellow_tpu_torch.models import llama
+from mellow_tpu_torch.models.htsat import relative_position_index, shifted_window_mask
 from mellow_tpu_torch.models.mellow import encode_and_prefix, init_params
 from mellow_tpu_torch.models.params import params_from_jax
 from mellow_tpu_torch.ops import _build, melspec
+from mellow_tpu_torch.ops import attn_block as ab
+from mellow_tpu_torch.ops import decode_attention as da
 from mellow_tpu_torch.ops import frontend as fe
+from mellow_tpu_torch.ops import mlp_block as mb
+from mellow_tpu_torch.ops import swin_block as sb
+from mellow_tpu_torch.serving import BatchingEngine
+from mellow_tpu_torch.utils.metrics import GLOBAL as metrics
 
 SEED = 0
 MAX_LEN = 32
-# What the TPU kernel is held to (tests/test_pallas_melspec.py): fp32 DFT
-# sums of 1024 terms in another order.
+# What the log-mel TPU kernel is held to (tests/test_pallas_melspec.py):
+# fp32 DFT sums of 1024 terms in another order.
 KERNEL_TOL = {"atol": 5e-4, "rtol": 1e-4}
-# CUDA against CPU through the whole fp32 encoder and 30 decoder layers:
-# the same math with sums in another order.
+# bf16 kernels against their plain versions on the same inputs: both round
+# at the same points, the sums run in another order, so an output may land
+# on the neighbouring bf16 value (2^-8 relative) and rounded intermediates
+# carry that on: 2e-2 x max|plain|.
+BF16_KERNEL_TOL = 2e-2
+# fp32 CUDA against the CPU through the whole encoder and 30 decoder
+# layers: the same math with sums in another order.
 SLICE_TOL = {"atol": 2e-3, "rtol": 1e-3}
+# bf16 perf mode against fp32 parity mode on the card, relative to the fp32
+# output's largest magnitude: 12 encoder blocks and 30 decoder layers of
+# bf16 rounding (2^-8 relative per rounding).
+# Limits 2-3x above what the card read (PERF.md): prefix, prefill logits,
+# one decode step's logits.
+BF16_TOL = (2.5e-2, 3.5e-2, 3.5e-2)
+# One NVIDIA H100 SXM (data sheet, dense): bf16 tensor cores, fp32 without
+# tensor cores, HBM3.
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+HBM_BYTES_PER_S = 3.35e12
+KERNELS = {  # name -> (module, source, the TPU kernel it replaces)
+    "log_mel": (melspec, "mellow_tpu_torch/csrc/melspec.cu", "mellow_tpu/ops/pallas_melspec.py:84"),
+    "decode_attention": (da, "mellow_tpu_torch/csrc/decode_attention.cu",
+                         "mellow_tpu/ops/pallas_decode_attention.py:238"),
+    "attn_block": (ab, "mellow_tpu_torch/csrc/attn_block.cu", "mellow_tpu/ops/pallas_attn_block.py:239"),
+    "mlp_block": (mb, "mellow_tpu_torch/csrc/mlp_block.cu", "mellow_tpu/ops/pallas_mlp_block.py:92"),
+    "swin_block": (sb, "mellow_tpu_torch/csrc/swin_block.cu", "mellow_tpu/ops/pallas_swin_block.py:179"),
+}
 
 
 def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -71,6 +121,38 @@ def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _alternate(plain, kernel) -> tuple:
+    """Kernel and plain medians on the same card in the order plain, kernel,
+    kernel, plain; returns the means of the two rounds (kernel, plain)."""
+    p = [_median_ms(plain)]
+    k = [_median_ms(kernel) for _ in range(2)]
+    p.append(_median_ms(plain))
+    return statistics.mean(k), statistics.mean(p)
+
+
+def _bound(n_bytes: float, flops: float, peak: float) -> tuple:
+    """The least time for the work, max(bytes / HBM rate, ops / peak), in
+    ms, and which of the two it is."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock time of work that ends in a synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
 def _write_wav(path: str, seconds: float, seed: int, sr: int = 44100) -> str:
     """Seeded mono PCM16 clip: two tones and noise."""
     rng = np.random.default_rng(seed)
@@ -85,12 +167,58 @@ def _write_wav(path: str, seconds: float, seed: int, sr: int = 44100) -> str:
     return path
 
 
-def kernel_phase(cfg) -> dict:
+class DistinctTokenizer(ByteTokenizer):
+    """ByteTokenizer for prompts, but every generated id decodes to a
+    character of its own, so two answers compare token by token."""
+
+    BASE = 0x4E00
+
+    def decode(self, ids):
+        return "".join(chr(self.BASE + int(i)) for i in ids)
+
+
+# ---------------------------------------------------------------------------
+# kernel phase
+# ---------------------------------------------------------------------------
+
+def _bf16(rng, *shape, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).cuda().bfloat16()
+
+
+def _check_bf16(name, out, ref) -> float:
+    if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+        raise RuntimeError(f"{name}: bad kernel output {tuple(out.shape)}")
+    err = (out.float() - ref.float()).abs().max().item()
+    lim = BF16_KERNEL_TOL * ref.float().abs().max().item()
+    if err > lim:
+        raise RuntimeError(f"{name}: max_abs_err {err:.3e} > {lim:.3e}")
+    return err
+
+
+def _case(name, shape, err, tol, ms, plain_ms, bound, library_ms=None) -> dict:
+    bound_ms, bound_by = bound
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"{name} {shape}: max_abs_err {err:.3e} ({tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), library {lib} (CUDA-event medians of 20)")
+    return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def _row(name, cases) -> dict:
+    """The kernel's line: the numbers of its first case (the shape of a B=1
+    request), the largest error over all cases, and every case."""
+    _, source, replaces = KERNELS[name]
+    first = cases[0]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"], "cases": cases}
+
+
+def bench_log_mel(cfg) -> dict:
     rng = np.random.default_rng(SEED)
-    row = {"name": "log_mel", "route": "cuda", "source": "mellow_tpu_torch/csrc/melspec.cu",
-           "replaces": "mellow_tpu/ops/pallas_melspec.py:84"}
-    errs = []
-    for batch in (1, 2):
+    cases = []
+    for batch in (1, 4):
         wave_ = torch.from_numpy(
             (rng.standard_normal((batch, cfg.num_samples)) * 0.1).astype(np.float32)).cuda()
         out = melspec.log_mel_cuda(wave_, cfg)
@@ -98,103 +226,408 @@ def kernel_phase(cfg) -> dict:
         ref = fe.log_mel_spectrogram(wave_, cfg)
         if out.shape != (batch, cfg.num_frames, cfg.n_mels) or not torch.isfinite(out).all():
             raise RuntimeError(f"log_mel kernel output bad at B={batch}: {tuple(out.shape)}")
-        err = (out - ref).abs().max().item()
-        errs.append(err)
         torch.testing.assert_close(out, ref, **KERNEL_TOL)
-        # Alternate plain, kernel, kernel, plain on the same card.
-        plain = [_median_ms(lambda: fe.log_mel_spectrogram(wave_, cfg))]
-        kern = [_median_ms(lambda: melspec.log_mel_cuda(wave_, cfg)) for _ in range(2)]
-        plain.append(_median_ms(lambda: fe.log_mel_spectrogram(wave_, cfg)))
-        ms, plain_ms = statistics.mean(kern), statistics.mean(plain)
-        print(f"log_mel B={batch}: max_abs_err {err:.3e} (atol {KERNEL_TOL['atol']}, "
-              f"rtol {KERNEL_TOL['rtol']}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(median of 20 CUDA-event runs, 2 rounds each)")
-        suffix = "" if batch == 1 else f"_b{batch}"
-        row["ms" + suffix], row["plain_ms" + suffix] = ms, plain_ms
-    row["max_abs_err"] = max(errs)
-    return row
+        ms, plain_ms = _alternate(lambda: fe.log_mel_spectrogram(wave_, cfg),
+                                  lambda: melspec.log_mel_cuda(wave_, cfg))
+        # What a log-mel needs, not what this kernel does: per frame the
+        # window, a real FFT (~2.5 n log2 n), the power, the mel projection
+        # and the log; the wave in and the mel out. No DFT table counts.
+        n_bins = cfg.n_fft // 2 + 1
+        flops = batch * cfg.num_frames * (cfg.n_fft + 2.5 * cfg.n_fft * np.log2(cfg.n_fft) + 3 * n_bins
+                                          + 2 * n_bins * cfg.n_mels + cfg.n_mels)
+        bound = _bound(_nbytes(wave_, out), flops, PEAK_FP32)
+        cases.append(_case("log_mel", f"B={batch}", (out - ref).abs().max().item(),
+                           f"atol {KERNEL_TOL['atol']}, rtol {KERNEL_TOL['rtol']}", ms, plain_ms, bound))
+    return _row("log_mel", cases)
 
 
-def slice_phase(cfg) -> int:
-    """Drive the port's main path; return the kernel launches it made."""
+def bench_decode_attention(dec, prefix_len: int) -> dict:
+    rng = np.random.default_rng(SEED + 1)
+    H, KV, hd = dec.num_heads, dec.num_kv_heads, dec.head_dim
+    s_max = prefix_len + MAX_LEN
+    cases = []
+    for batch, n in ((1, prefix_len), (1, prefix_len + 31), (4, prefix_len), (4, prefix_len + 31)):
+        q = _bf16(rng, batch, H, hd)
+        k = _bf16(rng, batch, s_max, KV, hd)
+        v = _bf16(rng, batch, s_max, KV, hd)
+        out = da.decode_attention_cuda(q, k, v, n)
+        torch.cuda.synchronize()
+        err = _check_bf16("decode_attention", out, da.decode_attention_plain(q, k, v, n))
+        ms, plain_ms = _alternate(lambda: da.decode_attention_plain(q, k, v, n),
+                                  lambda: da.decode_attention_cuda(q, k, v, n))
+        # The one PyTorch call for the same function, on the same cache views.
+        qs, ks, vs = q[:, :, None], k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+        _check_bf16("decode_attention vs SDPA", out,
+                    F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)[:, :, 0])
+        library_ms = _median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True))
+        n_bytes = _nbytes(q, out) + 2 * batch * n * KV * hd * k.element_size()
+        bound = _bound(n_bytes, 4 * batch * H * n * hd, PEAK_BF16)
+        cases.append(_case("decode_attention", f"B={batch} n={n}", err,
+                           f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound, library_ms))
+    return _row("decode_attention", cases)
+
+
+def _decoder_layer(rng, dec) -> dict:
+    D, I, H, KV, hd = dec.hidden_size, dec.intermediate_size, dec.num_heads, dec.num_kv_heads, dec.head_dim
+    return {"ln_attn": 1 + _bf16(rng, D, scale=0.1), "ln_mlp": 1 + _bf16(rng, D, scale=0.1),
+            "wq": _bf16(rng, D, H * hd, scale=0.05), "wk": _bf16(rng, D, KV * hd, scale=0.05),
+            "wv": _bf16(rng, D, KV * hd, scale=0.05), "wo": _bf16(rng, H * hd, D, scale=0.05),
+            "w_gate": _bf16(rng, D, I, scale=0.05), "w_up": _bf16(rng, D, I, scale=0.05),
+            "w_down": _bf16(rng, I, D, scale=0.05)}
+
+
+def bench_attn_block(dec, S: int) -> dict:
+    rng = np.random.default_rng(SEED + 2)
+    lp = _decoder_layer(rng, dec)
+    D, H, KV, hd = dec.hidden_size, dec.num_heads, dec.num_kv_heads, dec.head_dim
+    cos, sin = llama.rope_device_tables(dec, S, torch.bfloat16, "cuda")
+    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd, eps=dec.rms_norm_eps)
+    w = [lp[k] for k in ("ln_attn", "wq", "wk", "wv", "wo")]
+    cases = []
+    for batch in (1, 4):
+        x = _bf16(rng, batch, S, D, scale=0.5)
+        got = ab.attn_block_cuda(x, *w, cos, sin, **kw)
+        torch.cuda.synchronize()
+        ref = ab.attn_block_plain(x, *w, cos, sin, **kw)
+        err = max(_check_bf16(f"attn_block output {i}", g, r) for i, (g, r) in enumerate(zip(got, ref)))
+        ms, plain_ms = _alternate(lambda: ab.attn_block_plain(x, *w, cos, sin, **kw),
+                                  lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
+        M = batch * S
+        # Projections, o-proj, and the causal triangle of QK^T and PV.
+        flops = (2 * M * D * (H + 2 * KV) * hd + 2 * M * H * hd * D
+                 + 2 * 2 * batch * H * hd * (S * (S + 1) // 2))
+        bound = _bound(_nbytes(x, *w, cos, sin, *got), flops, PEAK_BF16)
+        cases.append(_case("attn_block", f"B={batch} S={S}", err, f"{BF16_KERNEL_TOL} x max|plain|",
+                           ms, plain_ms, bound))
+    return _row("attn_block", cases)
+
+
+def bench_mlp_block(dec, S: int) -> dict:
+    rng = np.random.default_rng(SEED + 3)
+    lp = _decoder_layer(rng, dec)
+    D, I = dec.hidden_size, dec.intermediate_size
+    w = [lp[k] for k in ("ln_mlp", "w_gate", "w_up", "w_down")]
+    eps = dec.rms_norm_eps
+    cases = []
+    for batch in (1, 4):
+        x = _bf16(rng, batch, S, D, scale=0.5)
+        out = mb.mlp_block_cuda(x, *w, eps=eps)
+        torch.cuda.synchronize()
+        err = _check_bf16("mlp_block", out, mb.mlp_block_plain(x, *w, eps=eps))
+        ms, plain_ms = _alternate(lambda: mb.mlp_block_plain(x, *w, eps=eps),
+                                  lambda: mb.mlp_block_cuda(x, *w, eps=eps))
+        bound = _bound(_nbytes(x, *w, out), 2 * batch * S * D * I * 3, PEAK_BF16)
+        cases.append(_case("mlp_block", f"B={batch} S={S}", err, f"{BF16_KERNEL_TOL} x max|plain|",
+                           ms, plain_ms, bound))
+    return _row("mlp_block", cases)
+
+
+def bench_swin_block(enc) -> dict:
+    rng = np.random.default_rng(SEED + 4)
+    ws, N = enc.window_size, enc.window_size ** 2
+    res, C = enc.grid_size, enc.embed_dim
+    cases = []
+    for si in range(len(enc.depths)):
+        H = enc.num_heads[si]
+        if sb.fused_block_vmem_bytes(C, H, ws, res) > sb.FUSED_BLOCK_BUDGET:
+            break  # stage 4 keeps the plain block, as in the JAX package
+
+        def lin(i, o):
+            return {"kernel": _bf16(rng, i, o, scale=0.05), "bias": _bf16(rng, o, scale=0.02)}
+
+        def ln():
+            return {"scale": 1 + _bf16(rng, C, scale=0.1), "bias": _bf16(rng, C, scale=0.02)}
+
+        p = {"norm1": ln(), "qkv": lin(C, 3 * C), "proj": lin(C, C), "norm2": ln(),
+             "fc1": lin(C, 4 * C), "fc2": lin(4 * C, C)}
+        table = _bf16(rng, (2 * ws - 1) ** 2, H, scale=0.5)
+        idx = torch.from_numpy(relative_position_index(ws).reshape(-1)).cuda()
+        bias = table[idx].reshape(N, N, H).permute(2, 0, 1).float().contiguous()
+        mask = torch.from_numpy(shifted_window_mask(res, ws, ws // 2)).cuda()
+        # The weights, the bias as its bf16 table, not the expanded fp32 copy;
+        # the shifted-window mask follows from the grid geometry alone.
+        weights = [p[a][b] for a, b in sb.WEIGHT_KEYS] + [table]
+        kw = dict(num_heads=H, window_size=ws)
+        for batch in (1, 4):
+            x = _bf16(rng, batch, res, res, C, scale=0.5)
+            out = sb.swin_block_cuda(x, p, bias, mask, **kw)
+            torch.cuda.synchronize()
+            err = _check_bf16("swin_block", out, sb.swin_block_plain(x, p, bias, mask, **kw))
+            ms, plain_ms = _alternate(lambda: sb.swin_block_plain(x, p, bias, mask, **kw),
+                                      lambda: sb.swin_block_cuda(x, p, bias, mask, **kw))
+            M = batch * res * res
+            # qkv, proj, fc1, fc2 (12 C^2 per token) and the window QK^T and PV.
+            flops = 2 * M * C * 12 * C + 2 * 2 * M * N * C
+            bound = _bound(_nbytes(x, *weights, out), flops, PEAK_BF16)
+            cases.append(_case("swin_block", f"stage {si + 1} B={batch} R={res} C={C} H={H} SW-MSA",
+                               err, f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound))
+        res, C = res // 2, C * 2
+    return _row("swin_block", cases)
+
+
+def kernel_phase(cfg) -> list:
+    P = cfg.prefix_length
+    return [bench_log_mel(cfg.frontend), bench_decode_attention(cfg.decoder, P),
+            bench_attn_block(cfg.decoder, P), bench_mlp_block(cfg.decoder, P),
+            bench_swin_block(cfg.encoder)]
+
+
+# ---------------------------------------------------------------------------
+# slice phase
+# ---------------------------------------------------------------------------
+
+def zero_counts() -> None:
+    for mod, _, _ in KERNELS.values():
+        mod.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    return {name: mod.LAUNCHES for name, (mod, _, _) in KERNELS.items()}
+
+
+class CallRecorder:
+    """Wraps ``wrapper.generate`` to keep, per call, its rows, its decode
+    steps (from the wrapper's token counter) and each kernel's launches.
+    Calls run one at a time (the engine's dispatcher is one thread)."""
+
+    def __init__(self, wrapper):
+        self.calls = []
+        self.wrapper = wrapper
+        self.generate = wrapper.generate
+        self._lock = threading.Lock()
+        wrapper.generate = self
+
+    def __call__(self, examples, *args, **kwargs):
+        with self._lock:
+            before, tokens = read_counts(), metrics.counters.get("tokens", 0.0)
+            texts = self.generate(examples, *args, **kwargs)
+            after = read_counts()
+            steps = (metrics.counters.get("tokens", 0.0) - tokens) / len(examples)
+            self.calls.append({"rows": len(examples), "steps": int(round(steps)),
+                               "launches": {k: after[k] - before[k] for k in after}})
+            return texts
+
+    def remove(self):
+        self.wrapper.generate = self.generate
+
+
+def expected_launches(cfg, steps: int, bf16: bool) -> dict:
+    """What one generate call must launch: log-mel once per clip batch; in
+    bf16 also the Swin block once per gated block per clip batch, each
+    prefill block once per layer, and decode attention once per layer per
+    decode step (the last token is chosen without a step)."""
+    if not bf16:
+        return {"log_mel": 2, "decode_attention": 0, "attn_block": 0, "mlp_block": 0, "swin_block": 0}
+    enc, L = cfg.encoder, cfg.decoder.num_layers
+    res, C, swin = enc.grid_size, enc.embed_dim, 0
+    for si, depth in enumerate(enc.depths):
+        if sb.fused_block_vmem_bytes(C, enc.num_heads[si], enc.window_size, res) <= sb.FUSED_BLOCK_BUDGET:
+            swin += depth
+        res, C = res // 2, C * 2
+    return {"log_mel": 2, "decode_attention": L * (steps - 1), "attn_block": L, "mlp_block": L,
+            "swin_block": 2 * swin}
+
+
+def drive(wrapper, cfg, requests, label: str, bf16: bool) -> tuple:
+    """Singles, a batch of 2, a repeated request, two requests through the
+    engine, with every count set to 0 first; returns (single answers,
+    launches of the run). Every call's launches are checked."""
+    rec = CallRecorder(wrapper)
+
+    def timed(examples):
+        t = time.perf_counter()
+        texts = wrapper.generate(examples, max_len=MAX_LEN)
+        dt = time.perf_counter() - t
+        call = rec.calls[-1]
+        n = call["rows"] * call["steps"]
+        print(json.dumps({"path": label, "rows": len(examples), "latency_s": dt, "tokens": n,
+                          "tokens_per_s": n / dt, "launches": call["launches"]}))
+        return texts
+
+    try:
+        zero_counts()
+        singles = [timed([ex])[0] for ex in requests]
+        if timed(requests[:2]) != singles[:2]:
+            raise RuntimeError(f"{label}: a batch of 2 answered otherwise than the single requests")
+        if timed([requests[0]])[0] != singles[0]:
+            raise RuntimeError(f"{label}: a repeated request gave a different answer")
+        engine = BatchingEngine(wrapper, dynamic_batch=False)
+        try:
+            t = time.perf_counter()
+            futures = [engine.submit(*ex, max_len=MAX_LEN) for ex in requests[:2]]
+            served = [f.result(timeout=600) for f in futures]
+            print(json.dumps({"path": label, "engine_requests": len(served),
+                              "latency_s": time.perf_counter() - t}))
+        finally:
+            engine.shutdown()
+        launches = read_counts()
+    finally:
+        rec.remove()
+
+    rows = sum(c["rows"] for c in rec.calls)
+    if rows < 7:
+        raise RuntimeError(f"{label}: only {rows} rows answered")
+    for i, call in enumerate(rec.calls):
+        want = expected_launches(cfg, call["steps"], bf16)
+        if call["launches"] != want:
+            raise RuntimeError(f"{label}: call {i} ({call['rows']} rows, {call['steps']} steps) "
+                               f"launched {call['launches']}, expected {want}")
+    print(f"{label}: {rows} rows in {len(rec.calls)} generate calls, launches {launches}")
+    return singles, launches
+
+
+def prefix_and_logits(params, cfg, audio1, audio2, text, device, dtype, tokens=None):
+    """The prefix, the prefill logits and the logits of one decode step at
+    the batch of ``text``; the step feeds ``tokens`` (default: the prefill's
+    greedy tokens). Returns (prefix, prefill logits, step logits, tokens)."""
+    args = [torch.from_numpy(audio1).to(device, dtype), torch.from_numpy(audio2).to(device, dtype),
+            torch.from_numpy(text).to(device)]
+    dec, p = cfg.decoder, params["decoder"]
+    with torch.no_grad():
+        prefix = encode_and_prefix(params, cfg, *args)
+        B, P = prefix.shape[:2]
+        cache = llama.KVCache.create(dec, B, P + 1, device, dtype)
+        logits = llama.logits_from_hidden(p, dec, llama.prefill(p, dec, prefix, cache))
+        if tokens is None:
+            tokens = logits.argmax(-1).cpu()
+        cos, sin = llama.rope_device_tables(dec, P + 1, dtype, device)
+        hidden = llama.decode_step(p, dec, p["embed"][tokens.to(device)], cache, P, cos, sin)
+        step = llama.logits_from_hidden(p, dec, hidden)
+    return prefix.float().cpu(), logits.float().cpu(), step.float().cpu(), tokens
+
+
+def stage_times(wrapper, cfg, request, batch: int) -> dict:
+    """Per-stage times of one path at batch ``batch``: host clock around
+    work that ends in a synchronize (medians of 3), the log-mel by CUDA
+    events (median of 5), the decode step as the slope between 32 and 64
+    generated tokens at a fixed prefix (medians of 5 each) with no stop
+    token, so both lengths run in full."""
+    dev, dt, dec, p = wrapper.device, wrapper.dtype, cfg.decoder, wrapper.params
+    examples = [request] * batch
+    out = {}
+    t = time.perf_counter()
+    a1 = wrapper.preprocess_audio([e[0] for e in examples], True, 0)
+    a2 = wrapper.preprocess_audio([e[1] for e in examples], True, 0)
+    text = wrapper.preprocess_text([e[2] for e in examples])
+    out["host_preprocessing_ms"] = (time.perf_counter() - t) * 1e3
+    w1, w2 = torch.from_numpy(a1).to(dev, dt), torch.from_numpy(a2).to(dev, dt)
+    ids = torch.from_numpy(text).to(dev)
+    out["log_mel_ms"] = _median_ms(lambda: (fe.log_mel_auto(w1.float(), cfg.frontend),
+                                            fe.log_mel_auto(w2.float(), cfg.frontend)), reps=5, warmup=1)
+    with torch.no_grad():
+        prefix = encode_and_prefix(p, cfg, w1, w2, ids)
+        out["encoder_prefix_ms"] = _host_ms(lambda: encode_and_prefix(p, cfg, w1, w2, ids))
+        P = prefix.shape[1]
+
+        def prefill():
+            llama.prefill(p["decoder"], dec, prefix, llama.KVCache.create(dec, batch, P, dev, dt))
+
+        out["prefill_ms"] = _host_ms(prefill)
+        # Five pairs, the two lengths in turn; the slope of the medians, and
+        # the spread of the five pairs' own slopes.
+        t32, t64 = [], []
+        for _ in range(5):
+            for n, ts in ((32, t32), (64, t64)):
+                ts.append(_host_ms(lambda: gen.generate(p["decoder"], dec, prefix, max_len=n,
+                                                        stop_token_id=-1), reps=1))
+    out["decode_step_ms"] = (statistics.median(t64) - statistics.median(t32)) / 32
+    slopes = [(b - a) / 32 for a, b in zip(t32, t64)]
+    out["decode_step_ms_min_max"] = [min(slopes), max(slopes)]
+    out["decode_tokens_per_s"] = batch / (out["decode_step_ms"] / 1e3)
+    out["request_ms"] = _host_ms(lambda: wrapper.generate(examples, max_len=MAX_LEN, crop_start=0))
+    return out
+
+
+def slice_phase(cfg) -> dict:
+    """Drive both paths; return the bf16 path's kernel launches, the fp32
+    path's log-mel launches ("log_mel_fp32") and the stage timings."""
     t0 = time.perf_counter()
     params = init_params(cfg, SEED)
-    wrapper = MellowWrapper(config="v0", model="v0", device="cuda", params=params,
-                            tokenizer=ByteTokenizer())
-    print(f"weights made and loaded in {time.perf_counter() - t0:.2f} s")
-
+    tok = DistinctTokenizer()
+    w32 = MellowWrapper(config="v0", model="v0", device="cuda", params=params, tokenizer=tok)
+    w16 = MellowWrapper(config="v0", model="v0", device="cuda", params=params, tokenizer=tok,
+                        compute_dtype="bfloat16")
+    print(f"weights made and loaded (fp32 and bf16) in {time.perf_counter() - t0:.2f} s")
+    timings = {}
     with tempfile.TemporaryDirectory() as tmp:
         a = _write_wav(os.path.join(tmp, "a.wav"), 7.0, 1)  # repeat-padded
         b = _write_wav(os.path.join(tmp, "b.wav"), 9.5, 2)
         requests = [[a, b, "caption the audio."],
                     [b, a, "what is different between the two clips?"],
                     [a, a, "is there speech?"]]
+        fp32_answers, fp32_launches = drive(w32, cfg, requests, "fp32", bf16=False)
+        bf16_answers, bf16_launches = drive(w16, cfg, requests, "bf16", bf16=True)
+        missing = [k for k, n in bf16_launches.items() if n == 0]
+        if missing or fp32_launches["log_mel"] == 0:
+            raise RuntimeError(f"kernels never launched on the main path: {missing}")
+        same = sum(x == y for s, t in zip(fp32_answers, bf16_answers) for x, y in zip(s, t))
+        total = sum(max(len(s), len(t)) for s, t in zip(fp32_answers, bf16_answers))
+        first = [s[:1] == t[:1] for s, t in zip(fp32_answers, bf16_answers)]
+        print(f"greedy token agreement bf16 vs fp32 over {len(requests)} requests: {same}/{total}; "
+              f"first tokens equal: {first}")
+        if not all(first):
+            raise RuntimeError("bf16's first greedy token differs from fp32's")
 
-        def counters():
-            return {k: metrics.counters.get(k, 0.0) for k in ("generate_calls", "clips", "tokens")}
+        audio1 = w32.preprocess_audio([r[0] for r in requests[:2]], True)
+        audio2 = w32.preprocess_audio([r[1] for r in requests[:2]], True)
+        text = w32.preprocess_text([r[2] for r in requests[:2]])
+        for path, w in (("fp32", w32), ("bf16", w16)):
+            for batch in (1, 4):
+                key = f"{path} B={batch}"
+                timings[key] = stage_times(w, cfg, requests[0], batch)
+                print(json.dumps({"stage_times": key, **timings[key]}))
+        for path, w in (("fp32", w32), ("bf16", w16)):
+            timings[f"profile {path}"] = profile_request(w, requests[0], path)
 
-        def timed(examples):
-            before = counters()
-            t = time.perf_counter()
-            texts = wrapper.generate(examples, max_len=MAX_LEN)
-            dt = time.perf_counter() - t
-            n = counters()["tokens"] - before["tokens"]
-            print(json.dumps({"rows": len(examples), "latency_s": dt, "tokens": n,
-                              "tokens_per_s": n / dt, "texts": texts}))
-            return texts
-
-        melspec.LAUNCHES = 0
-        start = counters()
-        singles = [timed([ex])[0] for ex in requests]
-        batch = timed(requests[:2])
-        print(f"batch of 2 equals the single answers: {batch == singles[:2]}")
-        if timed([requests[0]])[0] != singles[0]:
-            raise RuntimeError("a repeated request gave a different answer")
-
-        engine = BatchingEngine(wrapper, dynamic_batch=False)
-        try:
-            t = time.perf_counter()
-            futures = [engine.submit(*ex, max_len=MAX_LEN) for ex in requests[:2]]
-            served = [f.result(timeout=600) for f in futures]
-            print(json.dumps({"engine_requests": len(served),
-                              "latency_s": time.perf_counter() - t, "texts": served}))
-        finally:
-            engine.shutdown()
-        launches = melspec.LAUNCHES
-        end = counters()
-        calls = end["generate_calls"] - start["generate_calls"]
-        clips = end["clips"] - start["clips"]
-        rows = clips // 2
-        print(f"slice: {rows:.0f} rows in {calls:.0f} generate calls, "
-              f"{end['tokens'] - start['tokens']:.0f} tokens, {launches} log_mel launches")
-        if rows < 5:
-            raise RuntimeError(f"only {rows} requests answered")
-        if launches != 2 * calls:
-            raise RuntimeError(f"log_mel launched {launches} times for {calls} calls "
-                               "(each call encodes its two clip batches once)")
-
-        # The main path's numbers against the same computation on the CPU,
-        # where every kernel is its plain version.
-        audio1 = wrapper.preprocess_audio([a], True)
-        audio2 = wrapper.preprocess_audio([b], True)
-        text = wrapper.preprocess_text([requests[0][2]])
-    cpu_params = params_from_jax(params, "cpu")
-    outs = {}
-    for device, p in (("cuda", wrapper.params), ("cpu", cpu_params)):
-        args = [torch.from_numpy(x).to(device) for x in (audio1, audio2, text)]
-        with torch.no_grad():
-            prefix = encode_and_prefix(p, cfg, *args)
-            cache = llama.KVCache.create(cfg.decoder, 1, prefix.shape[1], device)
-            hidden = llama.prefill(p["decoder"], cfg.decoder, prefix, cache)
-            logits = llama.logits_from_hidden(p["decoder"], cfg.decoder, hidden)
-        outs[device] = (prefix.cpu(), logits.cpu())
-    for name, got, ref in zip(("prefix", "logits"), outs["cuda"], outs["cpu"]):
+    # Two rows (requests 0 and 1), so the batch strides of the prefill
+    # blocks' cache writes and of decode attention's cache reads are used.
+    names = ("prefix", "prefill logits", "decode-step logits")
+    *ref32, tokens = prefix_and_logits(w32.params, cfg, audio1, audio2, text, "cuda", torch.float32)
+    *got16, _ = prefix_and_logits(w16.params, cfg, audio1, audio2, text, "cuda", torch.bfloat16, tokens)
+    *cpu32, _ = prefix_and_logits(params_from_jax(params, "cpu"), cfg, audio1, audio2, text, "cpu",
+                                  torch.float32, tokens)
+    for name, got, ref in zip(names, ref32, cpu32):
         if got.shape != ref.shape or not torch.isfinite(got).all():
-            raise RuntimeError(f"{name}: bad output {tuple(got.shape)}")
-        print(f"{name} {tuple(got.shape)}: CUDA vs CPU max_abs_err "
-              f"{(got - ref).abs().max().item():.3e}")
+            raise RuntimeError(f"fp32 {name}: bad output {tuple(got.shape)}")
+        print(f"fp32 {name} {tuple(got.shape)}: CUDA vs CPU max_abs_err {(got - ref).abs().max().item():.3e}")
         torch.testing.assert_close(got, ref, **SLICE_TOL)
-    return launches
+    for name, got, ref, tol in zip(names, got16, ref32, BF16_TOL):
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise RuntimeError(f"bf16 {name}: bad output {tuple(got.shape)}")
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        print(f"bf16 {name} {tuple(got.shape)}: vs fp32 CUDA max_abs_err {err:.3e} "
+              f"= {err / scale:.4f} x max|fp32| (limit {tol})")
+        if err > tol * scale:
+            raise RuntimeError(f"bf16 {name} is {err / scale:.4f} x max|fp32| from fp32, limit {tol}")
+    print(f"prefill argmax bf16 {got16[1].argmax(-1).tolist()}, fp32 {ref32[1].argmax(-1).tolist()}")
+    return {**bf16_launches, "log_mel_fp32": fp32_launches["log_mel"], "timings": timings}
+
+
+def profile_request(wrapper, request, label: str) -> dict:
+    """One warm B=1 request unprofiled (host clock), then the same request
+    under torch.profiler: device time (the sum of kernel times), kernel
+    launches, the device's idle share against both walls, and the kernels
+    that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wall_ms = _host_ms(lambda: wrapper.generate([request], max_len=MAX_LEN), reps=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_ms = _host_ms(lambda: wrapper.generate([request], max_len=MAX_LEN), reps=1)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError(f"{label}: the profiler saw no kernel on the device")
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        n, total = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, total + e.time_range.elapsed_us() / 1e3)
+    out = {"wall_ms": wall_ms, "profiled_wall_ms": profiled_ms, "device_ms": device_ms,
+           "kernel_launches": len(kernels), "idle_share": 1 - device_ms / wall_ms,
+           "idle_share_profiled": 1 - device_ms / profiled_ms}
+    print(json.dumps({"profile": label, **out}))
+    for name, (n, total) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"  {label} {total:9.3f} ms {n:6d} launches  {name[:110]}")
+    return out
 
 
 def main() -> int:
@@ -209,6 +642,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     t = time.perf_counter()
     _build.load_library()
@@ -217,13 +651,22 @@ def main() -> int:
     if os.path.exists(log):
         with open(log) as f:
             for line in f:
-                if "registers" in line or "smem" in line:
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
                     print("ptxas:", line.strip())
 
     cfg = get_config("v0")
-    row = kernel_phase(cfg.frontend)
-    row["launches"] = slice_phase(cfg)
-    print(json.dumps({"kernels": [row]}))
+    t = time.perf_counter()
+    rows = kernel_phase(cfg)
+    print(f"kernel phase took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches = slice_phase(cfg)
+    print(f"slice phase took {time.perf_counter() - t:.1f} s")
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        row["kernel_launches_per_call"] = KERNELS[row["name"]][0].KERNELS_PER_CALL
+    rows[0]["launches_fp32_path"] = launches["log_mel_fp32"]
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

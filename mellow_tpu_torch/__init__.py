@@ -7,7 +7,7 @@ the JAX package's Pallas kernels. It imports ``torch`` and never ``jax``.
 
 __version__ = "0.1.0"
 
-from mellow_tpu.config import MellowConfig, get_config  # noqa: F401
+from mellow_tpu_torch.config import MellowConfig, get_config  # noqa: F401
 
 
 def __getattr__(name):

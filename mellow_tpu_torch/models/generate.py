@@ -10,6 +10,10 @@ Port of the greedy path of ``mellow_tpu/models/generate.py``. Semantics:
 The JAX loop runs in whole flush windows, so its ``num_steps`` is rounded
 up to the window and its raw token arrays can run past this loop's; the
 stop-trimmed rows are the same.
+
+The compute dtype is the prefix's (float32 parity mode or bfloat16 perf
+mode); the KV cache, the rope tables and the logits are in it, as in the
+JAX package with its default cache dtype.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from mellow_tpu.config import LlamaConfig
+from mellow_tpu_torch.config import LlamaConfig
 from mellow_tpu_torch.models import llama
 
 
@@ -42,11 +46,10 @@ def generate(
     done mask."""
     B, P, _ = prefix_embeds.shape
     device = prefix_embeds.device
-    cache = llama.KVCache.create(cfg, B, P + max_len, device)
+    dtype = prefix_embeds.dtype
+    cache = llama.KVCache.create(cfg, B, P + max_len, device, dtype)
     hidden = llama.prefill(params, cfg, prefix_embeds, cache)
-    cos_np, sin_np = llama.rope_tables(cfg, P + max_len)
-    cos = torch.from_numpy(cos_np).to(device)
-    sin = torch.from_numpy(sin_np).to(device)
+    cos, sin = llama.rope_device_tables(cfg, P + max_len, dtype, device)
 
     tokens = torch.zeros((B, max_len), dtype=torch.int32, device=device)
     done = torch.zeros((B,), dtype=torch.bool, device=device)

@@ -7,6 +7,13 @@ weight is the pre-flattened (C*cfb*3, O) im2col matrix. Cyclic shifts are
 ``torch.roll``; the SW-MSA mask and the relative-position index are numpy
 copies of the JAX module's tables (held bit-equal by the tests).
 
+Everything runs in the dtype of the wave and the weights: float32 (parity
+mode) or bfloat16 (perf mode). In bf16 the Swin blocks whose weights pass
+the JAX package's fused-block gate (stages 1-3 at v0) run as the Swin
+block kernel (``ops/swin_block.py``: CUDA on the card, its plain version
+on the CPU), with its tanh-GELU; the rest keep the exact-erf formulation
+below with an fp32 softmax, as in the JAX package.
+
 Not ported here: the full 1025-row ``htsat_embedding`` and ``tscam_head``,
 the long-audio and infer-mode paths, ``swin_features_with_attn``,
 drop-path and SpecAugment.
@@ -21,8 +28,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mellow_tpu.config import FrontendConfig, HTSATConfig
+from mellow_tpu_torch.config import FrontendConfig, HTSATConfig
 from mellow_tpu_torch.ops import frontend as fe
+from mellow_tpu_torch.ops import swin_block as swin_kernel
 
 
 # ---------------------------------------------------------------------------
@@ -59,6 +67,13 @@ def shifted_window_mask(resolution: int, window_size: int, shift: int) -> np.nda
     mw = mw.reshape(-1, window_size * window_size)  # (nW, N)
     diff = mw[:, None, :] - mw[:, :, None]
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_mask(resolution: int, window_size: int, shift: int, device: torch.device) -> torch.Tensor:
+    """``shifted_window_mask`` as a float32 tensor on ``device``, copied
+    there once."""
+    return torch.from_numpy(shifted_window_mask(resolution, window_size, shift)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -113,10 +128,11 @@ def window_attention(
     attn = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k) + bias[None]
     if mask is not None:
         nW = mask.shape[0]
-        m = torch.from_numpy(mask).to(x.device)
+        m = torch.from_numpy(mask).to(device=x.device, dtype=attn.dtype)
         attn = (attn.reshape(Bn // nW, nW, num_heads, N, N) + m[None, :, None])
         attn = attn.reshape(Bn, num_heads, N, N)
-    attn = torch.softmax(attn, dim=-1)
+    # Softmax in fp32, back to the compute dtype (a no-op in parity mode).
+    attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(Bn, N, C)
     return linear(out, p["proj"])
 
@@ -136,6 +152,22 @@ def swin_block(
     if min(H, W) <= window_size:
         window_size = min(H, W)
         shift = 0
+
+    if (x.dtype == torch.bfloat16
+            and swin_kernel.fused_block_vmem_bytes(C, num_heads, window_size, H)
+            <= swin_kernel.FUSED_BLOCK_BUDGET):
+        N = window_size * window_size
+        idx = torch.from_numpy(relative_position_index(window_size).reshape(-1)).to(x.device)
+        bias = p["rel_bias_table"][idx].reshape(N, N, num_heads).permute(2, 0, 1).float()
+        mask = _device_mask(H, window_size, shift, x.device) if shift > 0 else None
+        x4 = x.reshape(B, H, W, C)
+        if shift > 0:
+            x4 = torch.roll(x4, shifts=(-shift, -shift), dims=(1, 2))
+        out = swin_kernel.swin_block(x4.contiguous(), p, bias.contiguous(), mask,
+                                     num_heads=num_heads, window_size=window_size)
+        if shift > 0:
+            out = torch.roll(out, shifts=(shift, shift), dims=(1, 2))
+        return out.reshape(B, L, C)
 
     shortcut = x
     x = layer_norm(x, p["norm1"]).reshape(B, H, W, C)

@@ -1,8 +1,19 @@
-"""Llama-architecture causal LM (SmolLM2-135M shape) in PyTorch, fp32.
+"""Llama-architecture causal LM (SmolLM2-135M shape) in PyTorch.
 
-Port of the fp32 path of ``mellow_tpu/models/llama.py``: RMSNorm, HF
-half-split RoPE, GQA attention that contracts query-head groups against the
-KV heads without repeating them, the SiLU-gated MLP and tied logits.
+Port of ``mellow_tpu/models/llama.py`` in its fp32 parity mode and its bf16
+perf mode: RMSNorm (in fp32, cast back), HF half-split RoPE, GQA attention
+that contracts query-head groups against the KV heads without repeating
+them, the SiLU-gated MLP and tied logits.
+
+In bf16 the port takes the JAX package's kernel paths: the prefill runs
+each layer as the attention block then the MLP block
+(``ops/attn_block.py``, ``ops/mlp_block.py``), and the decode step's
+attention is ``ops/decode_attention.py``; each is the hand-written CUDA
+kernel on the card and its plain PyTorch version on the CPU. fp32 keeps the
+plain formulation below. (The TPU's VMEM gate on its decode kernel is not
+carried over: the math is the same either way, and the card's kernel has
+no such limit.)
+
 Parameters are per layer (the JAX tree stacks them on a leading L axis;
 ``models/params.py`` unstacks):
 
@@ -14,9 +25,9 @@ Parameters are per layer (the JAX tree stacks them on a leading L axis;
     "norm_f": (D,),
   }
 
-The KV cache is a static fp32 buffer (L, B, S_max, KV, hd) written in place.
-Not ported: the packed-lane cache, pending/flush windows, chunked prefill,
-int8 and W8A8, and the fused-kernel paths of the bf16 mode.
+The KV cache is a static buffer (L, B, S_max, KV, hd) in the compute dtype,
+written in place. Not ported: the packed-lane cache, pending/flush windows,
+chunked prefill, int8 and W8A8.
 """
 
 from __future__ import annotations
@@ -27,7 +38,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mellow_tpu.config import LlamaConfig
+from mellow_tpu_torch.config import LlamaConfig
+from mellow_tpu_torch.ops.attn_block import attn_block
+from mellow_tpu_torch.ops.decode_attention import decode_attention
+from mellow_tpu_torch.ops.mlp_block import mlp_block, rms_norm
 
 
 class KVCache(NamedTuple):
@@ -38,11 +52,12 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
     @staticmethod
-    def create(cfg: LlamaConfig, batch: int, max_len: int, device) -> "KVCache":
+    def create(cfg: LlamaConfig, batch: int, max_len: int, device,
+               dtype: torch.dtype = torch.float32) -> "KVCache":
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
         return KVCache(
-            k=torch.zeros(shape, dtype=torch.float32, device=device),
-            v=torch.zeros(shape, dtype=torch.float32, device=device),
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
         )
 
 
@@ -64,8 +79,24 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return x * cos[None, :, None, :] + rotated * sin[None, :, None, :]
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * weight
+def rope_device_tables(cfg: LlamaConfig, max_len: int, dtype: torch.dtype, device):
+    """``rope_tables`` as tensors in the compute dtype on ``device`` (the
+    JAX package builds them in the compute dtype too)."""
+    cos, sin = rope_tables(cfg, max_len)
+    return (torch.from_numpy(cos).to(device=device, dtype=dtype),
+            torch.from_numpy(sin).to(device=device, dtype=dtype))
+
+
+def uses_fused_prefill(cfg: LlamaConfig, x: torch.Tensor) -> bool:
+    """The JAX package's gate for the fused prefill blocks
+    (``llama.prefill``): bf16, S <= 1024, and the attention and MLP weights
+    within their VMEM budgets. The port applies it on every device: the
+    CUDA kernels on the card, their plain versions on the CPU."""
+    D, H, KV, hd = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn_bytes = 2 * D * (2 * H + 2 * KV) * hd + 2 * ((H * hd) ** 2 + (KV * hd) ** 2)
+    mlp_bytes = 2 * 3 * D * cfg.intermediate_size
+    return (x.dtype == torch.bfloat16 and x.shape[1] <= 1024
+            and attn_bytes < 8 * 1024 * 1024 and mlp_bytes < 12 * 1024 * 1024)
 
 
 def _mlp(cfg: LlamaConfig, x: torch.Tensor, lp: dict) -> torch.Tensor:
@@ -93,7 +124,7 @@ def _attend(cfg: LlamaConfig, q, k, v, mask) -> torch.Tensor:
     attn = torch.einsum("bqhrd,bkhd->bhrqk", qg, k) * (1.0 / np.sqrt(hd))
     if mask is not None:
         attn = attn + mask
-    attn = torch.softmax(attn, dim=-1)
+    attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)  # fp32 softmax, as the JAX path
     return torch.einsum("bhrqk,bkhd->bqhrd", attn, v).reshape(B, S, H * hd)
 
 
@@ -108,9 +139,18 @@ def prefill(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, cache: 
     position, (B, D)."""
     B, S, D = inputs_embeds.shape
     device = inputs_embeds.device
-    cos_np, sin_np = rope_tables(cfg, S)
-    cos = torch.from_numpy(cos_np).to(device)
-    sin = torch.from_numpy(sin_np).to(device)
+    cos, sin = rope_device_tables(cfg, S, inputs_embeds.dtype, device)
+    if uses_fused_prefill(cfg, inputs_embeds):
+        x = inputs_embeds
+        for li, lp in enumerate(params["layers"]):
+            x, _, _ = attn_block(
+                x, lp["ln_attn"], lp["wq"], lp["wk"], lp["wv"], lp["wo"], cos, sin,
+                num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                eps=cfg.rms_norm_eps, k_out=cache.k[li, :, :S], v_out=cache.v[li, :, :S],
+            )
+            x = mlp_block(x, lp["ln_mlp"], lp["w_gate"], lp["w_up"], lp["w_down"],
+                          eps=cfg.rms_norm_eps)
+        return rms_norm(x[:, -1, :], params["norm_f"], cfg.rms_norm_eps)
     causal = torch.ones((S, S), dtype=torch.bool, device=device).tril()
     mask = torch.zeros((S, S), dtype=torch.float32, device=device).masked_fill(~causal, float("-inf"))
 
@@ -136,14 +176,22 @@ def decode_step(
 ) -> torch.Tensor:
     """One incremental step: writes this token's k/v at ``pos`` in place and
     attends over positions [0, pos]. Returns the post-final-norm hidden
-    (B, D)."""
+    (B, D). In bf16 the attention is the decode-attention kernel (its plain
+    version on the CPU); the projections and the MLP stay plain matmuls, as
+    the JAX package leaves them to XLA."""
     cos = cos_full[pos : pos + 1]
     sin = sin_full[pos : pos + 1]
     x = token_embed[:, None, :]
+    B = x.shape[0]
+    H, hd = cfg.num_heads, cfg.head_dim
     for li, lp in enumerate(params["layers"]):
         q, k, v = _qkv(cfg, x, lp, cos, sin)
         cache.k[li, :, pos : pos + 1] = k
         cache.v[li, :, pos : pos + 1] = v
-        o = _attend(cfg, q, cache.k[li, :, : pos + 1], cache.v[li, :, : pos + 1], None)
+        if x.dtype == torch.bfloat16:
+            o = decode_attention(q.reshape(B, H, hd), cache.k[li], cache.v[li], pos + 1)
+            o = o.reshape(B, 1, H * hd)
+        else:
+            o = _attend(cfg, q, cache.k[li, :, : pos + 1], cache.v[li, :, : pos + 1], None)
         x = _mlp(cfg, x + o @ lp["wo"], lp)
     return rms_norm(x[:, 0, :], params["norm_f"], cfg.rms_norm_eps)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mellow_tpu.config import MellowConfig
+from mellow_tpu_torch.config import MellowConfig
 from mellow_tpu_torch.models import generate as gen
 from mellow_tpu_torch.models import htsat
 
@@ -54,7 +54,8 @@ def generate_tokens(
     max_len: int,
     stop_token_id=None,  # default: cfg.stop_token_id
 ) -> gen.GenerateResult:
-    """Two waveforms + prompt ids -> greedy token ids."""
+    """Two waveforms + prompt ids -> greedy token ids, in the dtype of the
+    waves and the weights (float32 parity mode or bfloat16 perf mode)."""
     prefix = encode_and_prefix(params, cfg, audio1, audio2, text_ids)
     return gen.generate(
         params["decoder"], cfg.decoder, prefix, max_len=max_len,

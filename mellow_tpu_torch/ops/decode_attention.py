@@ -1,0 +1,82 @@
+"""Decode-step GQA attention over the port's KV cache: the CUDA kernel
+(``csrc/decode_attention.cu``) and its plain PyTorch version.
+
+Port of the TPU kernel ``mellow_tpu/ops/pallas_decode_attention.py``
+(``flash_gqa_decode``) for a bf16 cache. The TPU kernel reads a packed
+384-lane ``[K | V]`` cache with ``HEAD_PAD`` query rows and a flush window
+of extra positions; the port keeps its ``(L, B, S_max, KV, hd)`` cache and
+writes the step's k/v before attending, so the math is the same softmax
+over positions ``[0, n)``:
+
+    s = (q . k) / sqrt(hd) in fp32;  e = exp(s - max(s));
+    o = (e rounded to the input dtype) @ v, accumulated in fp32, / sum(e).
+
+``decode_attention`` dispatches by device: a CUDA tensor goes through the
+kernel (it raises on what the kernel does not take), a CPU tensor through
+``decode_attention_plain``. ``LAUNCHES`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from mellow_tpu_torch.ops._build import check, load_library
+
+LAUNCHES = 0
+KERNELS_PER_CALL = 1
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
+    """q (B, H, hd); k, v (B, S_max, KV, hd), positions [0, n) attended.
+    Returns (B, H, hd) in q's dtype; head h = g * (H // KV) + r reads KV
+    head g."""
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.float().reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bgrd,bngd->bgrn", qg, k[:, :n].float()) * (1.0 / math.sqrt(hd))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bgrn,bngd->bgrd", e.to(q.dtype).float(), v[:, :n].float())
+    return (o / e.sum(-1, keepdim=True)).to(q.dtype).reshape(B, H, hd)
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
+    """The kernel on the current stream: q (B, H, hd) contiguous bf16 CUDA;
+    k, v (B, S_max, KV, hd) bf16 with contiguous (KV, hd) rows (a layer of
+    the cache). Raises on any input it does not take and on a failed
+    launch."""
+    global LAUNCHES
+    B, H, hd = q.shape
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("decode_attention_cuda needs CUDA tensors")
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise ValueError(f"decode_attention_cuda needs bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"cache layer {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    KV = k.shape[2]
+    if H % KV or H // KV > 8 or hd % 8 or hd > 128 or 128 % (hd // 8):
+        raise ValueError(f"unsupported geometry H={H}, KV={KV}, hd={hd}")
+    if not 1 <= n <= k.shape[1]:
+        raise ValueError(f"n={n} outside the cache's {k.shape[1]} positions")
+    if (H // KV) * (hd + n + 8 * 128) * 4 > 200 * 1024:
+        raise ValueError(f"n={n} exceeds the kernel's shared-memory score buffer")
+    if not q.is_contiguous() or k.stride() != v.stride() or k.stride()[2:] != (hd, 1):
+        raise ValueError("decode_attention_cuda needs contiguous q and (KV, hd)-contiguous cache rows")
+    lib = load_library()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.mellow_decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, hd, n,
+            k.stride(0), k.stride(1), torch.cuda.current_stream().cuda_stream,
+        )
+    check(err, "decode attention kernel")
+    LAUNCHES += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version otherwise."""
+    if q.is_cuda:
+        return decode_attention_cuda(q, k, v, n)
+    return decode_attention_plain(q, k, v, n)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mellow_tpu.config import FrontendConfig
+from mellow_tpu_torch.config import FrontendConfig
 
 
 # ---------------------------------------------------------------------------
@@ -206,8 +206,9 @@ def batchnorm_mel(x: torch.Tensor, bn: dict, eps: float = 1e-5) -> torch.Tensor:
 
 def resize_time_bicubic(x: torch.Tensor, n_out: int) -> torch.Tensor:
     """(B, T, F) -> (B, n_out, F) cubic resize along time (torch
-    align_corners=True), as one matmul with ``bicubic_matrix``."""
-    W = torch.from_numpy(bicubic_matrix(x.shape[1], n_out)).to(x.device)
+    align_corners=True), as one matmul with ``bicubic_matrix`` in x's dtype
+    (so bf16 perf mode is not promoted to fp32)."""
+    W = torch.from_numpy(bicubic_matrix(x.shape[1], n_out)).to(device=x.device, dtype=x.dtype)
     return torch.einsum("ot,btf->bof", W, x)
 
 
@@ -227,8 +228,10 @@ def frontend_image(
     freq_ratio: int,
     target_frames: int,
 ) -> torch.Tensor:
-    """Eval front-end: waveform -> (B, 256, 256) image for the patch embed."""
-    x = log_mel_auto(wave, fe_cfg)  # (B, 1001, 64)
+    """Eval front-end: waveform -> (B, 256, 256) image for the patch embed,
+    in the wave's dtype. The log-mel itself runs in fp32 on the (possibly
+    bf16-rounded) wave and is cast back, as in the JAX package."""
+    x = log_mel_auto(wave.float(), fe_cfg).to(wave.dtype)  # (B, 1001, 64)
     x = batchnorm_mel(x, bn0)
     x = resize_time_bicubic(x, target_frames)  # (B, 1024, 64)
     return fold_time_to_freq(x, freq_ratio)  # (B, 256, 256)

@@ -11,11 +11,12 @@ from __future__ import annotations
 
 import torch
 
-from mellow_tpu.config import FrontendConfig
+from mellow_tpu_torch.config import FrontendConfig
 from mellow_tpu_torch.ops import frontend as fe
-from mellow_tpu_torch.ops._build import load_library
+from mellow_tpu_torch.ops._build import check, load_library
 
 LAUNCHES = 0
+KERNELS_PER_CALL = 1
 
 # The shapes the kernel is compiled for (csrc/melspec.cu).
 N_FFT = 1024
@@ -54,7 +55,6 @@ def log_mel_cuda(wave: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
             wave.data_ptr(), basis.data_ptr(), fb.data_ptr(), out.data_ptr(),
             B, cfg.num_samples, float(cfg.amin), fe.ref_db(cfg), stream,
         )
-    if err != 0:
-        raise RuntimeError(f"log-mel kernel launch failed: cudaError_t {err}")
+    check(err, "log-mel kernel")
     LAUNCHES += 1
     return out

@@ -3,11 +3,15 @@ signature as ``mellow_tpu.wrapper.MellowWrapper``, plus an explicit
 ``device`` (a ``torch.device`` or a string, ``"cuda"`` by default).
 
 Host preprocessing (wav decode, resample, repeat-pad / crop, tokenisation)
-is the JAX wrapper's, on the shared jax-free ``mellow_tpu.io`` and
-``mellow_tpu.native`` code. What differs:
+is the JAX wrapper's, on the port's own copies of that code
+(``mellow_tpu_torch.io`` and ``mellow_tpu_torch.native``). What differs:
 
-  * fp32 greedy only: ``sample=True``, a non-fp32 ``kv_cache_dtype`` or
-    ``compute_dtype``, ``weight_dtype``, ``mesh``, ``dynamic_batch`` and
+  * greedy only, in fp32 parity mode (``compute_dtype`` None or
+    "float32") or bf16 perf mode (``compute_dtype="bfloat16"``: every
+    floating weight, the audio and the KV cache in bf16, the hand-written
+    decode-attention, prefill-block and Swin-block kernels on the card);
+    ``kv_cache_dtype`` may only name the compute dtype; ``sample=True``,
+    ``weight_dtype``, ``mesh``, ``dynamic_batch`` and
     ``repetition_penalty != 1`` raise;
   * no power-of-two batch buckets: eager PyTorch does not recompile per
     shape, so the batch runs as given;
@@ -23,17 +27,18 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from mellow_tpu.config import MellowConfig, get_config
-from mellow_tpu.io.resample import resample
-from mellow_tpu.io.tokenizer import load_tokenizer
-from mellow_tpu.io.wav import read_wav
-from mellow_tpu.native import binding as native_audio
-from mellow_tpu.utils.metrics import GLOBAL as metrics
-from mellow_tpu.utils.params_io import load_params
+from mellow_tpu_torch.config import MellowConfig, get_config
+from mellow_tpu_torch.io.resample import resample
+from mellow_tpu_torch.io.tokenizer import load_tokenizer
+from mellow_tpu_torch.io.wav import read_wav
+from mellow_tpu_torch.native import binding as native_audio
+from mellow_tpu_torch.utils.metrics import GLOBAL as metrics
+from mellow_tpu_torch.utils.params_io import load_params
 from mellow_tpu_torch.models import mellow as mellow_model
 from mellow_tpu_torch.models.params import count_params, params_from_jax
 
 _MODELS = ("v0", "v0_s")  # the two published checkpoints of the v0 architecture
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class MellowWrapper:
@@ -61,8 +66,10 @@ class MellowWrapper:
         self.cfg: MellowConfig = get_config(config)
         if compute_dtype:
             self.cfg = self.cfg.replace(compute_dtype=compute_dtype)
-        if self.cfg.compute_dtype != "float32":
-            raise NotImplementedError("the port runs compute_dtype='float32' only")
+        if self.cfg.compute_dtype not in _DTYPES:
+            raise NotImplementedError(
+                f"compute_dtype={self.cfg.compute_dtype!r} is not ported; use one of {sorted(_DTYPES)}")
+        self.dtype = _DTYPES[self.cfg.compute_dtype]
         if self.cfg.decoder_family != "llama":
             raise NotImplementedError("the port runs the llama decoder family only")
         if weight_dtype is not None:
@@ -73,12 +80,13 @@ class MellowWrapper:
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(f"device {self.device} requested but CUDA is not available")
-            # fp32 parity mode: no TF32 anywhere (the JAX wrapper's
-            # "highest" matmul precision).
+            # No TF32 anywhere: fp32 parity mode is the JAX wrapper's
+            # "highest" matmul precision, and bf16 mode's fp32 parts
+            # (log-mel, softmaxes) stay full fp32 too.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
 
-        self.params = params_from_jax(self._load_params(params_path, params), self.device)
+        self.params = params_from_jax(self._load_params(params_path, params), self.device, self.dtype)
         if use_native_audio is None:
             self._native = native_audio if native_audio.available() else None
         elif use_native_audio:
@@ -176,8 +184,10 @@ class MellowWrapper:
         answer and are accepted for API parity."""
         if sample:
             raise NotImplementedError("sample=True (nucleus sampling) is not ported")
-        if kv_cache_dtype not in (None, "float32"):
-            raise NotImplementedError(f"kv_cache_dtype={kv_cache_dtype!r} is not ported")
+        if kv_cache_dtype not in (None, self.cfg.compute_dtype):
+            raise NotImplementedError(
+                f"kv_cache_dtype={kv_cache_dtype!r} is not ported under "
+                f"compute_dtype={self.cfg.compute_dtype!r}")
         if repetition_penalty != 1.0:
             raise NotImplementedError("repetition_penalty is not ported")
         if dynamic_batch:
@@ -192,8 +202,8 @@ class MellowWrapper:
         with metrics.timer("generate"):
             result = mellow_model.generate_tokens(
                 self.params, self.cfg,
-                torch.from_numpy(audio1).to(self.device),
-                torch.from_numpy(audio2).to(self.device),
+                torch.from_numpy(audio1).to(device=self.device, dtype=self.dtype),
+                torch.from_numpy(audio2).to(device=self.device, dtype=self.dtype),
                 torch.from_numpy(text_ids).to(self.device),
                 max_len=max_len, stop_token_id=stop_token_id,
             )

@@ -1,0 +1,74 @@
+"""The prefill attention block's plain version (mellow_tpu_torch.ops.
+attn_block) against the TPU kernel it ports,
+``pallas_attn_block.fused_attn_block``, run in interpret mode on the CPU as
+the JAX package's own tests run it. S = 13 leaves a ragged tail of the
+kernel's 8-row alignment.
+
+Tolerances: fp32 within atol 1e-4 (sums in another order); bf16 within
+3e-2 x max|ref| per output (RoPE is rounded once here and after each of its
+three steps on the TPU; sums run in another order)."""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from mellow_tpu.config import LlamaConfig
+from mellow_tpu.models.llama import rope_tables
+from mellow_tpu.ops.pallas_attn_block import fused_attn_block
+from mellow_tpu_torch.ops import attn_block as ab
+
+B, S, D, H, KV, HD = 2, 13, 64, 4, 2, 16
+KW = dict(num_heads=H, num_kv_heads=KV, head_dim=HD, eps=1e-5)
+
+
+def _inputs():
+    rng = np.random.RandomState(4)
+    cos, sin = rope_tables(LlamaConfig(head_dim=HD), S)
+    return {
+        "x": (rng.randn(B, S, D) * 0.5).astype(np.float32),
+        "ln_w": (rng.randn(D) * 0.1 + 1.0).astype(np.float32),
+        "wq": (rng.randn(D, H * HD) * 0.1).astype(np.float32),
+        "wk": (rng.randn(D, KV * HD) * 0.1).astype(np.float32),
+        "wv": (rng.randn(D, KV * HD) * 0.1).astype(np.float32),
+        "wo": (rng.randn(H * HD, D) * 0.1).astype(np.float32),
+        "cos": cos, "sin": sin,
+    }
+
+
+@pytest.fixture(scope="module", params=["fp32", "bf16"])
+def pair(request):
+    dtype, jdtype = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}[request.param]
+    args = {k: torch.from_numpy(v).to(dtype) for k, v in _inputs().items()}
+    ours = ab.attn_block_plain(*args.values(), **KW)
+    theirs = fused_attn_block(
+        *(jnp.asarray(t.float().numpy(), jdtype) for t in args.values()), interpret=True, **KW)
+    return request.param, [t.float().numpy() for t in ours], [np.asarray(t.astype(jnp.float32)) for t in theirs]
+
+
+@pytest.mark.parametrize("i, name", [(0, "out"), (1, "k"), (2, "v")])
+def test_plain_matches_tpu_kernel(pair, i, name):
+    mode, ours, theirs = pair
+    assert ours[i].shape == theirs[i].shape
+    assert np.isfinite(ours[i]).all()
+    atol = 1e-4 if mode == "fp32" else 3e-2 * np.abs(theirs[i]).max()
+    np.testing.assert_allclose(ours[i], theirs[i], atol=atol, rtol=0, err_msg=name)
+
+
+def test_dispatch_writes_kv_destinations_on_cpu():
+    args = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in _inputs().items()}
+    cache = torch.zeros((2, B, S + 5, KV, HD), dtype=torch.bfloat16)
+    before = ab.LAUNCHES
+    out, k, v = ab.attn_block(*args.values(), **KW, k_out=cache[0, :, :S], v_out=cache[1, :, :S])
+    assert ab.LAUNCHES == before
+    ref = ab.attn_block_plain(*args.values(), **KW)
+    torch.testing.assert_close(out, ref[0], rtol=0, atol=0)
+    torch.testing.assert_close(cache[0, :, :S].reshape(B, S, -1), ref[1], rtol=0, atol=0)
+    torch.testing.assert_close(cache[1, :, :S].reshape(B, S, -1), ref[2], rtol=0, atol=0)
+    assert cache[:, :, S:].abs().sum() == 0
+
+
+def test_cuda_wrapper_rejects_cpu_tensors():
+    args = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in _inputs().items()}
+    with pytest.raises(ValueError, match="CUDA"):
+        ab.attn_block_cuda(*args.values(), **KW)

@@ -1,0 +1,116 @@
+"""The port's bf16 perf mode against the JAX package's, end to end at the
+tiny configuration on the CPU: both wrappers at ``compute_dtype="bfloat16"``
+with the same weights and clips.
+
+On the CPU the port runs the plain versions of its kernels (which follow the
+TPU kernels' rounding points) and the JAX package runs its XLA
+formulation, so the two round at different places. Held:
+
+* the audio prefix (B, P, D) within 3e-2 x max|ref|;
+* the prefill logits (B, V) within 5e-2 x max|ref| (four decoder layers of
+  bf16 rounding at different points on top of the prefix's);
+* the first greedy token of every row identical; the agreement of the
+  later tokens is printed, and gated only loosely (>= 50 %), since one
+  flipped near-tie changes every token after it."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from mellow_tpu.models import llama as jllama
+from mellow_tpu.models import mellow as jmellow
+from mellow_tpu.wrapper import MellowWrapper as JaxWrapper
+from mellow_tpu_torch.models import llama as tllama
+from mellow_tpu_torch.models import mellow as tmellow
+from mellow_tpu_torch.models.params import params_from_jax
+from mellow_tpu_torch.ops import attn_block, decode_attention, mlp_block, swin_block
+from mellow_tpu_torch.wrapper import MellowWrapper as TorchWrapper
+from tests.test_torch_e2e import _DistinctTokenizer, _write_wav
+from tests.torch_port_common import TINY, jax_params_np, waves
+
+MAX_LEN = 8
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    rng = np.random.RandomState(9)
+    text_ids = rng.randint(2, 500, size=(2, TINY.text_tokenization_len)).astype(np.int32)
+    return waves(2, 31), waves(2, 32), text_ids
+
+
+@functools.partial(jax.jit, static_argnums=(1,))
+def _jax_prefix_logits(params, cfg, a1, a2, text_ids):
+    prefix = jmellow.encode_and_prefix(params, cfg, a1, a2, text_ids)
+    B, P, _ = prefix.shape
+    cache = jllama.KVCache.create(cfg.decoder, B, P, jnp.bfloat16)
+    hidden, _ = jllama.prefill(params["decoder"], cfg.decoder, prefix, cache)
+    return prefix, jllama.logits_from_hidden(params["decoder"], cfg.decoder, hidden)
+
+
+@pytest.fixture(scope="module")
+def prefix_logits(inputs):
+    a1, a2, text_ids = inputs
+    jp = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), jax_params_np())
+    jprefix, jlogits = _jax_prefix_logits(
+        jp, TINY, jnp.asarray(a1, jnp.bfloat16), jnp.asarray(a2, jnp.bfloat16), jnp.asarray(text_ids))
+    tp = params_from_jax(jax_params_np(), "cpu", torch.bfloat16)
+    with torch.no_grad():
+        prefix = tmellow.encode_and_prefix(
+            tp, TINY, torch.from_numpy(a1).bfloat16(), torch.from_numpy(a2).bfloat16(),
+            torch.from_numpy(text_ids))
+        cache = tllama.KVCache.create(TINY.decoder, 2, prefix.shape[1], "cpu", torch.bfloat16)
+        hidden = tllama.prefill(tp["decoder"], TINY.decoder, prefix, cache)
+        logits = tllama.logits_from_hidden(tp["decoder"], TINY.decoder, hidden)
+    assert prefix.dtype == logits.dtype == cache.k.dtype == torch.bfloat16
+    return ((prefix.float().numpy(), np.asarray(jprefix.astype(jnp.float32))),
+            (logits.float().numpy(), np.asarray(jlogits.astype(jnp.float32))))
+
+
+def test_prefix_matches_jax_bf16(prefix_logits):
+    ours, theirs = prefix_logits[0]
+    assert ours.shape == theirs.shape == (2, TINY.prefix_length, TINY.decoder.hidden_size)
+    assert np.isfinite(ours).all()
+    np.testing.assert_allclose(ours, theirs, atol=3e-2 * np.abs(theirs).max(), rtol=0)
+
+
+def test_prefill_logits_match_jax_bf16(prefix_logits):
+    ours, theirs = prefix_logits[1]
+    assert ours.shape == theirs.shape == (2, TINY.decoder.vocab_size)
+    np.testing.assert_allclose(ours, theirs, atol=5e-2 * np.abs(theirs).max(), rtol=0)
+    np.testing.assert_array_equal(ours.argmax(-1), theirs.argmax(-1))
+
+
+def test_wrapper_greedy_tokens_against_jax_bf16(tmp_path):
+    short = _write_wav(tmp_path / "short.wav", 7.0, 3)
+    long = _write_wav(tmp_path / "long.wav", 11.0, 4)
+    examples = [[short, long, "caption the audio."], [long, short, "what changed?"]]
+    tok = _DistinctTokenizer()
+    never = chr(tok.BASE + TINY.decoder.vocab_size)  # no row stops early
+    tw = TorchWrapper(TINY.name, "v0", "cpu", params=jax_params_np(), tokenizer=tok,
+                      compute_dtype="bfloat16", use_native_audio=False)
+    assert all(t.dtype == torch.bfloat16 for t in jax.tree.leaves(tw.params))
+    counts = [m.LAUNCHES for m in (attn_block, decode_attention, mlp_block, swin_block)]
+    ours = tw.generate(examples, max_len=MAX_LEN, crop_start=0, stop_token=never)
+    # On the CPU every kernel is its plain version: no launch is counted.
+    assert [m.LAUNCHES for m in (attn_block, decode_attention, mlp_block, swin_block)] == counts
+    jw = JaxWrapper(TINY.name, "v0", 0, params=jax.tree.map(jnp.asarray, jax_params_np()),
+                    tokenizer=tok, compute_dtype="bfloat16", use_native_audio=False)
+    theirs = jw.generate(examples, max_len=MAX_LEN, crop_start=0, stop_token=never)
+    assert [len(s) for s in ours] == [len(s) for s in theirs] == [MAX_LEN, MAX_LEN]
+    assert [s[0] for s in ours] == [s[0] for s in theirs]
+    same = sum(a == b for o, t in zip(ours, theirs) for a, b in zip(o[1:], t[1:]))
+    total = sum(len(o) - 1 for o in ours)
+    print(f"bf16 greedy agreement after the first token: {same}/{total}")
+    assert same >= total // 2
+
+
+@pytest.mark.parametrize("kwargs", [{"kv_cache_dtype": "float32"}, {"kv_cache_dtype": "int8"}])
+def test_bf16_wrapper_refuses_other_cache_dtypes(kwargs):
+    tw = TorchWrapper(TINY.name, "v0", "cpu", params=jax_params_np(), tokenizer=_DistinctTokenizer(),
+                      compute_dtype="bfloat16", use_native_audio=False)
+    with pytest.raises(NotImplementedError):
+        tw.generate([["a.wav", "b.wav", "x"]], max_len=2, **kwargs)

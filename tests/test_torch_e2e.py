@@ -1,8 +1,10 @@
 """The port end to end against the JAX package at the tiny configuration:
 greedy tokens identical after the per-row stop trim, wrapper strings
-identical, no JAX import anywhere in the port, and the same parameter tree
-as the JAX package's init."""
+identical, no import of JAX or of the JAX package anywhere in the port or
+in chip_smoke.py, and the same parameter tree as the JAX package's init."""
 
+import ast
+import os
 import subprocess
 import sys
 import wave
@@ -170,19 +172,35 @@ def test_wrapper_cuda_device_without_cuda_raises():
 
 
 def test_port_never_imports_jax():
+    """Every module of the port imports with jax, jaxlib and the JAX package
+    blocked, and chip_smoke.py names none of them in any import."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['jaxlib'] = None\n"
+        "for name in ('jax', 'jaxlib', 'mellow_tpu'):\n"
+        "    sys.modules[name] = None\n"
         "import mellow_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(mellow_tpu_torch.__path__, 'mellow_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "print(len(names))\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'mellow_tpu')\n"
+        "       and sys.modules[n] is not None]\n"
+        "print(len(names), bad)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          timeout=120)
+                          timeout=120, cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 10
+    count, bad = proc.stdout.strip().split(" ", 1)
+    assert int(count) >= 20 and bad == "[]"
+
+    smoke = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    with open(smoke) as f:
+        tree = ast.parse(f.read())
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            imported.append(node.module)
+    assert imported and not [n for n in imported if n.split(".")[0] in ("jax", "jaxlib", "mellow_tpu")]
 
 
 def _shapes(tree):

@@ -4,16 +4,22 @@ JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_kernels.py
 
-Tolerance: atol 5e-4 dB / rtol 1e-4, what the TPU kernel is held to
-(fp32 DFT sums of 1024 terms in another order)."""
+Tolerances: the log-mel within atol 5e-4 dB / rtol 1e-4, what the TPU
+kernel is held to (fp32 DFT sums of 1024 terms in another order); the bf16
+kernels within 2e-2 x max|plain| (both round at the same points; the sums
+run in another order, so a value may round to the neighbouring bf16)."""
 
 import numpy as np
 import pytest
 import torch
 
-from mellow_tpu.config import FrontendConfig
+from mellow_tpu_torch.config import FrontendConfig
 from mellow_tpu_torch.ops import frontend as fe
+from mellow_tpu_torch.ops import attn_block as ab
+from mellow_tpu_torch.ops import decode_attention as da
 from mellow_tpu_torch.ops import melspec
+from mellow_tpu_torch.ops import mlp_block as mb
+from mellow_tpu_torch.ops import swin_block as sb
 
 pytestmark = pytest.mark.cuda
 
@@ -64,3 +70,91 @@ def test_log_mel_auto_launches_the_kernel_on_cuda(device):
 def test_log_mel_kernel_rejects_what_it_does_not_take(device, make):
     with pytest.raises(ValueError):
         melspec.log_mel_cuda(make(_wave(1, 8, device)), CFG)
+
+
+BF16_TOL = 2e-2
+
+
+def _bf16(rng, *shape, scale=1.0, device="cuda"):
+    return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(device, torch.bfloat16)
+
+
+def _close_bf16(out, ref):
+    assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= BF16_TOL * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("B, n", [(1, 389), (4, 420), (2, 7)])
+def test_decode_attention_kernel_matches_plain_version(device, B, n):
+    rng = np.random.RandomState(n)
+    H, KV, hd, s_max = 9, 3, 64, 450
+    q = _bf16(rng, B, H, hd)
+    k = _bf16(rng, 2, B, s_max, KV, hd)[1]  # a layer view of a cache, as in decode
+    v = _bf16(rng, 2, B, s_max, KV, hd)[1]
+    before = da.LAUNCHES
+    out = da.decode_attention(q, k, v, n)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES == before + 1
+    _close_bf16(out, da.decode_attention_plain(q, k, v, n))
+
+
+@pytest.mark.parametrize("B, S", [(1, 389), (2, 100), (1, 13)])
+def test_attn_block_kernel_matches_plain_version(device, B, S):
+    rng = np.random.RandomState(S)
+    D, H, KV, hd = 576, 9, 3, 64
+    x = _bf16(rng, B, S, D, scale=0.5)
+    ws = [_bf16(rng, D, scale=0.1) + 1, _bf16(rng, D, H * hd, scale=0.05),
+          _bf16(rng, D, KV * hd, scale=0.05), _bf16(rng, D, KV * hd, scale=0.05),
+          _bf16(rng, H * hd, D, scale=0.05)]
+    t = torch.arange(S, dtype=torch.float32, device="cuda")[:, None]
+    inv = 1.0 / (100000.0 ** (torch.arange(0, hd, 2, device="cuda").float() / hd))
+    emb = torch.cat([t * inv, t * inv], dim=-1)
+    cos, sin = emb.cos().bfloat16(), emb.sin().bfloat16()
+    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd, eps=1e-5)
+    cache = torch.zeros((2, B, S + 8, KV, hd), dtype=torch.bfloat16, device="cuda")
+    before = ab.LAUNCHES
+    out, k, v = ab.attn_block(x, *ws, cos, sin, **kw, k_out=cache[0, :, :S], v_out=cache[1, :, :S])
+    torch.cuda.synchronize()
+    assert ab.LAUNCHES == before + 1
+    ref = ab.attn_block_plain(x, *ws, cos, sin, **kw)
+    for got, want in zip((out, k, v), ref):
+        _close_bf16(got, want)
+    assert cache[:, :, S:].abs().sum().item() == 0
+
+
+@pytest.mark.parametrize("B, S", [(1, 389), (4, 389), (2, 13)])
+def test_mlp_block_kernel_matches_plain_version(device, B, S):
+    rng = np.random.RandomState(S + B)
+    D, I = 576, 1536
+    args = [_bf16(rng, B, S, D, scale=0.5), _bf16(rng, D, scale=0.1) + 1,
+            _bf16(rng, D, I, scale=0.05), _bf16(rng, D, I, scale=0.05), _bf16(rng, I, D, scale=0.05)]
+    before = mb.LAUNCHES
+    out = mb.mlp_block(*args, eps=1e-5)
+    torch.cuda.synchronize()
+    assert mb.LAUNCHES == before + 1
+    _close_bf16(out, mb.mlp_block_plain(*args, eps=1e-5))
+
+
+@pytest.mark.parametrize("B, R, C, H, shift", [(1, 64, 96, 4, 4), (2, 32, 192, 8, 0), (1, 16, 384, 16, 4)])
+def test_swin_block_kernel_matches_plain_version(device, B, R, C, H, shift):
+    from mellow_tpu_torch.models.htsat import shifted_window_mask
+
+    rng = np.random.RandomState(R)
+
+    def lin(i, o):
+        return {"kernel": _bf16(rng, i, o, scale=0.05), "bias": _bf16(rng, o, scale=0.02)}
+
+    def ln():
+        return {"scale": _bf16(rng, C, scale=0.1) + 1, "bias": _bf16(rng, C, scale=0.02)}
+
+    p = {"norm1": ln(), "qkv": lin(C, 3 * C), "proj": lin(C, C), "norm2": ln(),
+         "fc1": lin(C, 4 * C), "fc2": lin(4 * C, C)}
+    x = _bf16(rng, B, R, R, C, scale=0.5)
+    bias = _bf16(rng, H, 64, 64, scale=0.5).float()
+    mask = torch.from_numpy(shifted_window_mask(R, 8, shift)).cuda() if shift else None
+    before = sb.LAUNCHES
+    out = sb.swin_block(x, p, bias, mask, num_heads=H, window_size=8)
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES == before + 1
+    _close_bf16(out, sb.swin_block_plain(x, p, bias, mask, num_heads=H, window_size=8))

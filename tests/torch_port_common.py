@@ -12,6 +12,7 @@ import jax
 
 from mellow_tpu.config import HTSATConfig, LlamaConfig, MellowConfig, register_config
 from mellow_tpu.models import mellow as jmellow
+from mellow_tpu_torch import config as tconfig
 
 DEC = LlamaConfig(
     vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=4,
@@ -23,6 +24,17 @@ TINY = MellowConfig(
     text_tokenization_len=8, prefix_length=268,
 ).validate()
 register_config(TINY.name, TINY)
+# The port keeps its own config classes and registry: the same tiny config
+# there, so that the port's wrappers find it by name.
+tconfig.register_config(TINY.name, tconfig.MellowConfig(
+    name=TINY.name,
+    encoder=tconfig.HTSATConfig(embed_dim=24, out_emb=192),
+    decoder=tconfig.LlamaConfig(
+        vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=4,
+        num_heads=4, num_kv_heads=2, head_dim=16,
+    ),
+    d_proj=64, text_tokenization_len=8, prefix_length=268,
+))
 
 
 @functools.lru_cache(maxsize=1)
