@@ -27,7 +27,15 @@ result line is printed:
    bf16 prefix, prefill logits and one decode step's logits are held
    against the fp32 CUDA path (and fp32 CUDA against the CPU); the greedy
    token agreement with fp32 is printed;
-6. timings of both paths by stage (host preprocessing, log-mel, encoder,
+6. int8 path: the same requests at ``weight_dtype="int8-w8a8"`` with
+   ``kv_cache_dtype="int8"`` (the W8A8 prefill blocks and the int8 decode
+   attention), every call's launches checked; then one request at
+   ``weight_dtype="int8"`` with an int8 cache (the bf16 blocks in their
+   ``kv_quant`` mode), its launches checked; at a batch of 2 the int8
+   path's prefix must equal bf16's and its prefill logits and one decode
+   step's logits are held against the bf16 CUDA path; the greedy token
+   agreement with bf16 is printed;
+7. timings of the paths by stage (host preprocessing, log-mel, encoder,
    prefill, decode step as the slope of two lengths, whole request), and
    torch.profiler over one warm B=1 request of each path (device time,
    kernel launches, the device's idle share).
@@ -64,9 +72,12 @@ from mellow_tpu_torch.models.mellow import encode_and_prefix, init_params
 from mellow_tpu_torch.models.params import params_from_jax
 from mellow_tpu_torch.ops import _build, melspec
 from mellow_tpu_torch.ops import attn_block as ab
+from mellow_tpu_torch.ops import attn_block_w8a8 as aw
 from mellow_tpu_torch.ops import decode_attention as da
+from mellow_tpu_torch.ops import decode_attention_int8 as di
 from mellow_tpu_torch.ops import frontend as fe
 from mellow_tpu_torch.ops import mlp_block as mb
+from mellow_tpu_torch.ops import mlp_block_w8a8 as mw
 from mellow_tpu_torch.ops import swin_block as sb
 from mellow_tpu_torch.serving import BatchingEngine
 from mellow_tpu_torch.utils.metrics import GLOBAL as metrics
@@ -90,18 +101,52 @@ SLICE_TOL = {"atol": 2e-3, "rtol": 1e-3}
 # Limits 2-3x above what the card read (PERF.md): prefix, prefill logits,
 # one decode step's logits.
 BF16_TOL = (2.5e-2, 3.5e-2, 3.5e-2)
-# One NVIDIA H100 SXM (data sheet, dense): bf16 tensor cores, fp32 without
-# tensor cores, HBM3.
+# The int8 path (W8A8 weights, int8 cache) against the bf16 path on the
+# card, relative to bf16's largest magnitude: prefill logits and one decode
+# step's logits (30 layers of per-row int8 activations, int8 weights and an
+# int8 cache). Limits 2.5x above what the card read (PERF.md).
+INT8_TOL = (7.5e-2, 6e-2)
+# int8 kernels' int8 k/v rows against their plain versions: one level; the
+# scales within one bf16 ulp of the row's max (2^-7 relative).
+INT8_LEVELS = 1
+SCALE_RTOL = 2.0 ** -7
+# One NVIDIA H100 SXM (data sheet, dense): bf16 and int8 tensor cores, fp32
+# without tensor cores, HBM3.
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_FP32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
-KERNELS = {  # name -> (module, source, the TPU kernel it replaces)
-    "log_mel": (melspec, "mellow_tpu_torch/csrc/melspec.cu", "mellow_tpu/ops/pallas_melspec.py:84"),
-    "decode_attention": (da, "mellow_tpu_torch/csrc/decode_attention.cu",
+# name -> (module, its launch counter, its kernels-per-call constant, source,
+# the TPU kernel it replaces)
+KERNELS = {
+    "log_mel": (melspec, "LAUNCHES", "KERNELS_PER_CALL", "mellow_tpu_torch/csrc/melspec.cu",
+                "mellow_tpu/ops/pallas_melspec.py:84"),
+    "decode_attention": (da, "LAUNCHES", "KERNELS_PER_CALL", "mellow_tpu_torch/csrc/decode_attention.cu",
                          "mellow_tpu/ops/pallas_decode_attention.py:238"),
-    "attn_block": (ab, "mellow_tpu_torch/csrc/attn_block.cu", "mellow_tpu/ops/pallas_attn_block.py:239"),
-    "mlp_block": (mb, "mellow_tpu_torch/csrc/mlp_block.cu", "mellow_tpu/ops/pallas_mlp_block.py:92"),
-    "swin_block": (sb, "mellow_tpu_torch/csrc/swin_block.cu", "mellow_tpu/ops/pallas_swin_block.py:179"),
+    "attn_block": (ab, "LAUNCHES", "KERNELS_PER_CALL", "mellow_tpu_torch/csrc/attn_block.cu",
+                   "mellow_tpu/ops/pallas_attn_block.py:239"),
+    "mlp_block": (mb, "LAUNCHES", "KERNELS_PER_CALL", "mellow_tpu_torch/csrc/mlp_block.cu",
+                  "mellow_tpu/ops/pallas_mlp_block.py:92"),
+    "swin_block": (sb, "LAUNCHES", "KERNELS_PER_CALL", "mellow_tpu_torch/csrc/swin_block.cu",
+                   "mellow_tpu/ops/pallas_swin_block.py:179"),
+    # The same function as flash_gqa_decode's int8 branch (:164-223).
+    "decode_attention_int8": (di, "LAUNCHES", "KERNELS_PER_CALL",
+                              "mellow_tpu_torch/csrc/decode_attention_int8.cu",
+                              "mellow_tpu/ops/pallas_decode_attention.py:511"),
+    # fused_attn_block's kv_quant mode (_emit_quantized_kv, :139).
+    "attn_block_kv_quant": (ab, "LAUNCHES_KV_QUANT", "KERNELS_PER_CALL_KV_QUANT",
+                            "mellow_tpu_torch/csrc/attn_block.cu", "mellow_tpu/ops/pallas_attn_block.py:239"),
+    "attn_block_w8a8": (aw, "LAUNCHES", "KERNELS_PER_CALL", "mellow_tpu_torch/csrc/attn_block_w8a8.cu",
+                        "mellow_tpu/ops/pallas_attn_block.py:435"),
+    "mlp_block_w8a8": (mw, "LAUNCHES", "KERNELS_PER_CALL", "mellow_tpu_torch/csrc/mlp_block_w8a8.cu",
+                       "mellow_tpu/ops/pallas_mlp_block.py:141"),
+}
+# The generate paths the smoke drives: wrapper options, generate options.
+PATHS = {
+    "fp32": ({}, {}),
+    "bf16": ({"compute_dtype": "bfloat16"}, {}),
+    "int8": ({"compute_dtype": "bfloat16", "weight_dtype": "int8-w8a8"}, {"kv_cache_dtype": "int8"}),
+    "int8_weights": ({"compute_dtype": "bfloat16", "weight_dtype": "int8"}, {"kv_cache_dtype": "int8"}),
 }
 
 
@@ -207,7 +252,7 @@ def _case(name, shape, err, tol, ms, plain_ms, bound, library_ms=None) -> dict:
 def _row(name, cases) -> dict:
     """The kernel's line: the numbers of its first case (the shape of a B=1
     request), the largest error over all cases, and every case."""
-    _, source, replaces = KERNELS[name]
+    *_, source, replaces = KERNELS[name]
     first = cases[0]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -365,11 +410,139 @@ def bench_swin_block(enc) -> dict:
     return _row("swin_block", cases)
 
 
+def _int8_weight(rng, *shape, scale=0.05):
+    """int8 (in, out) values and bf16 per-column scales, as the wrapper makes
+    them (quantize the fp32 weight, cast the scale)."""
+    w = torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).cuda()
+    q = llama.quantize_weight(w)
+    return q["q"], q["scale"].bfloat16()
+
+
+def _check_int8_kv(name, got, want) -> dict:
+    """int8 k/v rows within INT8_LEVELS of the plain version's, the scales
+    within SCALE_RTOL; returns the readings."""
+    levels = max((g.int() - w.int()).abs().max().item() for g, w in zip(got[:2], want[:2]))
+    rel = max(((g - w).abs() / w.abs()).max().item() for g, w in zip(got[2:], want[2:]))
+    if any(g.dtype != torch.int8 or g.shape != w.shape for g, w in zip(got[:2], want[:2])):
+        raise RuntimeError(f"{name}: bad int8 k/v outputs")
+    if levels > INT8_LEVELS or rel > SCALE_RTOL:
+        raise RuntimeError(f"{name}: int8 k/v {levels} levels, scales {rel:.3e} relative off the plain one")
+    return {"kv_int8_max_level_diff": levels, "kv_scale_max_rel_err": rel}
+
+
+def bench_decode_attention_int8(dec, prefix_len: int) -> dict:
+    rng = np.random.default_rng(SEED + 5)
+    H, KV, hd = dec.num_heads, dec.num_kv_heads, dec.head_dim
+    s_max = prefix_len + MAX_LEN
+    cases = []
+    for batch, n in ((1, prefix_len), (1, prefix_len + 31), (4, prefix_len), (4, prefix_len + 31)):
+        q = _bf16(rng, batch, H, hd)
+        k8, ks = llama.quantize_kv(_bf16(rng, batch, s_max, KV * hd, scale=0.5))
+        v8, vs = llama.quantize_kv(_bf16(rng, batch, s_max, KV * hd))
+        k8, v8 = k8.reshape(batch, s_max, KV, hd), v8.reshape(batch, s_max, KV, hd)
+        cur = (_bf16(rng, batch, KV, hd, scale=0.5), _bf16(rng, batch, KV, hd))
+        args = (q, k8, v8, ks, vs, n, *cur)
+        out = di.decode_attention_int8_cuda(*args)
+        torch.cuda.synchronize()
+        err = _check_bf16("decode_attention_int8", out, di.decode_attention_int8_plain(*args))
+        ms, plain_ms = _alternate(lambda: di.decode_attention_int8_plain(*args),
+                                  lambda: di.decode_attention_int8_cuda(*args))
+        # q, the step's row and the output in bf16; n positions of int8 k
+        # and v and their fp32 scales. No PyTorch call takes an int8 cache.
+        n_bytes = _nbytes(q, out, *cur) + 2 * batch * n * (KV * hd + 4)
+        bound = _bound(n_bytes, 4 * batch * H * n * hd, PEAK_INT8)
+        cases.append(_case("decode_attention_int8", f"B={batch} n={n}", err,
+                           f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound))
+    return _row("decode_attention_int8", cases)
+
+
+def _attn_flops(batch, S, D, H, KV, hd):
+    """(projection operations, attention operations) of one attention block:
+    the q/k/v and o products, and the causal triangle of QK^T and PV."""
+    M = batch * S
+    return (2 * M * D * (H + 2 * KV) * hd + 2 * M * H * hd * D,
+            2 * 2 * batch * H * hd * (S * (S + 1) // 2))
+
+
+def bench_attn_block_kv_quant(dec, S: int) -> dict:
+    rng = np.random.default_rng(SEED + 6)
+    lp = _decoder_layer(rng, dec)
+    D, H, KV, hd = dec.hidden_size, dec.num_heads, dec.num_kv_heads, dec.head_dim
+    cos, sin = llama.rope_device_tables(dec, S, torch.bfloat16, "cuda")
+    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd, eps=dec.rms_norm_eps, kv_quant=True)
+    w = [lp[k] for k in ("ln_attn", "wq", "wk", "wv", "wo")]
+    cases = []
+    for batch in (1, 4):
+        x = _bf16(rng, batch, S, D, scale=0.5)
+        got = ab.attn_block_cuda(x, *w, cos, sin, **kw)
+        torch.cuda.synchronize()
+        ref = ab.attn_block_plain(x, *w, cos, sin, **kw)
+        err = _check_bf16("attn_block kv_quant output", got[0], ref[0])
+        kv = _check_int8_kv("attn_block kv_quant", got[1:], ref[1:])
+        ms, plain_ms = _alternate(lambda: ab.attn_block_plain(x, *w, cos, sin, **kw),
+                                  lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
+        bound = _bound(_nbytes(x, *w, cos, sin, *got), sum(_attn_flops(batch, S, D, H, KV, hd)), PEAK_BF16)
+        cases.append({**_case("attn_block_kv_quant", f"B={batch} S={S}", err,
+                              f"{BF16_KERNEL_TOL} x max|plain|; int8 k/v {INT8_LEVELS} level, "
+                              f"scales {SCALE_RTOL:.2e} rel", ms, plain_ms, bound), **kv})
+    return _row("attn_block_kv_quant", cases)
+
+
+def bench_attn_block_w8a8(dec, S: int) -> dict:
+    rng = np.random.default_rng(SEED + 7)
+    D, H, KV, hd = dec.hidden_size, dec.num_heads, dec.num_kv_heads, dec.head_dim
+    ln = 1 + _bf16(rng, D, scale=0.1)
+    w = [t for shape in ((D, H * hd), (D, KV * hd), (D, KV * hd), (H * hd, D))
+         for t in _int8_weight(rng, *shape)]
+    cos, sin = llama.rope_device_tables(dec, S, torch.bfloat16, "cuda")
+    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd, eps=dec.rms_norm_eps, kv_quant=True)
+    cases = []
+    for batch in (1, 4):
+        x = _bf16(rng, batch, S, D, scale=0.5)
+        got = aw.attn_block_w8a8_cuda(x, ln, *w, cos, sin, **kw)
+        torch.cuda.synchronize()
+        ref = aw.attn_block_w8a8_plain(x, ln, *w, cos, sin, **kw)
+        err = _check_bf16("attn_block_w8a8 output", got[0], ref[0])
+        kv = _check_int8_kv("attn_block_w8a8", got[1:], ref[1:])
+        ms, plain_ms = _alternate(lambda: aw.attn_block_w8a8_plain(x, ln, *w, cos, sin, **kw),
+                                  lambda: aw.attn_block_w8a8_cuda(x, ln, *w, cos, sin, **kw))
+        # The projections at the int8 peak, the attention core at bf16's.
+        proj, attn = _attn_flops(batch, S, D, H, KV, hd)
+        t_ops = proj / PEAK_INT8 + attn / PEAK_BF16
+        bound = _bound(_nbytes(x, ln, *w, cos, sin, *got), t_ops * PEAK_BF16, PEAK_BF16)
+        cases.append({**_case("attn_block_w8a8", f"B={batch} S={S} kv_quant", err,
+                              f"{BF16_KERNEL_TOL} x max|plain|; int8 k/v {INT8_LEVELS} level, "
+                              f"scales {SCALE_RTOL:.2e} rel", ms, plain_ms, bound), **kv})
+    return _row("attn_block_w8a8", cases)
+
+
+def bench_mlp_block_w8a8(dec, S: int) -> dict:
+    rng = np.random.default_rng(SEED + 8)
+    D, I = dec.hidden_size, dec.intermediate_size
+    ln = 1 + _bf16(rng, D, scale=0.1)
+    w = [t for shape in ((D, I), (D, I), (I, D)) for t in _int8_weight(rng, *shape)]
+    eps = dec.rms_norm_eps
+    cases = []
+    for batch in (1, 4):
+        x = _bf16(rng, batch, S, D, scale=0.5)
+        out = mw.mlp_block_w8a8_cuda(x, ln, *w, eps=eps)
+        torch.cuda.synchronize()
+        err = _check_bf16("mlp_block_w8a8", out, mw.mlp_block_w8a8_plain(x, ln, *w, eps=eps))
+        ms, plain_ms = _alternate(lambda: mw.mlp_block_w8a8_plain(x, ln, *w, eps=eps),
+                                  lambda: mw.mlp_block_w8a8_cuda(x, ln, *w, eps=eps))
+        bound = _bound(_nbytes(x, ln, *w, out), 2 * batch * S * D * I * 3, PEAK_INT8)
+        cases.append(_case("mlp_block_w8a8", f"B={batch} S={S}", err, f"{BF16_KERNEL_TOL} x max|plain|",
+                           ms, plain_ms, bound))
+    return _row("mlp_block_w8a8", cases)
+
+
 def kernel_phase(cfg) -> list:
     P = cfg.prefix_length
     return [bench_log_mel(cfg.frontend), bench_decode_attention(cfg.decoder, P),
             bench_attn_block(cfg.decoder, P), bench_mlp_block(cfg.decoder, P),
-            bench_swin_block(cfg.encoder)]
+            bench_swin_block(cfg.encoder), bench_decode_attention_int8(cfg.decoder, P),
+            bench_attn_block_kv_quant(cfg.decoder, P), bench_attn_block_w8a8(cfg.decoder, P),
+            bench_mlp_block_w8a8(cfg.decoder, P)]
 
 
 # ---------------------------------------------------------------------------
@@ -377,12 +550,12 @@ def kernel_phase(cfg) -> list:
 # ---------------------------------------------------------------------------
 
 def zero_counts() -> None:
-    for mod, _, _ in KERNELS.values():
-        mod.LAUNCHES = 0
+    for mod, counter, *_ in KERNELS.values():
+        setattr(mod, counter, 0)
 
 
 def read_counts() -> dict:
-    return {name: mod.LAUNCHES for name, (mod, _, _) in KERNELS.items()}
+    return {name: getattr(mod, counter) for name, (mod, counter, *_) in KERNELS.items()}
 
 
 class CallRecorder:
@@ -411,83 +584,102 @@ class CallRecorder:
         self.wrapper.generate = self.generate
 
 
-def expected_launches(cfg, steps: int, bf16: bool) -> dict:
-    """What one generate call must launch: log-mel once per clip batch; in
-    bf16 also the Swin block once per gated block per clip batch, each
-    prefill block once per layer, and decode attention once per layer per
-    decode step (the last token is chosen without a step)."""
-    if not bf16:
-        return {"log_mel": 2, "decode_attention": 0, "attn_block": 0, "mlp_block": 0, "swin_block": 0}
+def expected_launches(cfg, steps: int, path: str) -> dict:
+    """What one generate call of ``path`` must launch: log-mel once per clip
+    batch; beyond fp32 also the Swin block once per gated block per clip
+    batch, each prefill block once per layer, and a decode attention once per
+    layer per decode step (the last token is chosen without a step): the
+    bf16 kernels on the bf16 path; the W8A8 blocks and the int8 decode
+    attention on the int8 path; the bf16 blocks in their kv_quant mode
+    (attention) and as they are (MLP) with the int8 decode attention on the
+    int8-weights path."""
+    want = {name: 0 for name in KERNELS}
+    want["log_mel"] = 2
+    if path == "fp32":
+        return want
     enc, L = cfg.encoder, cfg.decoder.num_layers
     res, C, swin = enc.grid_size, enc.embed_dim, 0
     for si, depth in enumerate(enc.depths):
         if sb.fused_block_vmem_bytes(C, enc.num_heads[si], enc.window_size, res) <= sb.FUSED_BLOCK_BUDGET:
             swin += depth
         res, C = res // 2, C * 2
-    return {"log_mel": 2, "decode_attention": L * (steps - 1), "attn_block": L, "mlp_block": L,
-            "swin_block": 2 * swin}
+    want["swin_block"] = 2 * swin
+    attn, mlp, decode = {"bf16": ("attn_block", "mlp_block", "decode_attention"),
+                         "int8": ("attn_block_w8a8", "mlp_block_w8a8", "decode_attention_int8"),
+                         "int8_weights": ("attn_block_kv_quant", "mlp_block", "decode_attention_int8")}[path]
+    want[attn] = want[mlp] = L
+    want[decode] = L * (steps - 1)
+    return want
 
 
-def drive(wrapper, cfg, requests, label: str, bf16: bool) -> tuple:
+def drive(wrapper, cfg, requests, path: str, full: bool = True) -> tuple:
     """Singles, a batch of 2, a repeated request, two requests through the
-    engine, with every count set to 0 first; returns (single answers,
-    launches of the run). Every call's launches are checked."""
+    engine (only the first single with ``full=False``), with every count set
+    to 0 first; returns (single answers, launches of the run). Every call's
+    launches are checked, and so is that the path launched each of its
+    kernels."""
     rec = CallRecorder(wrapper)
+    gen_kwargs = PATHS[path][1]
 
     def timed(examples):
         t = time.perf_counter()
-        texts = wrapper.generate(examples, max_len=MAX_LEN)
+        texts = wrapper.generate(examples, max_len=MAX_LEN, **gen_kwargs)
         dt = time.perf_counter() - t
         call = rec.calls[-1]
         n = call["rows"] * call["steps"]
-        print(json.dumps({"path": label, "rows": len(examples), "latency_s": dt, "tokens": n,
+        print(json.dumps({"path": path, "rows": len(examples), "latency_s": dt, "tokens": n,
                           "tokens_per_s": n / dt, "launches": call["launches"]}))
         return texts
 
     try:
         zero_counts()
-        singles = [timed([ex])[0] for ex in requests]
-        if timed(requests[:2]) != singles[:2]:
-            raise RuntimeError(f"{label}: a batch of 2 answered otherwise than the single requests")
-        if timed([requests[0]])[0] != singles[0]:
-            raise RuntimeError(f"{label}: a repeated request gave a different answer")
-        engine = BatchingEngine(wrapper, dynamic_batch=False)
-        try:
-            t = time.perf_counter()
-            futures = [engine.submit(*ex, max_len=MAX_LEN) for ex in requests[:2]]
-            served = [f.result(timeout=600) for f in futures]
-            print(json.dumps({"path": label, "engine_requests": len(served),
-                              "latency_s": time.perf_counter() - t}))
-        finally:
-            engine.shutdown()
+        singles = [timed([ex])[0] for ex in (requests if full else requests[:1])]
+        if full:
+            if timed(requests[:2]) != singles[:2]:
+                raise RuntimeError(f"{path}: a batch of 2 answered otherwise than the single requests")
+            if timed([requests[0]])[0] != singles[0]:
+                raise RuntimeError(f"{path}: a repeated request gave a different answer")
+            engine = BatchingEngine(wrapper, dynamic_batch=False)
+            try:
+                t = time.perf_counter()
+                futures = [engine.submit(*ex, max_len=MAX_LEN, **gen_kwargs) for ex in requests[:2]]
+                served = [f.result(timeout=600) for f in futures]
+                print(json.dumps({"path": path, "engine_requests": len(served),
+                                  "latency_s": time.perf_counter() - t}))
+            finally:
+                engine.shutdown()
         launches = read_counts()
     finally:
         rec.remove()
 
     rows = sum(c["rows"] for c in rec.calls)
-    if rows < 7:
-        raise RuntimeError(f"{label}: only {rows} rows answered")
+    if rows < (7 if full else 1):
+        raise RuntimeError(f"{path}: only {rows} rows answered")
     for i, call in enumerate(rec.calls):
-        want = expected_launches(cfg, call["steps"], bf16)
+        want = expected_launches(cfg, call["steps"], path)
         if call["launches"] != want:
-            raise RuntimeError(f"{label}: call {i} ({call['rows']} rows, {call['steps']} steps) "
+            raise RuntimeError(f"{path}: call {i} ({call['rows']} rows, {call['steps']} steps) "
                                f"launched {call['launches']}, expected {want}")
-    print(f"{label}: {rows} rows in {len(rec.calls)} generate calls, launches {launches}")
+    missing = [k for k, n in expected_launches(cfg, 2, path).items() if n and not launches[k]]
+    if missing:
+        raise RuntimeError(f"{path}: kernels never launched on the path: {missing}")
+    print(f"{path}: {rows} rows in {len(rec.calls)} generate calls, launches {launches}")
     return singles, launches
 
 
-def prefix_and_logits(params, cfg, audio1, audio2, text, device, dtype, tokens=None):
+def prefix_and_logits(params, cfg, audio1, audio2, text, device, dtype, tokens=None, int8=False):
     """The prefix, the prefill logits and the logits of one decode step at
     the batch of ``text``; the step feeds ``tokens`` (default: the prefill's
-    greedy tokens). Returns (prefix, prefill logits, step logits, tokens)."""
+    greedy tokens). ``int8``: an int8 cache and the W8A8 prefill blocks.
+    Returns (prefix, prefill logits, step logits, tokens)."""
     args = [torch.from_numpy(audio1).to(device, dtype), torch.from_numpy(audio2).to(device, dtype),
             torch.from_numpy(text).to(device)]
     dec, p = cfg.decoder, params["decoder"]
     with torch.no_grad():
         prefix = encode_and_prefix(params, cfg, *args)
         B, P = prefix.shape[:2]
-        cache = llama.KVCache.create(dec, B, P + 1, device, dtype)
-        logits = llama.logits_from_hidden(p, dec, llama.prefill(p, dec, prefix, cache))
+        cache = llama.KVCache.create(dec, B, P + 1, device, torch.int8 if int8 else dtype)
+        logits = llama.logits_from_hidden(p, dec, llama.prefill(p, dec, prefix, cache, w8a8=int8))
         if tokens is None:
             tokens = logits.argmax(-1).cpu()
         cos, sin = llama.rope_device_tables(dec, P + 1, dtype, device)
@@ -496,13 +688,16 @@ def prefix_and_logits(params, cfg, audio1, audio2, text, device, dtype, tokens=N
     return prefix.float().cpu(), logits.float().cpu(), step.float().cpu(), tokens
 
 
-def stage_times(wrapper, cfg, request, batch: int) -> dict:
+def stage_times(wrapper, cfg, request, batch: int, path: str) -> dict:
     """Per-stage times of one path at batch ``batch``: host clock around
     work that ends in a synchronize (medians of 3), the log-mel by CUDA
     events (median of 5), the decode step as the slope between 32 and 64
     generated tokens at a fixed prefix (medians of 5 each) with no stop
     token, so both lengths run in full."""
     dev, dt, dec, p = wrapper.device, wrapper.dtype, cfg.decoder, wrapper.params
+    gen_kwargs = PATHS[path][1]
+    int8 = gen_kwargs.get("kv_cache_dtype") == "int8"
+    w8a8 = PATHS[path][0].get("weight_dtype") == "int8-w8a8"
     examples = [request] * batch
     out = {}
     t = time.perf_counter()
@@ -520,7 +715,8 @@ def stage_times(wrapper, cfg, request, batch: int) -> dict:
         P = prefix.shape[1]
 
         def prefill():
-            llama.prefill(p["decoder"], dec, prefix, llama.KVCache.create(dec, batch, P, dev, dt))
+            cache = llama.KVCache.create(dec, batch, P, dev, torch.int8 if int8 else dt)
+            llama.prefill(p["decoder"], dec, prefix, cache, w8a8=w8a8)
 
         out["prefill_ms"] = _host_ms(prefill)
         # Five pairs, the two lengths in turn; the slope of the medians, and
@@ -529,61 +725,81 @@ def stage_times(wrapper, cfg, request, batch: int) -> dict:
         for _ in range(5):
             for n, ts in ((32, t32), (64, t64)):
                 ts.append(_host_ms(lambda: gen.generate(p["decoder"], dec, prefix, max_len=n,
-                                                        stop_token_id=-1), reps=1))
+                                                        stop_token_id=-1, w8a8=w8a8, **gen_kwargs),
+                                   reps=1))
     out["decode_step_ms"] = (statistics.median(t64) - statistics.median(t32)) / 32
     slopes = [(b - a) / 32 for a, b in zip(t32, t64)]
     out["decode_step_ms_min_max"] = [min(slopes), max(slopes)]
     out["decode_tokens_per_s"] = batch / (out["decode_step_ms"] / 1e3)
-    out["request_ms"] = _host_ms(lambda: wrapper.generate(examples, max_len=MAX_LEN, crop_start=0))
+    out["request_ms"] = _host_ms(lambda: wrapper.generate(examples, max_len=MAX_LEN, crop_start=0,
+                                                          **gen_kwargs))
     return out
 
 
+def _agreement(label, answers, ref_answers) -> bool:
+    same = sum(x == y for s, t in zip(answers, ref_answers) for x, y in zip(s, t))
+    total = sum(max(len(s), len(t)) for s, t in zip(answers, ref_answers))
+    first = [s[:1] == t[:1] for s, t in zip(answers, ref_answers)]
+    print(f"greedy token agreement {label} over {len(answers)} requests: {same}/{total}; "
+          f"first tokens equal: {first}")
+    return all(first)
+
+
+def _hold(label, names, got, ref, tols) -> None:
+    for name, g, r, tol in zip(names, got, ref, tols):
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            raise RuntimeError(f"{label} {name}: bad output {tuple(g.shape)}")
+        err, scale = (g - r).abs().max().item(), r.abs().max().item()
+        print(f"{label} {name} {tuple(g.shape)}: max_abs_err {err:.3e} = {err / scale:.4f} x max|ref| "
+              f"(limit {tol})")
+        if err > tol * scale:
+            raise RuntimeError(f"{label} {name} is {err / scale:.4f} x max|ref| off, limit {tol}")
+
+
 def slice_phase(cfg) -> dict:
-    """Drive both paths; return the bf16 path's kernel launches, the fp32
-    path's log-mel launches ("log_mel_fp32") and the stage timings."""
+    """Drive every path; return each path's kernel launches and the stage
+    timings."""
     t0 = time.perf_counter()
     params = init_params(cfg, SEED)
     tok = DistinctTokenizer()
-    w32 = MellowWrapper(config="v0", model="v0", device="cuda", params=params, tokenizer=tok)
-    w16 = MellowWrapper(config="v0", model="v0", device="cuda", params=params, tokenizer=tok,
-                        compute_dtype="bfloat16")
-    print(f"weights made and loaded (fp32 and bf16) in {time.perf_counter() - t0:.2f} s")
-    timings = {}
+    wrappers = {path: MellowWrapper(config="v0", model="v0", device="cuda", params=params, tokenizer=tok,
+                                    **ctor)
+                for path, (ctor, _) in PATHS.items()}
+    print(f"weights made and loaded ({', '.join(PATHS)}) in {time.perf_counter() - t0:.2f} s")
+    timings, launches, answers = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         a = _write_wav(os.path.join(tmp, "a.wav"), 7.0, 1)  # repeat-padded
         b = _write_wav(os.path.join(tmp, "b.wav"), 9.5, 2)
         requests = [[a, b, "caption the audio."],
                     [b, a, "what is different between the two clips?"],
                     [a, a, "is there speech?"]]
-        fp32_answers, fp32_launches = drive(w32, cfg, requests, "fp32", bf16=False)
-        bf16_answers, bf16_launches = drive(w16, cfg, requests, "bf16", bf16=True)
-        missing = [k for k, n in bf16_launches.items() if n == 0]
-        if missing or fp32_launches["log_mel"] == 0:
-            raise RuntimeError(f"kernels never launched on the main path: {missing}")
-        same = sum(x == y for s, t in zip(fp32_answers, bf16_answers) for x, y in zip(s, t))
-        total = sum(max(len(s), len(t)) for s, t in zip(fp32_answers, bf16_answers))
-        first = [s[:1] == t[:1] for s, t in zip(fp32_answers, bf16_answers)]
-        print(f"greedy token agreement bf16 vs fp32 over {len(requests)} requests: {same}/{total}; "
-              f"first tokens equal: {first}")
-        if not all(first):
+        for path, w in wrappers.items():
+            answers[path], launches[path] = drive(w, cfg, requests, path, full=path != "int8_weights")
+        if not _agreement("bf16 vs fp32", answers["bf16"], answers["fp32"]):
             raise RuntimeError("bf16's first greedy token differs from fp32's")
+        _agreement("int8 (W8A8 weights, int8 cache) vs bf16", answers["int8"], answers["bf16"])
+        _agreement("int8 weights + int8 cache vs bf16", answers["int8_weights"], answers["bf16"][:1])
 
-        audio1 = w32.preprocess_audio([r[0] for r in requests[:2]], True)
-        audio2 = w32.preprocess_audio([r[1] for r in requests[:2]], True)
-        text = w32.preprocess_text([r[2] for r in requests[:2]])
-        for path, w in (("fp32", w32), ("bf16", w16)):
+        audio1 = wrappers["fp32"].preprocess_audio([r[0] for r in requests[:2]], True)
+        audio2 = wrappers["fp32"].preprocess_audio([r[1] for r in requests[:2]], True)
+        text = wrappers["fp32"].preprocess_text([r[2] for r in requests[:2]])
+        for path in ("fp32", "bf16", "int8"):
             for batch in (1, 4):
                 key = f"{path} B={batch}"
-                timings[key] = stage_times(w, cfg, requests[0], batch)
+                timings[key] = stage_times(wrappers[path], cfg, requests[0], batch, path)
                 print(json.dumps({"stage_times": key, **timings[key]}))
-        for path, w in (("fp32", w32), ("bf16", w16)):
-            timings[f"profile {path}"] = profile_request(w, requests[0], path)
+        for path in ("fp32", "bf16", "int8"):
+            timings[f"profile {path}"] = profile_request(wrappers[path], requests[0], path)
 
     # Two rows (requests 0 and 1), so the batch strides of the prefill
     # blocks' cache writes and of decode attention's cache reads are used.
     names = ("prefix", "prefill logits", "decode-step logits")
-    *ref32, tokens = prefix_and_logits(w32.params, cfg, audio1, audio2, text, "cuda", torch.float32)
-    *got16, _ = prefix_and_logits(w16.params, cfg, audio1, audio2, text, "cuda", torch.bfloat16, tokens)
+    *ref32, tokens = prefix_and_logits(wrappers["fp32"].params, cfg, audio1, audio2, text, "cuda",
+                                       torch.float32)
+    *got16, _ = prefix_and_logits(wrappers["bf16"].params, cfg, audio1, audio2, text, "cuda",
+                                  torch.bfloat16, tokens)
+    *got8, _ = prefix_and_logits(wrappers["int8"].params, cfg, audio1, audio2, text, "cuda",
+                                 torch.bfloat16, tokens, int8=True)
     *cpu32, _ = prefix_and_logits(params_from_jax(params, "cpu"), cfg, audio1, audio2, text, "cpu",
                                   torch.float32, tokens)
     for name, got, ref in zip(names, ref32, cpu32):
@@ -591,31 +807,31 @@ def slice_phase(cfg) -> dict:
             raise RuntimeError(f"fp32 {name}: bad output {tuple(got.shape)}")
         print(f"fp32 {name} {tuple(got.shape)}: CUDA vs CPU max_abs_err {(got - ref).abs().max().item():.3e}")
         torch.testing.assert_close(got, ref, **SLICE_TOL)
-    for name, got, ref, tol in zip(names, got16, ref32, BF16_TOL):
-        if got.shape != ref.shape or not torch.isfinite(got).all():
-            raise RuntimeError(f"bf16 {name}: bad output {tuple(got.shape)}")
-        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
-        print(f"bf16 {name} {tuple(got.shape)}: vs fp32 CUDA max_abs_err {err:.3e} "
-              f"= {err / scale:.4f} x max|fp32| (limit {tol})")
-        if err > tol * scale:
-            raise RuntimeError(f"bf16 {name} is {err / scale:.4f} x max|fp32| from fp32, limit {tol}")
-    print(f"prefill argmax bf16 {got16[1].argmax(-1).tolist()}, fp32 {ref32[1].argmax(-1).tolist()}")
-    return {**bf16_launches, "log_mel_fp32": fp32_launches["log_mel"], "timings": timings}
+    _hold("bf16 vs fp32 CUDA", names, got16, ref32, BF16_TOL)
+    # The int8 options change only the decoder: the prefix is bf16's, bit
+    # for bit.
+    if not torch.equal(got8[0], got16[0]):
+        raise RuntimeError("the int8 path's prefix differs from the bf16 path's")
+    _hold("int8 vs bf16 CUDA", names[1:], got8[1:], got16[1:], INT8_TOL)
+    print(f"prefill argmax bf16 {got16[1].argmax(-1).tolist()}, fp32 {ref32[1].argmax(-1).tolist()}, "
+          f"int8 {got8[1].argmax(-1).tolist()}")
+    return {"launches": launches, "timings": timings}
 
 
-def profile_request(wrapper, request, label: str) -> dict:
+def profile_request(wrapper, request, path: str) -> dict:
     """One warm B=1 request unprofiled (host clock), then the same request
     under torch.profiler: device time (the sum of kernel times), kernel
     launches, the device's idle share against both walls, and the kernels
     that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    wall_ms = _host_ms(lambda: wrapper.generate([request], max_len=MAX_LEN), reps=1)
+    gen_kwargs = PATHS[path][1]
+    wall_ms = _host_ms(lambda: wrapper.generate([request], max_len=MAX_LEN, **gen_kwargs), reps=1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled_ms = _host_ms(lambda: wrapper.generate([request], max_len=MAX_LEN), reps=1)
+        profiled_ms = _host_ms(lambda: wrapper.generate([request], max_len=MAX_LEN, **gen_kwargs), reps=1)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        raise RuntimeError(f"{label}: the profiler saw no kernel on the device")
+        raise RuntimeError(f"{path}: the profiler saw no kernel on the device")
     device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name = {}
     for e in kernels:
@@ -624,9 +840,9 @@ def profile_request(wrapper, request, label: str) -> dict:
     out = {"wall_ms": wall_ms, "profiled_wall_ms": profiled_ms, "device_ms": device_ms,
            "kernel_launches": len(kernels), "idle_share": 1 - device_ms / wall_ms,
            "idle_share_profiled": 1 - device_ms / profiled_ms}
-    print(json.dumps({"profile": label, **out}))
+    print(json.dumps({"profile": path, **out}))
     for name, (n, total) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
-        print(f"  {label} {total:9.3f} ms {n:6d} launches  {name[:110]}")
+        print(f"  {path} {total:9.3f} ms {n:6d} launches  {name[:110]}")
     return out
 
 
@@ -659,12 +875,19 @@ def main() -> int:
     rows = kernel_phase(cfg)
     print(f"kernel phase took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    launches = slice_phase(cfg)
+    launches = slice_phase(cfg)["launches"]
     print(f"slice phase took {time.perf_counter() - t:.1f} s")
+    # Each kernel's launches on the run of the path that carries it (the
+    # int8 path's own kernels on that path; the rest on the bf16 path), and
+    # on every path.
+    home = {"decode_attention_int8": "int8", "attn_block_w8a8": "int8", "mlp_block_w8a8": "int8",
+            "attn_block_kv_quant": "int8_weights"}
     for row in rows:
-        row["launches"] = launches[row["name"]]
-        row["kernel_launches_per_call"] = KERNELS[row["name"]][0].KERNELS_PER_CALL
-    rows[0]["launches_fp32_path"] = launches["log_mel_fp32"]
+        name = row["name"]
+        mod, _, per_call, *_ = KERNELS[name]
+        row["launches"] = launches[home.get(name, "bf16")][name]
+        row["launches_by_path"] = {path: counts[name] for path, counts in launches.items()}
+        row["kernel_launches_per_call"] = getattr(mod, per_call)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -4,13 +4,18 @@
 // (fused_attn_block): RMSNorm; q/k/v projections rounded to bf16; RoPE;
 // causal GQA attention with an fp32 softmax; o-projection; residual. It
 // also returns the roped k and the v rows, which go straight into the KV
-// cache slice (strided output rows, see gemm_bf16.cuh).
+// cache slice (strided output rows, see gemm_bf16.cuh), or, in the TPU
+// kernel's kv_quant mode (_emit_quantized_kv), are quantized per position
+// over all KV*hd lanes into an int8 cache slice and its fp32 scales.
 //
 // Contract: x (B*S, D) bf16; ln (D); wq (D, H*hd), wk and wv (D, KV*hd),
 // wo (H*hd, D); cos and sin (S, hd) bf16 rope tables; scratch q and o
 // (B*S, H*hd); k_out and v_out hold row s of batch b at
 // b * kv_bstride + s * KV*hd; out (B*S, D). hd is 64 (the RoPE epilogue
-// pairs columns within one 64-wide GEMM tile) and S <= 1024.
+// pairs columns within one 64-wide GEMM tile) and S <= 1024. With k8 set
+// (kv_quant), k_out and v_out are contiguous scratch (kv_bstride = S*KV*hd)
+// and the int8 rows go to k8/v8 (batch stride kv8_bstride), their scales
+// to ks/vs (batch stride sc_bstride).
 //
 // What bounds it: at the v0 prefill (B=1, S=389, D=576, H=9, KV=3, hd=64)
 // the block does ~0.8 GFLOP of projections and ~0.2 GFLOP of attention
@@ -24,206 +29,27 @@
 //   1. q = rope(bf16(rms_norm(x) @ wq))     gemm, RMS prologue, RoPE epilogue
 //   2. k = rope(bf16(rms_norm(x) @ wk))     written into the cache slice
 //   3. v = bf16(rms_norm(x) @ wv)           written into the cache slice
-//   4. o = causal GQA(q, k, v)              the kernel below
+//   4. o = causal GQA(q, k, v)              attn_core.cuh
 //   5. out = x + bf16(o @ wo)               gemm, residual epilogue
+//   6. (kv_quant) k, v -> int8 rows + scales, one warp per row
+//      (gemm_int8.cuh); the amax spans all KV heads of a position, so the
+//      quantizer runs after the k/v products rather than in their 64-wide
+//      tiles.
 // Fusing the chain into fewer launches (and wgmma/TMA) is later work.
-//
-// The attention kernel: one block per (32 query rows, head, batch row).
-// Scores for the block's rows against every key they can see are kept in
-// shared memory (S <= 1024), so the softmax uses the row's true maximum and
-// rounds exp(s - max) to bf16 before the PV product exactly where the TPU
-// kernel does (pallas_attn_block._attn_row_block): s = (q . k) * scale,
-// masked to -1e30 above the diagonal; e = exp(s - m); o = bf16(e) @ v in
-// fp32, divided by sum(e) taken in fp32.
 
-#include "gemm_bf16.cuh"
-
-namespace {
-
-constexpr int AQ = 32;   // query rows per block
-constexpr int AK = 64;   // keys per tile
-constexpr int ATHREADS = 128;
-
-__host__ __device__ inline int attn_score_ld(int S, int hd) {
-  const int cols = ((S + AK - 1) / AK) * AK;
-  return (cols > hd ? cols : hd) + 4;
-}
-
-__host__ __device__ inline int attn_prob_ld(int S) { return ((S + AK - 1) / AK) * AK + 8; }
-
-inline size_t attn_smem_bytes(int S, int hd) {
-  const int q_ld = hd + 8;
-  return (size_t)AQ * q_ld * 2 + (size_t)AK * q_ld * 2 + (size_t)AQ * attn_score_ld(S, hd) * 4 +
-         (size_t)AQ * attn_prob_ld(S) * 2 + (size_t)AQ * 4;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(ATHREADS)
-causal_gqa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H, int KV,
-                  long long kv_bstride, float scale) {
-  constexpr int Q_LD = HD + 8;
-  constexpr int O_LD = HD + 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int S_LD = attn_score_ld(S, HD);
-  const int P_LD = attn_prob_ld(S);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);              // AQ x Q_LD
-  bf16* KVs = Qs + AQ * Q_LD;                            // AK x Q_LD, K then V tiles
-  float* Ss = reinterpret_cast<float*>(KVs + AK * Q_LD); // AQ x S_LD scores, later O
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + AQ * S_LD);    // AQ x P_LD bf16(exp)
-  float* denom = reinterpret_cast<float*>(Ps + AQ * P_LD);
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * AQ;
-  const int g = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int ldq = H * HD;
-  const int ldkv = KV * HD;
-  const bf16* qb = q + (size_t)b * S * ldq + h * HD;
-  const bf16* kb = k + (size_t)b * kv_bstride + g * HD;
-  const bf16* vb = v + (size_t)b * kv_bstride + g * HD;
-  const int n_keys = min(S, q0 + AQ);
-  const int n_tiles = (n_keys + AK - 1) / AK;
-
-  for (int e = tid; e < AQ * HD / 8; e += ATHREADS) {
-    const int r = e / (HD / 8);
-    const int c = (e % (HD / 8)) * 8;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < S) u = ldg16(qb + (size_t)(q0 + r) * ldq + c);
-    *reinterpret_cast<uint4*>(Qs + r * Q_LD + c) = u;
-  }
-
-  // Scores: warp w owns key columns [16 w, 16 w + 16) of each tile.
-  for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();
-    for (int e = tid; e < AK * HD / 8; e += ATHREADS) {
-      const int r = e / (HD / 8);
-      const int c = (e % (HD / 8)) * 8;
-      const int key = t * AK + r;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (key < S) u = ldg16(kb + (size_t)key * ldkv + c);
-      *reinterpret_cast<uint4*>(KVs + r * Q_LD + c) = u;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < AQ / 16; ++i) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + i * 16 * Q_LD + kk, Q_LD);
-        wmma::load_matrix_sync(fb, KVs + warp * 16 * Q_LD + kk, Q_LD);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Ss + i * 16 * S_LD + t * AK + warp * 16, acc, S_LD,
-                              wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-
-  // Causal softmax over each row's full score row (fp32), one warp per row.
-  const int n_cols = n_tiles * AK;
-  for (int r = warp; r < AQ; r += ATHREADS / 32) {
-    const int qi = q0 + r;
-    float* srow = Ss + r * S_LD;
-    float m = -1e30f;
-    for (int j = lane; j < n_cols; j += 32) {
-      const float s = (j <= qi && j < S) ? srow[j] * scale : -1e30f;
-      srow[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < n_cols; j += 32) {
-      const float e = expf(srow[j] - m);
-      sum += e;
-      Ps[r * P_LD + j] = __float2bfloat16(e);
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) denom[r] = sum;
-  }
-
-  // O = bf16(exp) @ V, accumulated over the key tiles in registers.
-  constexpr int FR = AQ / 16;
-  constexpr int OF = FR * (HD / 16);
-  constexpr int PER_WARP = (OF + 3) / 4;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[PER_WARP];
-#pragma unroll
-  for (int i = 0; i < PER_WARP; ++i) wmma::fill_fragment(oacc[i], 0.f);
-  for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();
-    for (int e = tid; e < AK * HD / 8; e += ATHREADS) {
-      const int r = e / (HD / 8);
-      const int c = (e % (HD / 8)) * 8;
-      const int key = t * AK + r;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (key < S) u = ldg16(vb + (size_t)key * ldkv + c);
-      *reinterpret_cast<uint4*>(KVs + r * Q_LD + c) = u;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < PER_WARP; ++i) {
-      const int f = warp + 4 * i;
-      if (f < OF) {
-        const int fr = f % FR;
-        const int fc = f / FR;
-#pragma unroll
-        for (int kk = 0; kk < AK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, Ps + fr * 16 * P_LD + t * AK + kk, P_LD);
-          wmma::load_matrix_sync(fb, KVs + kk * Q_LD + fc * 16, Q_LD);
-          wmma::mma_sync(oacc[i], fa, fb, oacc[i]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  float* Os = Ss;  // AQ x O_LD, the scores are dead
-#pragma unroll
-  for (int i = 0; i < PER_WARP; ++i) {
-    const int f = warp + 4 * i;
-    if (f < OF)
-      wmma::store_matrix_sync(Os + (f % FR) * 16 * O_LD + (f / FR) * 16, oacc[i], O_LD,
-                              wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int e = tid; e < AQ * HD; e += ATHREADS) {
-    const int r = e / HD;
-    const int c = e % HD;
-    if (q0 + r < S)
-      o[((size_t)b * S + q0 + r) * ldq + h * HD + c] = __float2bfloat16(Os[r * O_LD + c] / denom[r]);
-  }
-}
-
-template <int HD>
-int launch_causal_gqa(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int S, int H,
-                      int KV, long long kv_bstride, cudaStream_t stream) {
-  const size_t smem = attn_smem_bytes(S, HD);
-  cudaError_t err = cudaFuncSetAttribute(causal_gqa_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + AQ - 1) / AQ, H, B);
-  causal_gqa_kernel<HD><<<grid, ATHREADS, smem, stream>>>(q, k, v, o, S, H, KV, kv_bstride,
-                                                          1.f / sqrtf((float)HD));
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "attn_core.cuh"
+#include "gemm_int8.cuh"
 
 // Launches the chain on `stream`; returns the first cudaError_t, 0 on
 // success. Does not synchronise.
 extern "C" int mellow_attn_block(const void* x, const void* ln, const void* wq, const void* wk,
                                  const void* wv, const void* wo, const void* cos, const void* sin,
                                  void* q_buf, void* k_out, void* v_out, long long kv_bstride,
-                                 void* o_buf, void* out, int B, int S, int D, int H, int KV, int hd,
-                                 float eps, void* stream) {
-  if (hd != 64) return (int)cudaErrorInvalidValue;
+                                 void* o_buf, void* out, void* k8, void* v8, long long kv8_bstride,
+                                 void* ks, void* vs, long long sc_bstride, int B, int S, int D,
+                                 int H, int KV, int hd, float eps, void* stream) {
+  if (hd != 64 || (k8 != nullptr && kv_bstride != (long long)S * KV * hd))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * S;
   int err;
@@ -258,5 +84,7 @@ extern "C" int mellow_attn_block(const void* x, const void* ln, const void* wq, 
   GemmArgs go = gemm_args(o_buf, H * hd, wo, out, M, D, H * hd);
   go.resid = static_cast<const bf16*>(x);
   go.ld_resid = D;
-  return launch_gemm<NORM_NONE, EPI_RESID>(go, st);
+  if ((err = launch_gemm<NORM_NONE, EPI_RESID>(go, st))) return err;
+  if (k8 == nullptr) return 0;
+  return launch_kv_quant(k_out, v_out, k8, v8, kv8_bstride, ks, vs, sc_bstride, B, S, KV * hd, st);
 }

@@ -12,13 +12,13 @@ up to the window and its raw token arrays can run past this loop's; the
 stop-trimmed rows are the same.
 
 The compute dtype is the prefix's (float32 parity mode or bfloat16 perf
-mode); the KV cache, the rope tables and the logits are in it, as in the
-JAX package with its default cache dtype.
+mode); the rope tables and the logits are in it, and so is the KV cache
+unless ``kv_cache_dtype="int8"`` asks for an int8 cache (bf16 only).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,15 +40,19 @@ def generate(
     *,
     max_len: int,
     stop_token_id: int,
+    kv_cache_dtype: Optional[str] = None,
+    w8a8: bool = False,
 ) -> GenerateResult:
     """Prefill, then per step: logits -> argmax -> done mask -> decode_step
     writing position P + t into the cache. One host sync per step reads the
-    done mask."""
+    done mask. ``kv_cache_dtype``: None (the compute dtype) or "int8";
+    ``w8a8``: the W8A8 prefill blocks for int8 weights."""
     B, P, _ = prefix_embeds.shape
     device = prefix_embeds.device
     dtype = prefix_embeds.dtype
-    cache = llama.KVCache.create(cfg, B, P + max_len, device, dtype)
-    hidden = llama.prefill(params, cfg, prefix_embeds, cache)
+    cache_dtype = torch.int8 if kv_cache_dtype == "int8" else dtype
+    cache = llama.KVCache.create(cfg, B, P + max_len, device, cache_dtype)
+    hidden = llama.prefill(params, cfg, prefix_embeds, cache, w8a8=w8a8)
     cos, sin = llama.rope_device_tables(cfg, P + max_len, dtype, device)
 
     tokens = torch.zeros((B, max_len), dtype=torch.int32, device=device)

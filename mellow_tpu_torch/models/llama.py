@@ -14,6 +14,21 @@ plain formulation below. (The TPU's VMEM gate on its decode kernel is not
 carried over: the math is the same either way, and the card's kernel has
 no such limit.)
 
+int8 perf options (bf16 compute only), as in the JAX package:
+
+  * int8 weights (``quantize_decoder``): every per-layer matmul kernel and
+    the logits head become ``{"q": int8 (in, out), "scale": (out,)}``. The
+    decode step's products are plain ``(x @ q) * scale`` (``_mm``); the
+    fused prefill blocks take the weights dequantized per layer
+    (``_deq_weight``), or, with ``w8a8``, run as the W8A8 blocks
+    (``ops/attn_block_w8a8.py``, ``ops/mlp_block_w8a8.py``).
+  * an int8 KV cache (``KVCache.create(..., torch.int8)``): per-position
+    scales over all KV heads together (``quantize_kv``). The prefill blocks
+    quantize k/v in their ``kv_quant`` mode; the decode step attends over
+    the int8 cache plus its own k/v row in bf16
+    (``ops/decode_attention_int8.py``), then quantizes that row into the
+    cache: the JAX package's packed decode at a flush window of 1.
+
 Parameters are per layer (the JAX tree stacks them on a leading L axis;
 ``models/params.py`` unstacks):
 
@@ -25,14 +40,14 @@ Parameters are per layer (the JAX tree stacks them on a leading L axis;
     "norm_f": (D,),
   }
 
-The KV cache is a static buffer (L, B, S_max, KV, hd) in the compute dtype,
-written in place. Not ported: the packed-lane cache, pending/flush windows,
-chunked prefill, int8 and W8A8.
+The KV cache is a static buffer (L, B, S_max, KV, hd) in the compute dtype
+or int8, written in place. Not ported: the packed-lane cache, pending/flush
+windows, chunked prefill, an int8 cache under fp32 compute.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,25 +55,92 @@ import torch.nn.functional as F
 
 from mellow_tpu_torch.config import LlamaConfig
 from mellow_tpu_torch.ops.attn_block import attn_block
+from mellow_tpu_torch.ops.attn_block_w8a8 import attn_block_w8a8
 from mellow_tpu_torch.ops.decode_attention import decode_attention
+from mellow_tpu_torch.ops.decode_attention_int8 import decode_attention_int8
 from mellow_tpu_torch.ops.mlp_block import mlp_block, rms_norm
+from mellow_tpu_torch.ops.mlp_block_w8a8 import mlp_block_w8a8
 
 
 class KVCache(NamedTuple):
     """Static-shape cache; k, v: (L, B, S_max, KV, hd). Positions beyond
-    what has been written are never read."""
+    what has been written are never read. An int8 cache also holds fp32
+    per-position scales k_scale, v_scale: (L, B, S_max)."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @staticmethod
     def create(cfg: LlamaConfig, batch: int, max_len: int, device,
                dtype: torch.dtype = torch.float32) -> "KVCache":
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        scales = {}
+        if dtype == torch.int8:
+            scales = {n: torch.zeros(shape[:3], dtype=torch.float32, device=device)
+                      for n in ("k_scale", "v_scale")}
         return KVCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
+            **scales,
         )
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def quantize_kv(x: torch.Tensor):
+    """Symmetric per-position int8 over the last (packed KV*hd) axis:
+    x (..., KV*hd) -> (int8 (..., KV*hd), fp32 scale (...)).
+    (``llama.quantize_kv``: one scale per position for all KV heads.)"""
+    xf = x.float()
+    scale = xf.abs().amax(-1).clamp_min(1e-8) / 127.0
+    return torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8), scale
+
+
+def quantize_weight(w: torch.Tensor) -> dict:
+    """Symmetric per-output-column int8 of a (..., in, out) kernel: the scale
+    is taken over the contraction axis (``llama.quantize_weight``)."""
+    wf = w.float()
+    scale = wf.abs().amax(-2, keepdim=True).clamp_min(1e-12) / 127.0
+    q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8).contiguous()
+    return {"q": q, "scale": scale.squeeze(-2)}
+
+
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def quantize_decoder(params: dict, cfg: LlamaConfig) -> dict:
+    """int8 weights (``llama.quantize_decoder``): every per-layer matmul
+    kernel, plus ``lm_head_q``, the logits head quantized from ``embed.T``
+    (tied) or ``lm_head``, which ``logits_from_hidden`` prefers. The
+    embedding gather keeps the float table. Quantize the fp32 weights, then
+    cast the floating leaves to the compute dtype, as the JAX wrapper does."""
+    out = dict(params)
+    out["layers"] = [{**lp, **{k: quantize_weight(lp[k]) for k in _QUANT_KEYS}}
+                     for lp in params["layers"]]
+    head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+    out["lm_head_q"] = quantize_weight(head)
+    return out
+
+
+def _mm(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w for a float kernel; for an int8 ``{"q", "scale"}`` kernel,
+    (x @ q) * scale in x's dtype, the scale folded in after the product."""
+    if isinstance(w, dict):
+        return (x @ w["q"].to(x.dtype)) * w["scale"].to(x.dtype)
+    return x @ w
+
+
+def _deq_weight(w, dtype: torch.dtype) -> torch.Tensor:
+    """An int8 ``{"q", "scale"}`` kernel as a dense ``dtype`` kernel (q * scale
+    in fp32, rounded once), for the fused prefill blocks; a float kernel as
+    it is."""
+    if isinstance(w, dict):
+        return (w["q"].float() * w["scale"][None, :].float()).to(dtype)
+    return w
 
 
 def rope_tables(cfg: LlamaConfig, max_len: int, dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
@@ -101,16 +183,16 @@ def uses_fused_prefill(cfg: LlamaConfig, x: torch.Tensor) -> bool:
 
 def _mlp(cfg: LlamaConfig, x: torch.Tensor, lp: dict) -> torch.Tensor:
     h = rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-    return x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+    return x + _mm(F.silu(_mm(h, lp["w_gate"])) * _mm(h, lp["w_up"]), lp["w_down"])
 
 
 def _qkv(cfg: LlamaConfig, x: torch.Tensor, lp: dict, cos, sin):
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
-    q = apply_rope((h @ lp["wq"]).reshape(B, S, H, hd), cos, sin)
-    k = apply_rope((h @ lp["wk"]).reshape(B, S, KV, hd), cos, sin)
-    v = (h @ lp["wv"]).reshape(B, S, KV, hd)
+    q = apply_rope(_mm(h, lp["wq"]).reshape(B, S, H, hd), cos, sin)
+    k = apply_rope(_mm(h, lp["wk"]).reshape(B, S, KV, hd), cos, sin)
+    v = _mm(h, lp["wv"]).reshape(B, S, KV, hd)
     return q, k, v
 
 
@@ -129,28 +211,55 @@ def _attend(cfg: LlamaConfig, q, k, v, mask) -> torch.Tensor:
 
 
 def logits_from_hidden(params: dict, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    if "lm_head_q" in params:  # int8 weights (quantize_decoder)
+        return _mm(x, params["lm_head_q"])
     head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
     return x @ head
 
 
-def prefill(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, cache: KVCache) -> torch.Tensor:
+def _check_int8_cache(cache: KVCache, x: torch.Tensor) -> None:
+    if cache.quantized and x.dtype != torch.bfloat16:
+        raise NotImplementedError("an int8 KV cache is ported under bf16 compute only")
+
+
+def prefill(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, cache: KVCache,
+            w8a8: bool = False) -> torch.Tensor:
     """Run the prefix (B, S, D) through the model, writing positions [0, S)
     of ``cache`` in place. Returns the post-final-norm hidden of the last
-    position, (B, D)."""
+    position, (B, D). ``w8a8``: with int8 weights, run the fused prefill
+    blocks as W8A8 (the JAX package's ``prefill(w8a8=True)``); without it,
+    int8 weights enter the bf16 blocks dequantized per layer. An int8
+    cache takes the blocks' in-kernel k/v quantization."""
     B, S, D = inputs_embeds.shape
     device = inputs_embeds.device
+    _check_int8_cache(cache, inputs_embeds)
     cos, sin = rope_device_tables(cfg, S, inputs_embeds.dtype, device)
     if uses_fused_prefill(cfg, inputs_embeds):
+        kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                  eps=cfg.rms_norm_eps)
+        w8 = w8a8 and isinstance(params["layers"][0]["w_gate"], dict)
+        dt = inputs_embeds.dtype
         x = inputs_embeds
         for li, lp in enumerate(params["layers"]):
-            x, _, _ = attn_block(
-                x, lp["ln_attn"], lp["wq"], lp["wk"], lp["wv"], lp["wo"], cos, sin,
-                num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                eps=cfg.rms_norm_eps, k_out=cache.k[li, :, :S], v_out=cache.v[li, :, :S],
-            )
-            x = mlp_block(x, lp["ln_mlp"], lp["w_gate"], lp["w_up"], lp["w_down"],
-                          eps=cfg.rms_norm_eps)
+            kv = dict(k_out=cache.k[li, :, :S], v_out=cache.v[li, :, :S])
+            if cache.quantized:
+                kv.update(kv_quant=True, k_scale_out=cache.k_scale[li, :, :S],
+                          v_scale_out=cache.v_scale[li, :, :S])
+            if w8:
+                ws = [t for k in ("wq", "wk", "wv", "wo") for t in (lp[k]["q"], lp[k]["scale"])]
+                x = attn_block_w8a8(x, lp["ln_attn"], *ws, cos, sin, **kw, **kv)[0]
+            else:
+                ws = [_deq_weight(lp[k], dt) for k in ("wq", "wk", "wv", "wo")]
+                x = attn_block(x, lp["ln_attn"], *ws, cos, sin, **kw, **kv)[0]
+            if w8:
+                ws = [t for k in ("w_gate", "w_up", "w_down") for t in (lp[k]["q"], lp[k]["scale"])]
+                x = mlp_block_w8a8(x, lp["ln_mlp"], *ws, eps=cfg.rms_norm_eps)
+            else:
+                ws = [_deq_weight(lp[k], dt) for k in ("w_gate", "w_up", "w_down")]
+                x = mlp_block(x, lp["ln_mlp"], *ws, eps=cfg.rms_norm_eps)
         return rms_norm(x[:, -1, :], params["norm_f"], cfg.rms_norm_eps)
+    if cache.quantized:
+        raise NotImplementedError("an int8 KV cache is ported for the fused bf16 prefill only")
     causal = torch.ones((S, S), dtype=torch.bool, device=device).tril()
     mask = torch.zeros((S, S), dtype=torch.float32, device=device).masked_fill(~causal, float("-inf"))
 
@@ -159,7 +268,7 @@ def prefill(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, cache: 
         q, k, v = _qkv(cfg, x, lp, cos, sin)
         cache.k[li, :, :S] = k
         cache.v[li, :, :S] = v
-        x = x + _attend(cfg, q, k, v, mask) @ lp["wo"]
+        x = x + _mm(_attend(cfg, q, k, v, mask), lp["wo"])
         x = _mlp(cfg, x, lp)
     # The final norm is per position: only the last row feeds decoding.
     return rms_norm(x[:, -1, :], params["norm_f"], cfg.rms_norm_eps)
@@ -174,24 +283,38 @@ def decode_step(
     cos_full: torch.Tensor,  # (S_max, hd) rope tables on the device
     sin_full: torch.Tensor,
 ) -> torch.Tensor:
-    """One incremental step: writes this token's k/v at ``pos`` in place and
-    attends over positions [0, pos]. Returns the post-final-norm hidden
-    (B, D). In bf16 the attention is the decode-attention kernel (its plain
-    version on the CPU); the projections and the MLP stay plain matmuls, as
-    the JAX package leaves them to XLA."""
+    """One incremental step over positions [0, pos]. Returns the
+    post-final-norm hidden (B, D). In bf16 the attention is a decode-attention
+    kernel (its plain version on the CPU); the projections and the MLP stay
+    plain matmuls, as the JAX package leaves them to XLA.
+
+    A float cache is written at ``pos`` first and attended over [0, pos].
+    An int8 cache is attended over [0, pos) with this token's k/v row in
+    bf16 as one extra position, and the row is quantized into the cache at
+    ``pos`` after (the JAX package's packed decode at a flush window of 1)."""
+    _check_int8_cache(cache, token_embed)
     cos = cos_full[pos : pos + 1]
     sin = sin_full[pos : pos + 1]
     x = token_embed[:, None, :]
     B = x.shape[0]
-    H, hd = cfg.num_heads, cfg.head_dim
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     for li, lp in enumerate(params["layers"]):
         q, k, v = _qkv(cfg, x, lp, cos, sin)
-        cache.k[li, :, pos : pos + 1] = k
-        cache.v[li, :, pos : pos + 1] = v
-        if x.dtype == torch.bfloat16:
-            o = decode_attention(q.reshape(B, H, hd), cache.k[li], cache.v[li], pos + 1)
+        if cache.quantized:
+            o = decode_attention_int8(q.reshape(B, H, hd), cache.k[li], cache.v[li], cache.k_scale[li],
+                                      cache.v_scale[li], pos, k.reshape(B, KV, hd), v.reshape(B, KV, hd))
+            for new, vals, scales in ((k, cache.k, cache.k_scale), (v, cache.v, cache.v_scale)):
+                q8, sc = quantize_kv(new.reshape(B, KV * hd))
+                vals[li, :, pos] = q8.reshape(B, KV, hd)
+                scales[li, :, pos] = sc
             o = o.reshape(B, 1, H * hd)
         else:
-            o = _attend(cfg, q, cache.k[li, :, : pos + 1], cache.v[li, :, : pos + 1], None)
-        x = _mlp(cfg, x + o @ lp["wo"], lp)
+            cache.k[li, :, pos : pos + 1] = k
+            cache.v[li, :, pos : pos + 1] = v
+            if x.dtype == torch.bfloat16:
+                o = decode_attention(q.reshape(B, H, hd), cache.k[li], cache.v[li], pos + 1)
+                o = o.reshape(B, 1, H * hd)
+            else:
+                o = _attend(cfg, q, cache.k[li, :, : pos + 1], cache.v[li, :, : pos + 1], None)
+        x = _mlp(cfg, x + _mm(o, lp["wo"]), lp)
     return rms_norm(x[:, 0, :], params["norm_f"], cfg.rms_norm_eps)

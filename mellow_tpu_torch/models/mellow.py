@@ -53,6 +53,8 @@ def generate_tokens(
     *,
     max_len: int,
     stop_token_id=None,  # default: cfg.stop_token_id
+    kv_cache_dtype=None,  # None (the compute dtype) or "int8"
+    w8a8: bool = False,  # W8A8 prefill blocks for int8 decoder weights
 ) -> gen.GenerateResult:
     """Two waveforms + prompt ids -> greedy token ids, in the dtype of the
     waves and the weights (float32 parity mode or bfloat16 perf mode)."""
@@ -60,6 +62,7 @@ def generate_tokens(
     return gen.generate(
         params["decoder"], cfg.decoder, prefix, max_len=max_len,
         stop_token_id=cfg.stop_token_id if stop_token_id is None else stop_token_id,
+        kv_cache_dtype=kv_cache_dtype, w8a8=w8a8,
     )
 
 

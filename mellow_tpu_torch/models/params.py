@@ -16,27 +16,45 @@ def _to_torch(tree, device, dtype):
         return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_to_torch(v, device, dtype) for v in tree]
-    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device=device, dtype=dtype)
+    a = np.asarray(tree)
+    if np.issubdtype(a.dtype, np.integer):  # int8 weights keep their type
+        return torch.from_numpy(np.array(a)).to(device)
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dtype)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a tree whose leaves are stacked on a leading L axis."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
 
 
 def params_from_jax(tree: dict, device, dtype: torch.dtype = torch.float32) -> dict:
     """JAX-layout parameter tree of array-likes (e.g. ``jax.tree.map(
     np.asarray, params)``, an ``init_params`` tree, or a loaded .npz tree)
-    -> the port's tree of tensors on ``device``. Every leaf is floating and
-    is cast to ``dtype``, norms, biases, ``rel_bias_table``, ``bn0`` and
-    ``embed`` included, as the JAX wrapper casts every floating leaf to the
-    compute dtype."""
+    -> the port's tree of tensors on ``device``. Every floating leaf is cast
+    to ``dtype``, norms, biases, ``rel_bias_table``, ``bn0`` and ``embed``
+    included, as the JAX wrapper casts every floating leaf to the compute
+    dtype; integer leaves (the int8 values of a quantized decoder) keep
+    their type."""
     out = {k: _to_torch(v, device, dtype) for k, v in tree.items() if k != "decoder"}
     dec = tree["decoder"]
     stacked = dec["layers"]
-    n_layers = len(next(iter(stacked.values())))
+    first = next(iter(stacked.values()))
+    n_layers = len(np.asarray(first["q"] if isinstance(first, dict) else first))
     decoder = {k: _to_torch(v, device, dtype) for k, v in dec.items() if k != "layers"}
-    decoder["layers"] = [
-        {k: _to_torch(np.asarray(v)[i], device, dtype) for k, v in stacked.items()}
-        for i in range(n_layers)
-    ]
+    decoder["layers"] = [_to_torch(_layer(stacked, i), device, dtype) for i in range(n_layers)]
     out["decoder"] = decoder
     return out
+
+
+def cast_floating(tree, dtype: torch.dtype):
+    """Every floating tensor of a tree cast to ``dtype``; others unchanged."""
+    if isinstance(tree, dict):
+        return {k: cast_floating(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [cast_floating(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 def count_params(params) -> int:

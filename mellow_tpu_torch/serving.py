@@ -1,6 +1,7 @@
 """Batched serving engine for the port: the port's own copy of
 ``BatchingEngine`` from ``mellow_tpu/serving.py`` (the continuous-batching
-engine is not ported).
+engine is not ported), whose ``submit`` also takes the wrapper's
+``kv_cache_dtype`` (part of the batch key).
 
 Concurrent callers submit single examples; a background dispatcher
 coalesces them into batches, runs one ``wrapper.generate`` per batch and
@@ -34,6 +35,7 @@ class _BatchKey:
     top_p: float
     temperature: float
     sample: bool
+    kv_cache_dtype: Optional[str] = None
 
 
 @dataclass
@@ -79,13 +81,14 @@ class BatchingEngine:
         sample: bool = False,
         timeout: Optional[float] = None,  # seconds in-system before the
         # dispatcher fails the request with TimeoutError
+        kv_cache_dtype: Optional[str] = None,  # passed to wrapper.generate
     ) -> Future:
         """Non-blocking: returns a Future resolving to the generated str."""
         if not self._running:
             raise RuntimeError("engine is shut down")
         req = _Request(
             [audio_path1, audio_path2, prompt],
-            _BatchKey(max_len, top_p, temperature, sample),
+            _BatchKey(max_len, top_p, temperature, sample, kv_cache_dtype),
             next(self._seq),
             None if timeout is None else time.monotonic() + timeout,
         )
@@ -180,6 +183,7 @@ class BatchingEngine:
                 top_p=key.top_p,
                 temperature=key.temperature,
                 sample=key.sample,
+                kv_cache_dtype=key.kv_cache_dtype,
                 dynamic_batch=self.dynamic_batch,
             )
             for r, pred in zip(batch, preds):

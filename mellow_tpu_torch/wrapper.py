@@ -10,9 +10,15 @@ is the JAX wrapper's, on the port's own copies of that code
     "float32") or bf16 perf mode (``compute_dtype="bfloat16"``: every
     floating weight, the audio and the KV cache in bf16, the hand-written
     decode-attention, prefill-block and Swin-block kernels on the card);
-    ``kv_cache_dtype`` may only name the compute dtype; ``sample=True``,
-    ``weight_dtype``, ``mesh``, ``dynamic_batch`` and
-    ``repetition_penalty != 1`` raise;
+  * bf16 perf mode also takes the int8 options: ``weight_dtype="int8"``
+    (int8 decoder weights, quantized from the fp32 weights before the cast
+    to bf16, as the JAX wrapper does), ``weight_dtype="int8-w8a8"`` (the
+    same, with the W8A8 prefill blocks) and ``generate(...,
+    kv_cache_dtype="int8")`` (an int8 KV cache, the int8 decode-attention
+    kernel), in any combination;
+  * ``kv_cache_dtype`` otherwise may only name the compute dtype;
+    ``sample=True``, ``weight_dtype`` or an int8 cache under fp32, ``mesh``,
+    ``dynamic_batch`` and ``repetition_penalty != 1`` raise;
   * no power-of-two batch buckets: eager PyTorch does not recompile per
     shape, so the batch runs as given;
   * weights come from ``params=`` (the JAX package's tree layout) or from a
@@ -35,7 +41,8 @@ from mellow_tpu_torch.native import binding as native_audio
 from mellow_tpu_torch.utils.metrics import GLOBAL as metrics
 from mellow_tpu_torch.utils.params_io import load_params
 from mellow_tpu_torch.models import mellow as mellow_model
-from mellow_tpu_torch.models.params import count_params, params_from_jax
+from mellow_tpu_torch.models import llama
+from mellow_tpu_torch.models.params import cast_floating, count_params, params_from_jax
 
 _MODELS = ("v0", "v0_s")  # the two published checkpoints of the v0 architecture
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -72,8 +79,11 @@ class MellowWrapper:
         self.dtype = _DTYPES[self.cfg.compute_dtype]
         if self.cfg.decoder_family != "llama":
             raise NotImplementedError("the port runs the llama decoder family only")
-        if weight_dtype is not None:
-            raise NotImplementedError("weight_dtype (int8 weights) is not ported")
+        if weight_dtype not in (None, "int8", "int8-w8a8"):
+            raise ValueError(f"unsupported weight_dtype {weight_dtype!r}")
+        if weight_dtype is not None and self.dtype != torch.bfloat16:
+            raise NotImplementedError("int8 weights are ported under compute_dtype='bfloat16' only")
+        self._w8a8 = weight_dtype == "int8-w8a8"
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device inference) is not ported")
         self.device = torch.device(device)
@@ -86,7 +96,15 @@ class MellowWrapper:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
 
-        self.params = params_from_jax(self._load_params(params_path, params), self.device, self.dtype)
+        tree = self._load_params(params_path, params)
+        if weight_dtype is None:
+            self.params = params_from_jax(tree, self.device, self.dtype)
+        else:
+            # Quantize the fp32 weights, then cast every floating leaf (the
+            # scales included) to the compute dtype: the JAX wrapper's order.
+            p32 = params_from_jax(tree, self.device, torch.float32)
+            p32["decoder"] = llama.quantize_decoder(p32["decoder"], self.cfg.decoder)
+            self.params = cast_floating(p32, self.dtype)
         if use_native_audio is None:
             self._native = native_audio if native_audio.available() else None
         elif use_native_audio:
@@ -184,7 +202,8 @@ class MellowWrapper:
         answer and are accepted for API parity."""
         if sample:
             raise NotImplementedError("sample=True (nucleus sampling) is not ported")
-        if kv_cache_dtype not in (None, self.cfg.compute_dtype):
+        int8_cache = kv_cache_dtype == "int8" and self.dtype == torch.bfloat16
+        if kv_cache_dtype not in (None, self.cfg.compute_dtype) and not int8_cache:
             raise NotImplementedError(
                 f"kv_cache_dtype={kv_cache_dtype!r} is not ported under "
                 f"compute_dtype={self.cfg.compute_dtype!r}")
@@ -206,6 +225,7 @@ class MellowWrapper:
                 torch.from_numpy(audio2).to(device=self.device, dtype=self.dtype),
                 torch.from_numpy(text_ids).to(self.device),
                 max_len=max_len, stop_token_id=stop_token_id,
+                kv_cache_dtype="int8" if int8_cache else None, w8a8=self._w8a8,
             )
             tokens = result.tokens.cpu().numpy()[:, : result.num_steps]
             texts = [self.tokenizer.decode(row.tolist()).split(stop_token)[0] for row in tokens]

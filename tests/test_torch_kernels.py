@@ -6,8 +6,11 @@ JAX, so it also runs where JAX is not installed:
 
 Tolerances: the log-mel within atol 5e-4 dB / rtol 1e-4, what the TPU
 kernel is held to (fp32 DFT sums of 1024 terms in another order); the bf16
-kernels within 2e-2 x max|plain| (both round at the same points; the sums
-run in another order, so a value may round to the neighbouring bf16)."""
+and int8 kernels' bf16 outputs within 2e-2 x max|plain| (both round at the
+same points; the sums run in another order, so a value may round to the
+neighbouring bf16, or an int8 activation to the neighbouring level); int8
+k/v rows within one level of the plain version and their scales within
+2^-7 relative (one bf16 ulp of the row's max)."""
 
 import numpy as np
 import pytest
@@ -15,10 +18,14 @@ import torch
 
 from mellow_tpu_torch.config import FrontendConfig
 from mellow_tpu_torch.ops import frontend as fe
+from mellow_tpu_torch.models.llama import quantize_kv, quantize_weight
 from mellow_tpu_torch.ops import attn_block as ab
+from mellow_tpu_torch.ops import attn_block_w8a8 as aw
 from mellow_tpu_torch.ops import decode_attention as da
+from mellow_tpu_torch.ops import decode_attention_int8 as di
 from mellow_tpu_torch.ops import melspec
 from mellow_tpu_torch.ops import mlp_block as mb
+from mellow_tpu_torch.ops import mlp_block_w8a8 as mw
 from mellow_tpu_torch.ops import swin_block as sb
 
 pytestmark = pytest.mark.cuda
@@ -158,3 +165,103 @@ def test_swin_block_kernel_matches_plain_version(device, B, R, C, H, shift):
     torch.cuda.synchronize()
     assert sb.LAUNCHES == before + 1
     _close_bf16(out, sb.swin_block_plain(x, p, bias, mask, num_heads=H, window_size=8))
+
+
+# ---------------------------------------------------------------------------
+# int8 kernels
+# ---------------------------------------------------------------------------
+
+def _int8(rng, *shape, scale=0.05):
+    """int8 (in, out) weight values and their bf16 per-column scales."""
+    q = quantize_weight(torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).cuda())
+    return q["q"], q["scale"].bfloat16()
+
+
+def _close_kv(got, want):
+    """(k8, v8, k_scale, v_scale) against the plain version's."""
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == torch.int8 and g.shape == w.shape
+        assert (g.int() - w.int()).abs().max().item() <= 1
+    for g, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, w, rtol=2.0 ** -7, atol=0)
+
+
+@pytest.mark.parametrize("B, n", [(1, 389), (4, 420), (2, 7)])
+def test_int8_decode_attention_kernel_matches_plain_version(device, B, n):
+    rng = np.random.RandomState(n + 1)
+    H, KV, hd, s_max = 9, 3, 64, 450
+    q = _bf16(rng, B, H, hd)
+    k8, ks = quantize_kv(_bf16(rng, B, s_max, KV * hd, scale=0.5))
+    v8, vs = quantize_kv(_bf16(rng, B, s_max, KV * hd))
+    k8, v8 = k8.reshape(B, s_max, KV, hd), v8.reshape(B, s_max, KV, hd)
+    cur = (_bf16(rng, B, KV, hd, scale=0.5), _bf16(rng, B, KV, hd))
+    before = di.LAUNCHES
+    out = di.decode_attention_int8(q, k8, v8, ks, vs, n, *cur)
+    torch.cuda.synchronize()
+    assert di.LAUNCHES == before + 1
+    _close_bf16(out, di.decode_attention_int8_plain(q, k8, v8, ks, vs, n, *cur))
+
+
+def _rope(S, hd):
+    t = torch.arange(S, dtype=torch.float32, device="cuda")[:, None]
+    inv = 1.0 / (100000.0 ** (torch.arange(0, hd, 2, device="cuda").float() / hd))
+    emb = torch.cat([t * inv, t * inv], dim=-1)
+    return emb.cos().bfloat16(), emb.sin().bfloat16()
+
+
+@pytest.mark.parametrize("B, S", [(1, 389), (2, 100)])
+def test_attn_block_kv_quant_kernel_matches_plain_version(device, B, S):
+    rng = np.random.RandomState(S + 3)
+    D, H, KV, hd = 576, 9, 3, 64
+    x = _bf16(rng, B, S, D, scale=0.5)
+    ws = [_bf16(rng, D, scale=0.1) + 1, _bf16(rng, D, H * hd, scale=0.05),
+          _bf16(rng, D, KV * hd, scale=0.05), _bf16(rng, D, KV * hd, scale=0.05),
+          _bf16(rng, H * hd, D, scale=0.05)]
+    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd, eps=1e-5, kv_quant=True)
+    cache = torch.zeros((2, B, S + 8, KV, hd), dtype=torch.int8, device="cuda")
+    scales = torch.zeros((2, B, S + 8), dtype=torch.float32, device="cuda")
+    before = ab.LAUNCHES_KV_QUANT
+    out = ab.attn_block(x, *ws, *_rope(S, hd), **kw, k_out=cache[0, :, :S], v_out=cache[1, :, :S],
+                        k_scale_out=scales[0, :, :S], v_scale_out=scales[1, :, :S])
+    torch.cuda.synchronize()
+    assert ab.LAUNCHES_KV_QUANT == before + 1
+    ref = ab.attn_block_plain(x, *ws, *_rope(S, hd), **kw)
+    _close_bf16(out[0], ref[0])
+    _close_kv(out[1:], ref[1:])
+    assert cache[:, :, S:].abs().sum().item() == 0 and scales[:, :, S:].abs().sum().item() == 0
+
+
+@pytest.mark.parametrize("B, S, kv_quant", [(1, 389, True), (4, 389, True), (2, 13, False)])
+def test_attn_block_w8a8_kernel_matches_plain_version(device, B, S, kv_quant):
+    rng = np.random.RandomState(S + B)
+    D, H, KV, hd = 576, 9, 3, 64
+    x = _bf16(rng, B, S, D, scale=0.5)
+    ln = _bf16(rng, D, scale=0.1) + 1
+    ws = [t for shape in ((D, H * hd), (D, KV * hd), (D, KV * hd), (H * hd, D))
+          for t in _int8(rng, *shape)]
+    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd, eps=1e-5, kv_quant=kv_quant)
+    before = aw.LAUNCHES
+    out = aw.attn_block_w8a8(x, ln, *ws, *_rope(S, hd), **kw)
+    torch.cuda.synchronize()
+    assert aw.LAUNCHES == before + 1
+    ref = aw.attn_block_w8a8_plain(x, ln, *ws, *_rope(S, hd), **kw)
+    _close_bf16(out[0], ref[0])
+    if kv_quant:
+        _close_kv(out[1:], ref[1:])
+    else:
+        for got, want in zip(out[1:], ref[1:]):
+            _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("B, S", [(1, 389), (4, 389), (2, 13)])
+def test_mlp_block_w8a8_kernel_matches_plain_version(device, B, S):
+    rng = np.random.RandomState(S + B + 5)
+    D, I = 576, 1536
+    x = _bf16(rng, B, S, D, scale=0.5)
+    ln = _bf16(rng, D, scale=0.1) + 1
+    ws = [t for shape in ((D, I), (D, I), (I, D)) for t in _int8(rng, *shape)]
+    before = mw.LAUNCHES
+    out = mw.mlp_block_w8a8(x, ln, *ws, eps=1e-5)
+    torch.cuda.synchronize()
+    assert mw.LAUNCHES == before + 1
+    _close_bf16(out, mw.mlp_block_w8a8_plain(x, ln, *ws, eps=1e-5))
