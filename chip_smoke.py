@@ -12,10 +12,11 @@ result line is printed:
 3. kernel phase: each kernel against its plain PyTorch version on the card,
    at the main path's full v0 shapes (B=1 and B=4; every Swin stage that
    takes the kernel; decode attention at the prefix length and 31 positions
-   past it), with the tolerance printed, CUDA-event medians of the kernel
-   and of the plain version, the least time the card could take
-   (``bound_ms``) and, where one PyTorch call computes the same function,
-   that call's time (``library_ms``);
+   past it) and, for the prefill attention (#10), the GPT-2 prefill's
+   (S=389, H=KV=12, hd=64), with the tolerance printed, CUDA-event medians
+   of the kernel and of the plain version, the least time the card could
+   take (``bound_ms``) and, where one PyTorch call computes the same
+   function, that call's time (``library_ms``);
 4. fp32 path: ``MellowWrapper(config="v0", device="cuda")`` at full v0 width
    with random weights from a seed answers requests one at a time, as a
    batch, and through the port's ``BatchingEngine``; every ``generate``
@@ -35,7 +36,15 @@ result line is printed:
    path's prefix must equal bf16's and its prefill logits and one decode
    step's logits are held against the bf16 CUDA path; the greedy token
    agreement with bf16 is printed;
-7. timings of the paths by stage (host preprocessing, log-mel, encoder,
+7. GPT-2 paths: the GPT-2-small decoder (12 layers, 768 wide, 12 heads,
+   vocab 50257) behind the full HTSAT (``d_proj=768``), the configuration
+   ``gpt2_config`` registers in code, in fp32, in bf16 (the prefill
+   attention kernel in every layer) and with int8 weights under bf16
+   (``weight_dtype="int8"``, one request); every call's launches checked;
+   at a batch of 2 the fp32 CUDA prefix and logits are held against the
+   CPU, bf16 against fp32 CUDA and the int8 weights against bf16 (the same
+   prefix, bit for bit); the token agreement is printed;
+8. timings of the paths by stage (host preprocessing, log-mel, encoder,
    prefill, decode step as the slope of two lengths, whole request), and
    torch.profiler over one warm B=1 request of each path (device time,
    kernel launches, the device's idle share).
@@ -63,10 +72,10 @@ import torch
 import torch.nn.functional as F
 
 from mellow_tpu_torch import MellowWrapper
-from mellow_tpu_torch.config import get_config
+from mellow_tpu_torch.config import get_config, register_config
 from mellow_tpu_torch.io.tokenizer import ByteTokenizer
 from mellow_tpu_torch.models import generate as gen
-from mellow_tpu_torch.models import llama
+from mellow_tpu_torch.models import gpt2, llama
 from mellow_tpu_torch.models.htsat import relative_position_index, shifted_window_mask
 from mellow_tpu_torch.models.mellow import encode_and_prefix, init_params
 from mellow_tpu_torch.models.params import params_from_jax
@@ -75,6 +84,7 @@ from mellow_tpu_torch.ops import attn_block as ab
 from mellow_tpu_torch.ops import attn_block_w8a8 as aw
 from mellow_tpu_torch.ops import decode_attention as da
 from mellow_tpu_torch.ops import decode_attention_int8 as di
+from mellow_tpu_torch.ops import flash_gqa_prefill as fp
 from mellow_tpu_torch.ops import frontend as fe
 from mellow_tpu_torch.ops import mlp_block as mb
 from mellow_tpu_torch.ops import mlp_block_w8a8 as mw
@@ -96,11 +106,15 @@ BF16_KERNEL_TOL = 2e-2
 # layers: the same math with sums in another order.
 SLICE_TOL = {"atol": 2e-3, "rtol": 1e-3}
 # bf16 perf mode against fp32 parity mode on the card, relative to the fp32
-# output's largest magnitude: 12 encoder blocks and 30 decoder layers of
-# bf16 rounding (2^-8 relative per rounding).
-# Limits 2-3x above what the card read (PERF.md): prefix, prefill logits,
-# one decode step's logits.
+# output's largest magnitude: 12 encoder blocks and 30 (llama) or 12 (GPT-2)
+# decoder layers of bf16 rounding (2^-8 relative per rounding).
+# Limits 2-3x above what the card read for both families (PERF.md):
+# prefix, prefill logits, one decode step's logits.
 BF16_TOL = (2.5e-2, 3.5e-2, 3.5e-2)
+# GPT-2's int8 weights (bf16 cache) against its bf16 path on the card, as
+# INT8_TOL: prefill and one decode step's logits. Limits 2.4-2.6x above what
+# the card read (PERF.md).
+GPT2_INT8_TOL = (7.5e-2, 7.5e-2)
 # The int8 path (W8A8 weights, int8 cache) against the bf16 path on the
 # card, relative to bf16's largest magnitude: prefill logits and one decode
 # step's logits (30 layers of per-row int8 activations, int8 weights and an
@@ -140,14 +154,33 @@ KERNELS = {
                         "mellow_tpu/ops/pallas_attn_block.py:435"),
     "mlp_block_w8a8": (mw, "LAUNCHES", "KERNELS_PER_CALL", "mellow_tpu_torch/csrc/mlp_block_w8a8.cu",
                        "mellow_tpu/ops/pallas_mlp_block.py:141"),
+    "flash_gqa_prefill": (fp, "LAUNCHES", "KERNELS_PER_CALL", "mellow_tpu_torch/csrc/flash_gqa_prefill.cu",
+                          "mellow_tpu/ops/pallas_attention.py:138"),
 }
-# The generate paths the smoke drives: wrapper options, generate options.
+GPT2_CONFIG = "gpt2_small"
+# The generate paths the smoke drives: config, wrapper options, generate
+# options.
 PATHS = {
-    "fp32": ({}, {}),
-    "bf16": ({"compute_dtype": "bfloat16"}, {}),
-    "int8": ({"compute_dtype": "bfloat16", "weight_dtype": "int8-w8a8"}, {"kv_cache_dtype": "int8"}),
-    "int8_weights": ({"compute_dtype": "bfloat16", "weight_dtype": "int8"}, {"kv_cache_dtype": "int8"}),
+    "fp32": ("v0", {}, {}),
+    "bf16": ("v0", {"compute_dtype": "bfloat16"}, {}),
+    "int8": ("v0", {"compute_dtype": "bfloat16", "weight_dtype": "int8-w8a8"}, {"kv_cache_dtype": "int8"}),
+    "int8_weights": ("v0", {"compute_dtype": "bfloat16", "weight_dtype": "int8"}, {"kv_cache_dtype": "int8"}),
+    "gpt2_fp32": (GPT2_CONFIG, {}, {}),
+    "gpt2_bf16": (GPT2_CONFIG, {"compute_dtype": "bfloat16"}, {}),
+    "gpt2_int8_weights": (GPT2_CONFIG, {"compute_dtype": "bfloat16", "weight_dtype": "int8"}, {}),
 }
+
+
+def gpt2_config():
+    """The reference's GPT-2 option at full width: GPT-2 small behind the v0
+    encoder, projected to 768, with GPT-2's end-of-text id as separator and
+    stop token. The values ``config_yaml.load_yaml_config`` gives for a
+    YAML with ``text_decoder: gpt2`` and ``d_proj: 768``; built in code,
+    since the card's host may lack PyYAML."""
+    return get_config("v0").replace(
+        name=GPT2_CONFIG, decoder=gpt2.GPT2Config(), d_proj=768, decoder_family="gpt2",
+        text_decoder="gpt2", sep_token_id=50256, stop_token_id=50256,
+    ).validate()
 
 
 def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -536,13 +569,40 @@ def bench_mlp_block_w8a8(dec, S: int) -> dict:
     return _row("mlp_block_w8a8", cases)
 
 
-def kernel_phase(cfg) -> list:
+def bench_flash_gqa_prefill(dec, S: int) -> dict:
+    rng = np.random.default_rng(SEED + 9)
+    D, H, hd = dec.hidden_size, dec.num_heads, dec.head_dim
+    kw = dict(num_heads=H, num_kv_heads=H, head_dim=hd)
+    cases = []
+    for batch in (1, 4):
+        # The three column slices of one qkv product, as the GPT-2 prefill
+        # hands them over.
+        q, k, v = _bf16(rng, batch, S, 3 * D).split(D, dim=-1)
+        out = fp.flash_gqa_prefill_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = _check_bf16("flash_gqa_prefill", out, fp.flash_gqa_prefill_plain(q, k, v, **kw))
+        ms, plain_ms = _alternate(lambda: fp.flash_gqa_prefill_plain(q, k, v, **kw),
+                                  lambda: fp.flash_gqa_prefill_cuda(q, k, v, **kw))
+        # The one PyTorch call for the same function, on (B, H, S, hd) views
+        # of the same slices.
+        heads = [t.unflatten(-1, (H, hd)).transpose(1, 2) for t in (q, k, v)]
+        _check_bf16("flash_gqa_prefill vs SDPA", out,
+                    F.scaled_dot_product_attention(*heads, is_causal=True).transpose(1, 2).reshape(batch, S, D))
+        library_ms = _median_ms(lambda: F.scaled_dot_product_attention(*heads, is_causal=True))
+        # q, k, v read once, o written once; the causal triangle of QK^T and PV.
+        bound = _bound(_nbytes(q, k, v, out), 2 * 2 * batch * H * hd * (S * (S + 1) // 2), PEAK_BF16)
+        cases.append(_case("flash_gqa_prefill", f"B={batch} S={S} H=KV={H} hd={hd}", err,
+                           f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound, library_ms))
+    return _row("flash_gqa_prefill", cases)
+
+
+def kernel_phase(cfg, gpt2_cfg) -> list:
     P = cfg.prefix_length
     return [bench_log_mel(cfg.frontend), bench_decode_attention(cfg.decoder, P),
             bench_attn_block(cfg.decoder, P), bench_mlp_block(cfg.decoder, P),
             bench_swin_block(cfg.encoder), bench_decode_attention_int8(cfg.decoder, P),
             bench_attn_block_kv_quant(cfg.decoder, P), bench_attn_block_w8a8(cfg.decoder, P),
-            bench_mlp_block_w8a8(cfg.decoder, P)]
+            bench_mlp_block_w8a8(cfg.decoder, P), bench_flash_gqa_prefill(gpt2_cfg.decoder, gpt2_cfg.prefix_length)]
 
 
 # ---------------------------------------------------------------------------
@@ -585,17 +645,19 @@ class CallRecorder:
 
 
 def expected_launches(cfg, steps: int, path: str) -> dict:
-    """What one generate call of ``path`` must launch: log-mel once per clip
-    batch; beyond fp32 also the Swin block once per gated block per clip
-    batch, each prefill block once per layer, and a decode attention once per
-    layer per decode step (the last token is chosen without a step): the
-    bf16 kernels on the bf16 path; the W8A8 blocks and the int8 decode
-    attention on the int8 path; the bf16 blocks in their kv_quant mode
-    (attention) and as they are (MLP) with the int8 decode attention on the
-    int8-weights path."""
+    """What one generate call of ``path`` (``cfg`` its config) must launch:
+    log-mel once per clip batch; beyond fp32 also the Swin block once per
+    gated block per clip batch and, for llama, each prefill block once per
+    layer and a decode attention once per layer per decode step (the last
+    token is chosen without a step): the bf16 kernels on the bf16 path; the
+    W8A8 blocks and the int8 decode attention on the int8 path; the bf16
+    blocks in their kv_quant mode (attention) and as they are (MLP) with the
+    int8 decode attention on the int8-weights path. GPT-2 in bf16 (int8
+    weights or not) runs the prefill attention once per layer, and its
+    decode step no kernel."""
     want = {name: 0 for name in KERNELS}
     want["log_mel"] = 2
-    if path == "fp32":
+    if path in ("fp32", "gpt2_fp32"):
         return want
     enc, L = cfg.encoder, cfg.decoder.num_layers
     res, C, swin = enc.grid_size, enc.embed_dim, 0
@@ -604,6 +666,9 @@ def expected_launches(cfg, steps: int, path: str) -> dict:
             swin += depth
         res, C = res // 2, C * 2
     want["swin_block"] = 2 * swin
+    if cfg.decoder_family == "gpt2":
+        want["flash_gqa_prefill"] = L
+        return want
     attn, mlp, decode = {"bf16": ("attn_block", "mlp_block", "decode_attention"),
                          "int8": ("attn_block_w8a8", "mlp_block_w8a8", "decode_attention_int8"),
                          "int8_weights": ("attn_block_kv_quant", "mlp_block", "decode_attention_int8")}[path]
@@ -619,7 +684,7 @@ def drive(wrapper, cfg, requests, path: str, full: bool = True) -> tuple:
     launches are checked, and so is that the path launched each of its
     kernels."""
     rec = CallRecorder(wrapper)
-    gen_kwargs = PATHS[path][1]
+    gen_kwargs = PATHS[path][2]
 
     def timed(examples):
         t = time.perf_counter()
@@ -670,21 +735,27 @@ def drive(wrapper, cfg, requests, path: str, full: bool = True) -> tuple:
 def prefix_and_logits(params, cfg, audio1, audio2, text, device, dtype, tokens=None, int8=False):
     """The prefix, the prefill logits and the logits of one decode step at
     the batch of ``text``; the step feeds ``tokens`` (default: the prefill's
-    greedy tokens). ``int8``: an int8 cache and the W8A8 prefill blocks.
-    Returns (prefix, prefill logits, step logits, tokens)."""
+    greedy tokens). ``int8``: an int8 cache and the W8A8 prefill blocks
+    (llama). Returns (prefix, prefill logits, step logits, tokens)."""
     args = [torch.from_numpy(audio1).to(device, dtype), torch.from_numpy(audio2).to(device, dtype),
             torch.from_numpy(text).to(device)]
     dec, p = cfg.decoder, params["decoder"]
     with torch.no_grad():
         prefix = encode_and_prefix(params, cfg, *args)
         B, P = prefix.shape[:2]
-        cache = llama.KVCache.create(dec, B, P + 1, device, torch.int8 if int8 else dtype)
-        logits = llama.logits_from_hidden(p, dec, llama.prefill(p, dec, prefix, cache, w8a8=int8))
-        if tokens is None:
-            tokens = logits.argmax(-1).cpu()
-        cos, sin = llama.rope_device_tables(dec, P + 1, dtype, device)
-        hidden = llama.decode_step(p, dec, p["embed"][tokens.to(device)], cache, P, cos, sin)
-        step = llama.logits_from_hidden(p, dec, hidden)
+        if cfg.decoder_family == "gpt2":
+            cache = gpt2.GPT2Cache.create(dec, B, P + 1, device, dtype)
+            logits = gpt2.logits_from_hidden(p, dec, gpt2.prefill(p, dec, prefix, cache))
+            tokens = logits.argmax(-1).cpu() if tokens is None else tokens
+            hidden = gpt2.decode_step(p, dec, p["wte"][tokens.to(device)], cache, P)
+            step = gpt2.logits_from_hidden(p, dec, hidden)
+        else:
+            cache = llama.KVCache.create(dec, B, P + 1, device, torch.int8 if int8 else dtype)
+            logits = llama.logits_from_hidden(p, dec, llama.prefill(p, dec, prefix, cache, w8a8=int8))
+            tokens = logits.argmax(-1).cpu() if tokens is None else tokens
+            cos, sin = llama.rope_device_tables(dec, P + 1, dtype, device)
+            hidden = llama.decode_step(p, dec, p["embed"][tokens.to(device)], cache, P, cos, sin)
+            step = llama.logits_from_hidden(p, dec, hidden)
     return prefix.float().cpu(), logits.float().cpu(), step.float().cpu(), tokens
 
 
@@ -695,9 +766,10 @@ def stage_times(wrapper, cfg, request, batch: int, path: str) -> dict:
     generated tokens at a fixed prefix (medians of 5 each) with no stop
     token, so both lengths run in full."""
     dev, dt, dec, p = wrapper.device, wrapper.dtype, cfg.decoder, wrapper.params
-    gen_kwargs = PATHS[path][1]
+    _, ctor, gen_kwargs = PATHS[path]
     int8 = gen_kwargs.get("kv_cache_dtype") == "int8"
-    w8a8 = PATHS[path][0].get("weight_dtype") == "int8-w8a8"
+    w8a8 = ctor.get("weight_dtype") == "int8-w8a8"
+    family = cfg.decoder_family
     examples = [request] * batch
     out = {}
     t = time.perf_counter()
@@ -715,8 +787,11 @@ def stage_times(wrapper, cfg, request, batch: int, path: str) -> dict:
         P = prefix.shape[1]
 
         def prefill():
-            cache = llama.KVCache.create(dec, batch, P, dev, torch.int8 if int8 else dt)
-            llama.prefill(p["decoder"], dec, prefix, cache, w8a8=w8a8)
+            if family == "gpt2":
+                gpt2.prefill(p["decoder"], dec, prefix, gpt2.GPT2Cache.create(dec, batch, P, dev, dt))
+            else:
+                cache = llama.KVCache.create(dec, batch, P, dev, torch.int8 if int8 else dt)
+                llama.prefill(p["decoder"], dec, prefix, cache, w8a8=w8a8)
 
         out["prefill_ms"] = _host_ms(prefill)
         # Five pairs, the two lengths in turn; the slope of the medians, and
@@ -724,8 +799,8 @@ def stage_times(wrapper, cfg, request, batch: int, path: str) -> dict:
         t32, t64 = [], []
         for _ in range(5):
             for n, ts in ((32, t32), (64, t64)):
-                ts.append(_host_ms(lambda: gen.generate(p["decoder"], dec, prefix, max_len=n,
-                                                        stop_token_id=-1, w8a8=w8a8, **gen_kwargs),
+                ts.append(_host_ms(lambda: gen.generate(p["decoder"], dec, prefix, max_len=n, stop_token_id=-1,
+                                                        w8a8=w8a8, family=family, **gen_kwargs),
                                    reps=1))
     out["decode_step_ms"] = (statistics.median(t64) - statistics.median(t32)) / 32
     slopes = [(b - a) / 32 for a, b in zip(t32, t64)]
@@ -756,17 +831,46 @@ def _hold(label, names, got, ref, tols) -> None:
             raise RuntimeError(f"{label} {name} is {err / scale:.4f} x max|ref| off, limit {tol}")
 
 
-def slice_phase(cfg) -> dict:
+def hold_family(label, cfg, params, trees, int8_name, inputs, int8_cache: bool, int8_tol,
+                device="cuda") -> None:
+    """One family at the batch of ``inputs`` (audio1, audio2, text ids):
+    the fp32 path (``trees[0]``) on ``device`` against the same weights on
+    the CPU, bf16 (``trees[1]``) against fp32, and the int8 path
+    (``trees[2]``, named ``int8_name``; llama: W8A8 weights and an int8 cache,
+    ``int8_cache``; GPT-2: int8 weights) against bf16, whose prefix it must
+    equal bit for bit: the int8 options change only the decoder."""
+    names = ("prefix", "prefill logits", "decode-step logits")
+    *ref32, tokens = prefix_and_logits(trees[0], cfg, *inputs, device, torch.float32)
+    *got16, _ = prefix_and_logits(trees[1], cfg, *inputs, device, torch.bfloat16, tokens)
+    *got8, _ = prefix_and_logits(trees[2], cfg, *inputs, device, torch.bfloat16, tokens, int8=int8_cache)
+    *cpu32, _ = prefix_and_logits(params_from_jax(params, "cpu"), cfg, *inputs, "cpu", torch.float32, tokens)
+    for name, got, ref in zip(names, ref32, cpu32):
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise RuntimeError(f"{label}fp32 {name}: bad output {tuple(got.shape)}")
+        print(f"{label}fp32 {name} {tuple(got.shape)}: CUDA vs CPU max_abs_err {(got - ref).abs().max().item():.3e}")
+        torch.testing.assert_close(got, ref, **SLICE_TOL)
+    _hold(f"{label}bf16 vs fp32 CUDA", names, got16, ref32, BF16_TOL)
+    if not torch.equal(got8[0], got16[0]):
+        raise RuntimeError(f"the {int8_name} path's prefix differs from the bf16 path's")
+    _hold(f"{int8_name} vs bf16 CUDA", names[1:], got8[1:], got16[1:], int8_tol)
+    print(f"{label}prefill argmax bf16 {got16[1].argmax(-1).tolist()}, fp32 {ref32[1].argmax(-1).tolist()}, "
+          f"{int8_name} {got8[1].argmax(-1).tolist()}")
+
+
+def slice_phase() -> dict:
     """Drive every path; return each path's kernel launches and the stage
     timings."""
     t0 = time.perf_counter()
-    params = init_params(cfg, SEED)
+    register_config(GPT2_CONFIG, gpt2_config())
+    cfgs = {name: get_config(name) for name in ("v0", GPT2_CONFIG)}
+    params = {name: init_params(cfg, SEED) for name, cfg in cfgs.items()}
     tok = DistinctTokenizer()
-    wrappers = {path: MellowWrapper(config="v0", model="v0", device="cuda", params=params, tokenizer=tok,
+    wrappers = {path: MellowWrapper(config=name, model="v0", device="cuda", params=params[name], tokenizer=tok,
                                     **ctor)
-                for path, (ctor, _) in PATHS.items()}
+                for path, (name, ctor, _) in PATHS.items()}
     print(f"weights made and loaded ({', '.join(PATHS)}) in {time.perf_counter() - t0:.2f} s")
     timings, launches, answers = {}, {}, {}
+    single = ("int8_weights", "gpt2_int8_weights")
     with tempfile.TemporaryDirectory() as tmp:
         a = _write_wav(os.path.join(tmp, "a.wav"), 7.0, 1)  # repeat-padded
         b = _write_wav(os.path.join(tmp, "b.wav"), 9.5, 2)
@@ -774,47 +878,35 @@ def slice_phase(cfg) -> dict:
                     [b, a, "what is different between the two clips?"],
                     [a, a, "is there speech?"]]
         for path, w in wrappers.items():
-            answers[path], launches[path] = drive(w, cfg, requests, path, full=path != "int8_weights")
+            answers[path], launches[path] = drive(w, cfgs[PATHS[path][0]], requests, path,
+                                                  full=path not in single)
         if not _agreement("bf16 vs fp32", answers["bf16"], answers["fp32"]):
             raise RuntimeError("bf16's first greedy token differs from fp32's")
         _agreement("int8 (W8A8 weights, int8 cache) vs bf16", answers["int8"], answers["bf16"])
         _agreement("int8 weights + int8 cache vs bf16", answers["int8_weights"], answers["bf16"][:1])
+        _agreement("gpt2 bf16 vs gpt2 fp32", answers["gpt2_bf16"], answers["gpt2_fp32"])
+        _agreement("gpt2 int8 weights vs gpt2 bf16", answers["gpt2_int8_weights"], answers["gpt2_bf16"][:1])
 
         audio1 = wrappers["fp32"].preprocess_audio([r[0] for r in requests[:2]], True)
         audio2 = wrappers["fp32"].preprocess_audio([r[1] for r in requests[:2]], True)
-        text = wrappers["fp32"].preprocess_text([r[2] for r in requests[:2]])
-        for path in ("fp32", "bf16", "int8"):
-            for batch in (1, 4):
+        texts = {name: wrappers[path].preprocess_text([r[2] for r in requests[:2]])
+                 for name, path in (("v0", "fp32"), (GPT2_CONFIG, "gpt2_fp32"))}
+        for path, batches in (("fp32", (1, 4)), ("bf16", (1, 4)), ("int8", (1, 4)),
+                              ("gpt2_fp32", (1,)), ("gpt2_bf16", (1,))):
+            for batch in batches:
                 key = f"{path} B={batch}"
-                timings[key] = stage_times(wrappers[path], cfg, requests[0], batch, path)
+                timings[key] = stage_times(wrappers[path], cfgs[PATHS[path][0]], requests[0], batch, path)
                 print(json.dumps({"stage_times": key, **timings[key]}))
-        for path in ("fp32", "bf16", "int8"):
+        for path in ("fp32", "bf16", "int8", "gpt2_fp32", "gpt2_bf16"):
             timings[f"profile {path}"] = profile_request(wrappers[path], requests[0], path)
 
     # Two rows (requests 0 and 1), so the batch strides of the prefill
     # blocks' cache writes and of decode attention's cache reads are used.
-    names = ("prefix", "prefill logits", "decode-step logits")
-    *ref32, tokens = prefix_and_logits(wrappers["fp32"].params, cfg, audio1, audio2, text, "cuda",
-                                       torch.float32)
-    *got16, _ = prefix_and_logits(wrappers["bf16"].params, cfg, audio1, audio2, text, "cuda",
-                                  torch.bfloat16, tokens)
-    *got8, _ = prefix_and_logits(wrappers["int8"].params, cfg, audio1, audio2, text, "cuda",
-                                 torch.bfloat16, tokens, int8=True)
-    *cpu32, _ = prefix_and_logits(params_from_jax(params, "cpu"), cfg, audio1, audio2, text, "cpu",
-                                  torch.float32, tokens)
-    for name, got, ref in zip(names, ref32, cpu32):
-        if got.shape != ref.shape or not torch.isfinite(got).all():
-            raise RuntimeError(f"fp32 {name}: bad output {tuple(got.shape)}")
-        print(f"fp32 {name} {tuple(got.shape)}: CUDA vs CPU max_abs_err {(got - ref).abs().max().item():.3e}")
-        torch.testing.assert_close(got, ref, **SLICE_TOL)
-    _hold("bf16 vs fp32 CUDA", names, got16, ref32, BF16_TOL)
-    # The int8 options change only the decoder: the prefix is bf16's, bit
-    # for bit.
-    if not torch.equal(got8[0], got16[0]):
-        raise RuntimeError("the int8 path's prefix differs from the bf16 path's")
-    _hold("int8 vs bf16 CUDA", names[1:], got8[1:], got16[1:], INT8_TOL)
-    print(f"prefill argmax bf16 {got16[1].argmax(-1).tolist()}, fp32 {ref32[1].argmax(-1).tolist()}, "
-          f"int8 {got8[1].argmax(-1).tolist()}")
+    for label, name, paths, int8_cache, int8_tol in (
+            ("", "v0", ("fp32", "bf16", "int8"), True, INT8_TOL),
+            ("gpt2 ", GPT2_CONFIG, ("gpt2_fp32", "gpt2_bf16", "gpt2_int8_weights"), False, GPT2_INT8_TOL)):
+        hold_family(label, cfgs[name], params[name], [wrappers[p].params for p in paths], paths[2],
+                    (audio1, audio2, texts[name]), int8_cache, int8_tol)
     return {"launches": launches, "timings": timings}
 
 
@@ -825,7 +917,7 @@ def profile_request(wrapper, request, path: str) -> dict:
     that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    gen_kwargs = PATHS[path][1]
+    gen_kwargs = PATHS[path][2]
     wall_ms = _host_ms(lambda: wrapper.generate([request], max_len=MAX_LEN, **gen_kwargs), reps=1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_ms = _host_ms(lambda: wrapper.generate([request], max_len=MAX_LEN, **gen_kwargs), reps=1)
@@ -870,18 +962,18 @@ def main() -> int:
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     print("ptxas:", line.strip())
 
-    cfg = get_config("v0")
     t = time.perf_counter()
-    rows = kernel_phase(cfg)
+    rows = kernel_phase(get_config("v0"), gpt2_config())
     print(f"kernel phase took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    launches = slice_phase(cfg)["launches"]
+    launches = slice_phase()["launches"]
     print(f"slice phase took {time.perf_counter() - t:.1f} s")
     # Each kernel's launches on the run of the path that carries it (the
-    # int8 path's own kernels on that path; the rest on the bf16 path), and
-    # on every path.
+    # int8 path's own kernels on that path, #4's kv_quant mode on the
+    # int8-weights path, the prefill attention on the GPT-2 bf16 path; the
+    # rest on the bf16 path), and on every path.
     home = {"decode_attention_int8": "int8", "attn_block_w8a8": "int8", "mlp_block_w8a8": "int8",
-            "attn_block_kv_quant": "int8_weights"}
+            "attn_block_kv_quant": "int8_weights", "flash_gqa_prefill": "gpt2_bf16"}
     for row in rows:
         name = row["name"]
         mod, _, per_call, *_ = KERNELS[name]

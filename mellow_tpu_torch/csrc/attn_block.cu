@@ -79,7 +79,9 @@ extern "C" int mellow_attn_block(const void* x, const void* ln, const void* wq, 
   const bf16* kp = static_cast<const bf16*>(k_out);
   const bf16* vp = static_cast<const bf16*>(v_out);
   bf16* op = static_cast<bf16*>(o_buf);
-  if ((err = launch_causal_gqa<64>(qp, kp, vp, op, B, S, H, KV, kv_bstride, st))) return err;
+  if ((err = launch_causal_gqa<64>(qp, kp, vp, op, B, S, H, KV, (long long)S * H * hd, H * hd,
+                                   kv_bstride, KV * hd, st)))
+    return err;
 
   GemmArgs go = gemm_args(o_buf, H * hd, wo, out, M, D, H * hd);
   go.resid = static_cast<const bf16*>(x);

@@ -88,8 +88,8 @@ extern "C" int mellow_attn_block_w8a8(
   const bf16* qp = static_cast<const bf16*>(q_buf);
   const bf16* kp = static_cast<const bf16*>(k_out);
   const bf16* vp = static_cast<const bf16*>(v_out);
-  if ((err = launch_causal_gqa<64>(qp, kp, vp, static_cast<bf16*>(o_buf), B, S, H, KV, kv_bstride,
-                                   st)))
+  if ((err = launch_causal_gqa<64>(qp, kp, vp, static_cast<bf16*>(o_buf), B, S, H, KV,
+                                   (long long)S * H * hd, H * hd, kv_bstride, KV * hd, st)))
     return err;
 
   RowQuantArgs ro = rowquant_args(o_buf, H * hd, o8, os, M, H * hd);

@@ -1,14 +1,23 @@
-// The causal GQA core shared by the prefill attention blocks (bf16,
-// attn_block.cu; W8A8, attn_block_w8a8.cu), which both keep the TPU
-// kernels' bf16 attention core (pallas_attn_block._attention).
+// The causal GQA core: TPU kernel #10 (pallas_attention.flash_gqa_prefill,
+// whose _kernel is this core alone; flash_gqa_prefill.cu launches it on its
+// own for the GPT-2 prefill) and the attention inside #4 and #5 (bf16,
+// attn_block.cu; W8A8, attn_block_w8a8.cu), which keep the same bf16
+// attention core (pallas_attn_block._attention).
 //
 // One block per (32 query rows, head, batch row).
 // Scores for the block's rows against every key they can see are kept in
 // shared memory (S <= 1024), so the softmax uses the row's true maximum and
 // rounds exp(s - max) to bf16 before the PV product exactly where the TPU
-// kernel does (pallas_attn_block._attn_row_block): s = (q . k) * scale,
-// masked to -1e30 above the diagonal; e = exp(s - m); o = bf16(e) @ v in
-// fp32, divided by sum(e) taken in fp32.
+// kernels do (pallas_attention._kernel, pallas_attn_block._attn_row_block):
+// s = (q . k) * scale, masked to -1e30 above the diagonal; e = exp(s - m);
+// o = bf16(e) @ v in fp32, divided by sum(e) taken in fp32. Key rows past S
+// load as zeros.
+//
+// Strides: q row s of batch b starts at b * q_bstride + s * ldq, k and v
+// rows at b * kv_bstride + s * ldkv (head h at column h * HD, group g at
+// g * HD), so q, k and v may be column slices of one packed qkv product or
+// rows of a KV-cache slice; every stride and base is a multiple of 8
+// elements (16-byte loads). The output is contiguous (B, S, H * HD).
 
 #pragma once
 
@@ -37,7 +46,7 @@ template <int HD>
 __global__ void __launch_bounds__(ATHREADS)
 causal_gqa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H, int KV,
-                  long long kv_bstride, float scale) {
+                  long long q_bstride, int ldq, long long kv_bstride, int ldkv, float scale) {
   constexpr int Q_LD = HD + 8;
   constexpr int O_LD = HD + 4;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -56,9 +65,8 @@ causal_gqa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int ldq = H * HD;
-  const int ldkv = KV * HD;
-  const bf16* qb = q + (size_t)b * S * ldq + h * HD;
+  const int ldo = H * HD;
+  const bf16* qb = q + (size_t)b * q_bstride + h * HD;
   const bf16* kb = k + (size_t)b * kv_bstride + g * HD;
   const bf16* vb = v + (size_t)b * kv_bstride + g * HD;
   const int n_keys = min(S, q0 + AQ);
@@ -173,20 +181,21 @@ causal_gqa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = e / HD;
     const int c = e % HD;
     if (q0 + r < S)
-      o[((size_t)b * S + q0 + r) * ldq + h * HD + c] = __float2bfloat16(Os[r * O_LD + c] / denom[r]);
+      o[((size_t)b * S + q0 + r) * ldo + h * HD + c] = __float2bfloat16(Os[r * O_LD + c] / denom[r]);
   }
 }
 
 template <int HD>
 int launch_causal_gqa(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int S, int H,
-                      int KV, long long kv_bstride, cudaStream_t stream) {
+                      int KV, long long q_bstride, int ldq, long long kv_bstride, int ldkv,
+                      cudaStream_t stream) {
   const size_t smem = attn_smem_bytes(S, HD);
   cudaError_t err = cudaFuncSetAttribute(causal_gqa_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + AQ - 1) / AQ, H, B);
-  causal_gqa_kernel<HD><<<grid, ATHREADS, smem, stream>>>(q, k, v, o, S, H, KV, kv_bstride,
-                                                          1.f / sqrtf((float)HD));
+  causal_gqa_kernel<HD><<<grid, ATHREADS, smem, stream>>>(q, k, v, o, S, H, KV, q_bstride, ldq,
+                                                          kv_bstride, ldkv, 1.f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,40 @@
+"""Decoder-family dispatch (``mellow_tpu/models/decoders.py``): the llama
+(SmolLM2) and gpt2 families expose create_cache / prefill / decode_step /
+logits_from_hidden / embed_table.
+
+The port's families differ from the JAX package's protocol where the port
+differs: no ``flush_pending`` (the port writes each step's k/v into its
+cache), no ``forward`` (training is not ported), and the random init is
+``models/mellow.py``'s ``init_params``. The llama step also takes the rope
+tables and the prefill its ``w8a8`` flag, so ``models/generate.py`` calls
+those two per family."""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+
+def get_decoder_ops(family: str) -> SimpleNamespace:
+    if family == "llama":
+        from mellow_tpu_torch.models import llama as m
+
+        return SimpleNamespace(
+            family="llama",
+            create_cache=m.KVCache.create,
+            prefill=m.prefill,
+            decode_step=m.decode_step,
+            logits_from_hidden=m.logits_from_hidden,
+            embed_table=lambda params: params["embed"],
+        )
+    if family == "gpt2":
+        from mellow_tpu_torch.models import gpt2 as m
+
+        return SimpleNamespace(
+            family="gpt2",
+            create_cache=m.GPT2Cache.create,
+            prefill=m.prefill,
+            decode_step=m.decode_step,
+            logits_from_hidden=m.logits_from_hidden,
+            embed_table=lambda params: params["wte"],
+        )
+    raise ValueError(f"unknown decoder family '{family}' (llama|gpt2)")

@@ -13,7 +13,13 @@ stop-trimmed rows are the same.
 
 The compute dtype is the prefix's (float32 parity mode or bfloat16 perf
 mode); the rope tables and the logits are in it, and so is the KV cache
-unless ``kv_cache_dtype="int8"`` asks for an int8 cache (bf16 only).
+unless ``kv_cache_dtype="int8"`` asks for an int8 cache (bf16, llama only).
+
+``family`` picks the decoder (``models/decoders.py``): "llama" (SmolLM2)
+or "gpt2". As in the JAX package, the gpt2 family has no int8 cache and no
+W8A8 prefill; unlike it, a gpt2 run that would need positions past its
+``max_position_embeddings`` raises before the prefill (the JAX gather
+clamps them silently).
 """
 
 from __future__ import annotations
@@ -23,8 +29,8 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from mellow_tpu_torch.config import LlamaConfig
 from mellow_tpu_torch.models import llama
+from mellow_tpu_torch.models.decoders import get_decoder_ops
 
 
 class GenerateResult(NamedTuple):
@@ -35,37 +41,56 @@ class GenerateResult(NamedTuple):
 @torch.no_grad()
 def generate(
     params: dict,
-    cfg: LlamaConfig,
+    cfg,  # LlamaConfig or GPT2Config, matching ``family``
     prefix_embeds: torch.Tensor,  # (B, P, D)
     *,
     max_len: int,
     stop_token_id: int,
     kv_cache_dtype: Optional[str] = None,
     w8a8: bool = False,
+    family: str = "llama",
 ) -> GenerateResult:
     """Prefill, then per step: logits -> argmax -> done mask -> decode_step
     writing position P + t into the cache. One host sync per step reads the
     done mask. ``kv_cache_dtype``: None (the compute dtype) or "int8";
     ``w8a8``: the W8A8 prefill blocks for int8 weights."""
+    ops = get_decoder_ops(family)
     B, P, _ = prefix_embeds.shape
     device = prefix_embeds.device
     dtype = prefix_embeds.dtype
     cache_dtype = torch.int8 if kv_cache_dtype == "int8" else dtype
-    cache = llama.KVCache.create(cfg, B, P + max_len, device, cache_dtype)
-    hidden = llama.prefill(params, cfg, prefix_embeds, cache, w8a8=w8a8)
-    cos, sin = llama.rope_device_tables(cfg, P + max_len, dtype, device)
+    if family == "llama":
+        cache = ops.create_cache(cfg, B, P + max_len, device, cache_dtype)
+        hidden = ops.prefill(params, cfg, prefix_embeds, cache, w8a8=w8a8)
+        cos, sin = llama.rope_device_tables(cfg, P + max_len, dtype, device)
 
+        def step(embeds, pos):
+            return ops.decode_step(params, cfg, embeds, cache, pos, cos, sin)
+    else:
+        if P + max_len > cfg.max_position_embeddings:
+            raise ValueError(
+                f"prefix {P} + max_len {max_len} exceeds the decoder's "
+                f"{cfg.max_position_embeddings} positions")
+        cache = ops.create_cache(cfg, B, P + max_len, device, cache_dtype)
+        if w8a8:
+            raise ValueError("w8a8 prefill is llama-family only")
+        hidden = ops.prefill(params, cfg, prefix_embeds, cache)
+
+        def step(embeds, pos):
+            return ops.decode_step(params, cfg, embeds, cache, pos)
+
+    embed = ops.embed_table(params)
     tokens = torch.zeros((B, max_len), dtype=torch.int32, device=device)
     done = torch.zeros((B,), dtype=torch.bool, device=device)
     t = 0
     while t < max_len:
-        next_tok = torch.argmax(llama.logits_from_hidden(params, cfg, hidden), dim=-1)
+        next_tok = torch.argmax(ops.logits_from_hidden(params, cfg, hidden), dim=-1)
         tokens[:, t] = next_tok.to(torch.int32)
         done |= next_tok == stop_token_id
         t += 1
         if t == max_len or bool(done.all()):
             break
-        hidden = llama.decode_step(params, cfg, params["embed"][next_tok], cache, P + t - 1, cos, sin)
+        hidden = step(embed[next_tok], P + t - 1)
     return GenerateResult(tokens=tokens, num_steps=t)
 
 

@@ -1,6 +1,7 @@
 """Mellow assembly in PyTorch: two audio encodings + prompt -> prefix -> LM.
 
-Port of the inference path of ``mellow_tpu/models/mellow.py``. The port's
+Port of the inference path of ``mellow_tpu/models/mellow.py``, for both
+decoder families (``cfg.decoder_family``: "llama" or "gpt2"). The port's
 parameter tree is the JAX tree with the decoder's stacked layers split per
 layer (``models/params.py``); ``init_params`` builds the JAX-layout tree in
 numpy, so full-width random weights need no JAX.
@@ -13,7 +14,8 @@ import torch
 
 from mellow_tpu_torch.config import MellowConfig
 from mellow_tpu_torch.models import generate as gen
-from mellow_tpu_torch.models import htsat
+from mellow_tpu_torch.models import gpt2, htsat
+from mellow_tpu_torch.models.decoders import get_decoder_ops
 
 
 def build_prefix(
@@ -24,10 +26,10 @@ def build_prefix(
     text_ids: torch.Tensor,  # (B, T) int
 ) -> torch.Tensor:
     """(B, 389, D) = [a1 (129) | sep | a2 (129) | sep | text (T)], sep the
-    embedding of ``cfg.sep_token_id``."""
+    embedding of ``cfg.sep_token_id`` in the family's token table."""
     a1 = htsat.downsample_tokens_compact(audio_proj1)
     a2 = htsat.downsample_tokens_compact(audio_proj2)
-    embed = params["decoder"]["embed"]
+    embed = get_decoder_ops(cfg.decoder_family).embed_table(params["decoder"])
     dtext = embed[text_ids.long()]
     sep = embed[cfg.sep_token_id].expand(a1.shape[0], 1, embed.shape[1])
     return torch.cat([a1, sep, a2, sep, dtext], dim=1)
@@ -62,15 +64,16 @@ def generate_tokens(
     return gen.generate(
         params["decoder"], cfg.decoder, prefix, max_len=max_len,
         stop_token_id=cfg.stop_token_id if stop_token_id is None else stop_token_id,
-        kv_cache_dtype=kv_cache_dtype, w8a8=w8a8,
+        kv_cache_dtype=kv_cache_dtype, w8a8=w8a8, family=cfg.decoder_family,
     )
 
 
 def init_params(cfg: MellowConfig, seed: int) -> dict:
     """Random full-model weights, as numpy float32 in the JAX package's
-    tree (same keys and shapes as ``mellow_tpu.models.mellow.init_params``;
-    the values differ, since that one draws the decoder from jax.random).
-    Kernels are N(0, 0.02); biases zero; norms identity."""
+    tree (same keys and shapes as ``mellow_tpu.models.mellow.init_params``).
+    Kernels are N(0, 0.02); biases zero; norms identity. The values differ
+    from that one's (it seeds its decoder from a folded jax.random key). A
+    gpt2 decoder is ``gpt2.init_params(cfg.decoder, seed)``."""
     rng = np.random.default_rng(seed)
     enc = cfg.encoder
     dec = cfg.decoder
@@ -109,25 +112,28 @@ def init_params(cfg: MellowConfig, seed: int) -> dict:
         stages.append(stage)
 
     nf, nc = enc.num_features, enc.num_classes
-    L, D, I = dec.num_layers, dec.hidden_size, dec.intermediate_size
-    H, KV, hd = dec.num_heads, dec.num_kv_heads, dec.head_dim
-    decoder = {
-        "embed": nrm(dec.vocab_size, D),
-        "layers": {
-            "ln_attn": np.ones((L, D), np.float32),
-            "ln_mlp": np.ones((L, D), np.float32),
-            "wq": nrm(L, D, H * hd),
-            "wk": nrm(L, D, KV * hd),
-            "wv": nrm(L, D, KV * hd),
-            "wo": nrm(L, H * hd, D),
-            "w_gate": nrm(L, D, I),
-            "w_up": nrm(L, D, I),
-            "w_down": nrm(L, I, D),
-        },
-        "norm_f": np.ones((D,), np.float32),
-    }
-    if not dec.tie_word_embeddings:
-        decoder["lm_head"] = nrm(D, dec.vocab_size)
+    if cfg.decoder_family == "gpt2":
+        decoder = gpt2.init_params(dec, seed)
+    else:
+        L, D, I = dec.num_layers, dec.hidden_size, dec.intermediate_size
+        H, KV, hd = dec.num_heads, dec.num_kv_heads, dec.head_dim
+        decoder = {
+            "embed": nrm(dec.vocab_size, D),
+            "layers": {
+                "ln_attn": np.ones((L, D), np.float32),
+                "ln_mlp": np.ones((L, D), np.float32),
+                "wq": nrm(L, D, H * hd),
+                "wk": nrm(L, D, KV * hd),
+                "wv": nrm(L, D, KV * hd),
+                "wo": nrm(L, H * hd, D),
+                "w_gate": nrm(L, D, I),
+                "w_up": nrm(L, D, I),
+                "w_down": nrm(L, I, D),
+            },
+            "norm_f": np.ones((D,), np.float32),
+        }
+        if not dec.tie_word_embeddings:
+            decoder["lm_head"] = nrm(D, dec.vocab_size)
     return {
         "encoder": {
             "bn0": {

@@ -16,6 +16,11 @@ is the JAX wrapper's, on the port's own copies of that code
     same, with the W8A8 prefill blocks) and ``generate(...,
     kv_cache_dtype="int8")`` (an int8 KV cache, the int8 decode-attention
     kernel), in any combination;
+  * both decoder families (``cfg.decoder_family``): SmolLM2 ("llama") and
+    GPT-2 ("gpt2"; its prompts get " <|endoftext|>" appended, its bf16
+    prefill runs the hand-written prefill-attention kernel, and it takes
+    ``weight_dtype="int8"`` but, as in the JAX package, neither
+    ``"int8-w8a8"`` (ValueError) nor an int8 KV cache (ValueError);
   * ``kv_cache_dtype`` otherwise may only name the compute dtype;
     ``sample=True``, ``weight_dtype`` or an int8 cache under fp32, ``mesh``,
     ``dynamic_batch`` and ``repetition_penalty != 1`` raise;
@@ -40,8 +45,8 @@ from mellow_tpu_torch.io.wav import read_wav
 from mellow_tpu_torch.native import binding as native_audio
 from mellow_tpu_torch.utils.metrics import GLOBAL as metrics
 from mellow_tpu_torch.utils.params_io import load_params
+from mellow_tpu_torch.models import gpt2, llama
 from mellow_tpu_torch.models import mellow as mellow_model
-from mellow_tpu_torch.models import llama
 from mellow_tpu_torch.models.params import cast_floating, count_params, params_from_jax
 
 _MODELS = ("v0", "v0_s")  # the two published checkpoints of the v0 architecture
@@ -77,10 +82,11 @@ class MellowWrapper:
             raise NotImplementedError(
                 f"compute_dtype={self.cfg.compute_dtype!r} is not ported; use one of {sorted(_DTYPES)}")
         self.dtype = _DTYPES[self.cfg.compute_dtype]
-        if self.cfg.decoder_family != "llama":
-            raise NotImplementedError("the port runs the llama decoder family only")
         if weight_dtype not in (None, "int8", "int8-w8a8"):
             raise ValueError(f"unsupported weight_dtype {weight_dtype!r}")
+        self._gpt2 = self.cfg.decoder_family == "gpt2"
+        if weight_dtype == "int8-w8a8" and self._gpt2:
+            raise ValueError("weight_dtype 'int8-w8a8' is llama-family only")
         if weight_dtype is not None and self.dtype != torch.bfloat16:
             raise NotImplementedError("int8 weights are ported under compute_dtype='bfloat16' only")
         self._w8a8 = weight_dtype == "int8-w8a8"
@@ -103,7 +109,8 @@ class MellowWrapper:
             # Quantize the fp32 weights, then cast every floating leaf (the
             # scales included) to the compute dtype: the JAX wrapper's order.
             p32 = params_from_jax(tree, self.device, torch.float32)
-            p32["decoder"] = llama.quantize_decoder(p32["decoder"], self.cfg.decoder)
+            quantize = gpt2.quantize_gpt2 if self._gpt2 else llama.quantize_decoder
+            p32["decoder"] = quantize(p32["decoder"], self.cfg.decoder)
             self.params = cast_floating(p32, self.dtype)
         if use_native_audio is None:
             self._native = native_audio if native_audio.available() else None
@@ -173,6 +180,9 @@ class MellowWrapper:
         return np.stack(segs, axis=0)  # (B, 320000)
 
     def preprocess_text(self, prompts: Sequence[str]) -> np.ndarray:
+        if self._gpt2:
+            # The reference appends the eos string for gpt-family decoders.
+            prompts = [p + " <|endoftext|>" for p in prompts]
         rows = [self.tokenizer.encode_padded(p, self.cfg.text_tokenization_len) for p in prompts]
         return np.asarray(rows, dtype=np.int32)
 

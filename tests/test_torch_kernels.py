@@ -23,6 +23,7 @@ from mellow_tpu_torch.ops import attn_block as ab
 from mellow_tpu_torch.ops import attn_block_w8a8 as aw
 from mellow_tpu_torch.ops import decode_attention as da
 from mellow_tpu_torch.ops import decode_attention_int8 as di
+from mellow_tpu_torch.ops import flash_gqa_prefill as fp
 from mellow_tpu_torch.ops import melspec
 from mellow_tpu_torch.ops import mlp_block as mb
 from mellow_tpu_torch.ops import mlp_block_w8a8 as mw
@@ -265,3 +266,42 @@ def test_mlp_block_w8a8_kernel_matches_plain_version(device, B, S):
     torch.cuda.synchronize()
     assert mw.LAUNCHES == before + 1
     _close_bf16(out, mw.mlp_block_w8a8_plain(x, ln, *ws, eps=1e-5))
+
+
+# ---------------------------------------------------------------------------
+# prefill attention (#10)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B, S, H, KV, packed", [(1, 389, 12, 12, True), (4, 389, 12, 12, True),
+                                                 (2, 100, 9, 3, False), (1, 13, 12, 12, True)])
+def test_flash_gqa_prefill_kernel_matches_plain_version(device, B, S, H, KV, packed):
+    """``packed``: q, k, v are the column slices of one qkv product, as the
+    GPT-2 prefill hands them over; otherwise three contiguous tensors."""
+    rng = np.random.RandomState(S + H)
+    hd = 64
+    if packed:
+        q, k, v = _bf16(rng, B, S, (H + 2 * KV) * hd).split([H * hd, KV * hd, KV * hd], dim=-1)
+    else:
+        q, k, v = _bf16(rng, B, S, H * hd), _bf16(rng, B, S, KV * hd), _bf16(rng, B, S, KV * hd)
+    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd)
+    before = fp.LAUNCHES
+    out = fp.flash_gqa_prefill(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES == before + 1
+    _close_bf16(out, fp.flash_gqa_prefill_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize(
+    "shape, cols, dtype, H",
+    [((1, 389, 768), slice(None), torch.float32, 12),
+     ((1, 389, 768), slice(None), torch.bfloat16, 24),  # hd = 32
+     ((1, 1100, 768), slice(None), torch.bfloat16, 12),  # S > 1024
+     ((1, 389, 776), slice(1, 769), torch.bfloat16, 12),  # a base off 16-byte alignment
+     ((1, 389, 772), slice(0, 768), torch.bfloat16, 12)],  # a row stride not a multiple of 8
+    ids=["float32", "head_dim", "long", "misaligned", "row_stride"],
+)
+def test_flash_gqa_prefill_kernel_rejects_what_it_does_not_take(device, shape, cols, dtype, H):
+    rng = np.random.RandomState(3)
+    q, k, v = (_bf16(rng, *shape).to(dtype)[..., cols] for _ in range(3))
+    with pytest.raises(ValueError):
+        fp.flash_gqa_prefill_cuda(q, k, v, num_heads=H, num_kv_heads=H, head_dim=768 // H)

@@ -1,5 +1,6 @@
 """Shared set-up for the port-vs-JAX tests (tests/test_torch_*.py): the tiny
-configuration of tests/test_e2e.py, and one set of weights for both sides.
+configuration of tests/test_e2e.py, its GPT-2-family twin, and one set of
+weights for both sides.
 
 The weights are ``mellow_tpu.models.mellow.init_params`` with seeded noise
 added to every leaf: the plain init has zero biases and identity norms,
@@ -12,7 +13,9 @@ import jax
 
 from mellow_tpu.config import HTSATConfig, LlamaConfig, MellowConfig, register_config
 from mellow_tpu.models import mellow as jmellow
+from mellow_tpu.models.gpt2 import GPT2Config
 from mellow_tpu_torch import config as tconfig
+from mellow_tpu_torch.models import gpt2 as tgpt2
 
 DEC = LlamaConfig(
     vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=4,
@@ -37,14 +40,37 @@ tconfig.register_config(TINY.name, tconfig.MellowConfig(
 ))
 
 
+# The GPT-2 family at the same tiny size: sep and stop ids inside the tiny
+# vocab, and positions for the 268-token prefix plus 32 generated tokens.
+GPT2_DEC = dict(vocab_size=512, hidden_size=64, num_layers=3, num_heads=4, max_position_embeddings=300)
+GPT2_IDS = dict(decoder_family="gpt2", text_decoder="gpt2", sep_token_id=509, stop_token_id=509)
+TINY_GPT2 = MellowConfig(
+    name="test_torch_tiny_gpt2", encoder=ENC, decoder=GPT2Config(**GPT2_DEC), d_proj=64,
+    text_tokenization_len=8, prefix_length=268, **GPT2_IDS,
+).validate()
+register_config(TINY_GPT2.name, TINY_GPT2)
+tconfig.register_config(TINY_GPT2.name, tconfig.MellowConfig(
+    name=TINY_GPT2.name, encoder=tconfig.HTSATConfig(embed_dim=24, out_emb=192),
+    decoder=tgpt2.GPT2Config(**GPT2_DEC), d_proj=64, text_tokenization_len=8, prefix_length=268,
+    **GPT2_IDS,
+))
+
+
+@functools.lru_cache(maxsize=2)
+def _perturbed(cfg, seed: int) -> dict:
+    """The JAX package's init of ``cfg`` as numpy, every leaf perturbed.
+    Cached: callers copy before they change a leaf."""
+    rng = np.random.default_rng(seed + 100)
+    tree = jax.tree.map(np.asarray, jmellow.init_params(jax.random.PRNGKey(seed), cfg))
+    return jax.tree.map(
+        lambda a: (a + 0.05 * rng.standard_normal(a.shape)).astype(np.float32), tree
+    )
+
+
 @functools.lru_cache(maxsize=1)
 def jax_params_np(seed: int = 0) -> dict:
     """The JAX-layout parameter tree as numpy, every leaf perturbed."""
-    rng = np.random.default_rng(seed + 100)
-    tree = jax.tree.map(np.asarray, jmellow.init_params(jax.random.PRNGKey(seed), TINY))
-    tree = jax.tree.map(
-        lambda a: (a + 0.05 * rng.standard_normal(a.shape)).astype(np.float32), tree
-    )
+    tree = jax.tree.map(np.copy, _perturbed(TINY, seed))
     # At init scale the tiny decoder repeats one token forever; larger
     # weights make the greedy tokens vary by step and by row.
     dec = tree["decoder"]
@@ -57,3 +83,17 @@ def jax_params_np(seed: int = 0) -> dict:
 def waves(b: int, seed: int) -> np.ndarray:
     rng = np.random.RandomState(seed)
     return (rng.randn(b, TINY.frontend.num_samples) * 0.1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=2)
+def gpt2_params_np(seed: int = 0, scaled: bool = True) -> dict:
+    """``jax_params_np`` for TINY_GPT2, its decoder scaled up likewise;
+    ``scaled=False`` leaves the perturbed init as it is (fp32 comparisons
+    of hidden states, where the scaled weights amplify rounding)."""
+    tree = jax.tree.map(np.copy, _perturbed(TINY_GPT2, seed))
+    if scaled:
+        dec = tree["decoder"]
+        dec["wte"] = dec["wte"] * np.float32(3.0)
+        for k in ("w_qkv", "w_o", "w_fc", "w_proj"):
+            dec["layers"][k] = dec["layers"][k] * np.float32(10.0)
+    return tree
