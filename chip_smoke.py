@@ -12,11 +12,13 @@ result line is printed:
 3. kernel phase: each kernel against its plain PyTorch version on the card,
    at the main path's full v0 shapes (B=1 and B=4; every Swin stage that
    takes the kernel; decode attention at the prefix length and 31 positions
-   past it) and, for the prefill attention (#10), the GPT-2 prefill's
-   (S=389, H=KV=12, hd=64), with the tolerance printed, CUDA-event medians
-   of the kernel and of the plain version, the least time the card could
-   take (``bound_ms``) and, where one PyTorch call computes the same
-   function, that call's time (``library_ms``);
+   past it), for the prefill attention (#10) the GPT-2 prefill's (S=389,
+   H=KV=12, hd=64), for the Swin block also HTSAT-large's stage 1 (hd=64)
+   and for the window attention (#9) HTSAT-large's stage 2 (C=512, H=8,
+   W-MSA and SW-MSA), with the tolerance printed, CUDA-event medians of the
+   kernel and of the plain version, the least time the card could take
+   (``bound_ms``) and, where one PyTorch call computes the same function,
+   that call's time (``library_ms``);
 4. fp32 path: ``MellowWrapper(config="v0", device="cuda")`` at full v0 width
    with random weights from a seed answers requests one at a time, as a
    batch, and through the port's ``BatchingEngine``; every ``generate``
@@ -44,7 +46,16 @@ result line is printed:
    at a batch of 2 the fp32 CUDA prefix and logits are held against the
    CPU, bf16 against fp32 CUDA and the int8 weights against bf16 (the same
    prefix, bit for bit); the token agreement is printed;
-8. timings of the paths by stage (host preprocessing, log-mel, encoder,
+8. HTSAT-large paths: ``v0_htsat_large`` (``htsat_large_config``, v0's
+   decoder behind HTSAT-large, registered in code) in fp32 and bf16, three
+   requests and a batch of 2 each, every call's launches checked (bf16:
+   the Swin block kernel in stage 1, the window-attention kernel in stage
+   2); each bf16 request's first greedy token equals fp32's; at a batch of
+   2 fp32 CUDA is held against the CPU and bf16 against fp32 CUDA; then one
+   bf16 call each of ``htsat_embedding_long`` (15 s), the infer mode (3 s)
+   and the full ``htsat_embedding`` (10 s), launches checked and the
+   embedding held against the fp32 call;
+9. timings of the paths by stage (host preprocessing, log-mel, encoder,
    prefill, decode step as the slope of two lengths, whole request), and
    torch.profiler over one warm B=1 request of each path (device time,
    kernel launches, the device's idle share).
@@ -72,10 +83,10 @@ import torch
 import torch.nn.functional as F
 
 from mellow_tpu_torch import MellowWrapper
-from mellow_tpu_torch.config import get_config, register_config
+from mellow_tpu_torch.config import HTSATConfig, get_config, register_config
 from mellow_tpu_torch.io.tokenizer import ByteTokenizer
 from mellow_tpu_torch.models import generate as gen
-from mellow_tpu_torch.models import gpt2, llama
+from mellow_tpu_torch.models import gpt2, htsat, llama
 from mellow_tpu_torch.models.htsat import relative_position_index, shifted_window_mask
 from mellow_tpu_torch.models.mellow import encode_and_prefix, init_params
 from mellow_tpu_torch.models.params import params_from_jax
@@ -89,6 +100,7 @@ from mellow_tpu_torch.ops import frontend as fe
 from mellow_tpu_torch.ops import mlp_block as mb
 from mellow_tpu_torch.ops import mlp_block_w8a8 as mw
 from mellow_tpu_torch.ops import swin_block as sb
+from mellow_tpu_torch.ops import window_attention as wa
 from mellow_tpu_torch.serving import BatchingEngine
 from mellow_tpu_torch.utils.metrics import GLOBAL as metrics
 
@@ -156,8 +168,11 @@ KERNELS = {
                        "mellow_tpu/ops/pallas_mlp_block.py:141"),
     "flash_gqa_prefill": (fp, "LAUNCHES", "KERNELS_PER_CALL", "mellow_tpu_torch/csrc/flash_gqa_prefill.cu",
                           "mellow_tpu/ops/pallas_attention.py:138"),
+    "window_attention": (wa, "LAUNCHES", "KERNELS_PER_CALL", "mellow_tpu_torch/csrc/window_attention.cu",
+                         "mellow_tpu/ops/pallas_window_attention.py:76"),
 }
 GPT2_CONFIG = "gpt2_small"
+LARGE_CONFIG = "v0_htsat_large"
 # The generate paths the smoke drives: config, wrapper options, generate
 # options.
 PATHS = {
@@ -168,6 +183,8 @@ PATHS = {
     "gpt2_fp32": (GPT2_CONFIG, {}, {}),
     "gpt2_bf16": (GPT2_CONFIG, {"compute_dtype": "bfloat16"}, {}),
     "gpt2_int8_weights": (GPT2_CONFIG, {"compute_dtype": "bfloat16", "weight_dtype": "int8"}, {}),
+    "large_fp32": (LARGE_CONFIG, {}, {}),
+    "large_bf16": (LARGE_CONFIG, {"compute_dtype": "bfloat16"}, {}),
 }
 
 
@@ -180,6 +197,21 @@ def gpt2_config():
     return get_config("v0").replace(
         name=GPT2_CONFIG, decoder=gpt2.GPT2Config(), d_proj=768, decoder_family="gpt2",
         text_decoder="gpt2", sep_token_id=50256, stop_token_id=50256,
+    ).validate()
+
+
+def htsat_large_config():
+    """v0 (the SmolLM2-135M-shape decoder, d_proj 576, the 389-token prefix)
+    behind HTSAT-large, the largest HTSAT of LAION-CLAP's
+    ``create_htsat_model`` (src/laion_clap/clap_module/htsat.py): embed 256,
+    depths 2-2-12-2, heads 4-8-16-32, window 8, 2048 features. In bf16 its
+    stage 1 takes the Swin block kernel (hd = 64) and its stage 2 the
+    window-attention kernel, by the JAX package's gates. Built in code: the
+    JAX registry has no such entry."""
+    return get_config("v0").replace(
+        name=LARGE_CONFIG,
+        encoder=HTSATConfig(embed_dim=256, depths=(2, 2, 12, 2), num_heads=(4, 8, 16, 32), window_size=8,
+                            out_emb=2048),
     ).validate()
 
 
@@ -400,47 +432,109 @@ def bench_mlp_block(dec, S: int) -> dict:
     return _row("mlp_block", cases)
 
 
-def bench_swin_block(enc) -> dict:
-    rng = np.random.default_rng(SEED + 4)
-    ws, N = enc.window_size, enc.window_size ** 2
+def _swin_params(rng, C, H, ws):
+    """Random bf16 block weights and the bf16 relative-position table."""
+
+    def lin(i, o):
+        return {"kernel": _bf16(rng, i, o, scale=0.05), "bias": _bf16(rng, o, scale=0.02)}
+
+    def ln():
+        return {"scale": 1 + _bf16(rng, C, scale=0.1), "bias": _bf16(rng, C, scale=0.02)}
+
+    p = {"norm1": ln(), "qkv": lin(C, 3 * C), "proj": lin(C, C), "norm2": ln(),
+         "fc1": lin(C, 4 * C), "fc2": lin(4 * C, C)}
+    return p, _bf16(rng, (2 * ws - 1) ** 2, H, scale=0.5)
+
+
+def _bias(table, ws, H):
+    """The (H, N, N) fp32 bias gathered from a (2ws-1)^2 x H table."""
+    N = ws * ws
+    idx = torch.from_numpy(relative_position_index(ws).reshape(-1)).cuda()
+    return table[idx].reshape(N, N, H).permute(2, 0, 1).float().contiguous()
+
+
+def _stages(enc, route):
+    """(stage index, resolution, width, heads) of each stage of ``enc``
+    whose bf16 blocks take ``route``."""
     res, C = enc.grid_size, enc.embed_dim
-    cases = []
-    for si in range(len(enc.depths)):
-        H = enc.num_heads[si]
-        if sb.fused_block_vmem_bytes(C, H, ws, res) > sb.FUSED_BLOCK_BUDGET:
-            break  # stage 4 keeps the plain block, as in the JAX package
-
-        def lin(i, o):
-            return {"kernel": _bf16(rng, i, o, scale=0.05), "bias": _bf16(rng, o, scale=0.02)}
-
-        def ln():
-            return {"scale": 1 + _bf16(rng, C, scale=0.1), "bias": _bf16(rng, C, scale=0.02)}
-
-        p = {"norm1": ln(), "qkv": lin(C, 3 * C), "proj": lin(C, C), "norm2": ln(),
-             "fc1": lin(C, 4 * C), "fc2": lin(4 * C, C)}
-        table = _bf16(rng, (2 * ws - 1) ** 2, H, scale=0.5)
-        idx = torch.from_numpy(relative_position_index(ws).reshape(-1)).cuda()
-        bias = table[idx].reshape(N, N, H).permute(2, 0, 1).float().contiguous()
-        mask = torch.from_numpy(shifted_window_mask(res, ws, ws // 2)).cuda()
-        # The weights, the bias as its bf16 table, not the expanded fp32 copy;
-        # the shifted-window mask follows from the grid geometry alone.
-        weights = [p[a][b] for a, b in sb.WEIGHT_KEYS] + [table]
-        kw = dict(num_heads=H, window_size=ws)
-        for batch in (1, 4):
-            x = _bf16(rng, batch, res, res, C, scale=0.5)
-            out = sb.swin_block_cuda(x, p, bias, mask, **kw)
-            torch.cuda.synchronize()
-            err = _check_bf16("swin_block", out, sb.swin_block_plain(x, p, bias, mask, **kw))
-            ms, plain_ms = _alternate(lambda: sb.swin_block_plain(x, p, bias, mask, **kw),
-                                      lambda: sb.swin_block_cuda(x, p, bias, mask, **kw))
-            M = batch * res * res
-            # qkv, proj, fc1, fc2 (12 C^2 per token) and the window QK^T and PV.
-            flops = 2 * M * C * 12 * C + 2 * 2 * M * N * C
-            bound = _bound(_nbytes(x, *weights, out), flops, PEAK_BF16)
-            cases.append(_case("swin_block", f"stage {si + 1} B={batch} R={res} C={C} H={H} SW-MSA",
-                               err, f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound))
+    for si, H in enumerate(enc.num_heads):
+        if htsat.kernel_route(C, H, enc.window_size, res) == route:
+            yield si, res, C, H
         res, C = res // 2, C * 2
+
+
+def bench_swin_block(encs) -> dict:
+    """Every stage that takes the kernel, of each (label, encoder) in
+    ``encs``: v0's stages 1-3 (hd = 24), HTSAT-large's stage 1 (hd = 64)."""
+    rng = np.random.default_rng(SEED + 4)
+    cases = []
+    for label, enc in encs:
+        ws, N = enc.window_size, enc.window_size ** 2
+        for si, res, C, H in _stages(enc, "swin_block"):
+            p, table = _swin_params(rng, C, H, ws)
+            bias = _bias(table, ws, H)
+            mask = torch.from_numpy(shifted_window_mask(res, ws, ws // 2)).cuda()
+            # The weights, the bias as its bf16 table, not the expanded fp32
+            # copy; the shifted-window mask follows from the grid geometry alone.
+            weights = [p[a][b] for a, b in sb.WEIGHT_KEYS] + [table]
+            kw = dict(num_heads=H, window_size=ws)
+            for batch in (1, 4):
+                x = _bf16(rng, batch, res, res, C, scale=0.5)
+                out = sb.swin_block_cuda(x, p, bias, mask, **kw)
+                torch.cuda.synchronize()
+                err = _check_bf16("swin_block", out, sb.swin_block_plain(x, p, bias, mask, **kw))
+                ms, plain_ms = _alternate(lambda: sb.swin_block_plain(x, p, bias, mask, **kw),
+                                          lambda: sb.swin_block_cuda(x, p, bias, mask, **kw))
+                M = batch * res * res
+                # qkv, proj, fc1, fc2 (12 C^2 per token) and the window QK^T and PV.
+                flops = 2 * M * C * 12 * C + 2 * 2 * M * N * C
+                bound = _bound(_nbytes(x, *weights, out), flops, PEAK_BF16)
+                cases.append(_case("swin_block", f"{label} stage {si + 1} B={batch} R={res} C={C} H={H} "
+                                   f"hd={C // H} SW-MSA", err, f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms,
+                                   bound))
     return _row("swin_block", cases)
+
+
+def bench_window_attention(enc) -> dict:
+    """HTSAT-large's stage 2 (R=32, C=512, H=8, hd=64): B=1 and B=4, W-MSA
+    and SW-MSA; SDPA with the bias (and mask) as its additive mask is the
+    library call."""
+    rng = np.random.default_rng(SEED + 10)
+    ws, N = enc.window_size, enc.window_size ** 2
+    cases = []
+    for si, res, C, H in _stages(enc, "window_attention"):
+        table = _bf16(rng, (2 * ws - 1) ** 2, H, scale=0.5)
+        bias = _bias(table, ws, H)
+        nW = (res // ws) ** 2
+        for batch in (1, 4):
+            for shifted in (False, True):
+                qkv = _bf16(rng, batch * nW, N, 3 * C, scale=0.5)
+                mask = torch.from_numpy(shifted_window_mask(res, ws, ws // 2)).cuda() if shifted else None
+                kw = dict(num_heads=H)
+                out = wa.window_attention_cuda(qkv, bias, mask, **kw)
+                torch.cuda.synchronize()
+                err = _check_bf16("window_attention", out, wa.window_attention_plain(qkv, bias, mask, **kw))
+                ms, plain_ms = _alternate(lambda: wa.window_attention_plain(qkv, bias, mask, **kw),
+                                          lambda: wa.window_attention_cuda(qkv, bias, mask, **kw))
+                # The one PyTorch call for the same function: (Bn, H, N, hd)
+                # views of the qkv and the bias plus mask as an additive mask
+                # in the query's dtype (its error is printed, not held: the
+                # mask is rounded to bf16 there).
+                q, k, v = qkv.reshape(batch * nW, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
+                add = bias[None] if mask is None else bias[None] + mask.repeat(batch, 1, 1)[:, None]
+                add = add.to(qkv.dtype)
+                sdpa = F.scaled_dot_product_attention(q, k, v, attn_mask=add).transpose(1, 2).reshape(out.shape)
+                sdpa_err = (sdpa.float() - out.float()).abs().max().item()
+                print(f"window_attention vs SDPA: max_abs_err {sdpa_err:.3e} "
+                      f"({sdpa_err / out.float().abs().max().item():.4f} x max|kernel|; not held)")
+                library_ms = _median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=add))
+                # qkv read once, the output written once, the bias as its bf16
+                # table; QK^T and PV over every window.
+                bound = _bound(_nbytes(qkv, out, table), 4 * batch * nW * N * N * C, PEAK_BF16)
+                cases.append(_case("window_attention", f"HTSAT-large stage {si + 1} B={batch} R={res} C={C} H={H} "
+                                   f"hd={C // H} {'SW-MSA' if shifted else 'W-MSA'}", err,
+                                   f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound, library_ms))
+    return _row("window_attention", cases)
 
 
 def _int8_weight(rng, *shape, scale=0.05):
@@ -596,13 +690,15 @@ def bench_flash_gqa_prefill(dec, S: int) -> dict:
     return _row("flash_gqa_prefill", cases)
 
 
-def kernel_phase(cfg, gpt2_cfg) -> list:
+def kernel_phase(cfg, gpt2_cfg, large_cfg) -> list:
     P = cfg.prefix_length
     return [bench_log_mel(cfg.frontend), bench_decode_attention(cfg.decoder, P),
             bench_attn_block(cfg.decoder, P), bench_mlp_block(cfg.decoder, P),
-            bench_swin_block(cfg.encoder), bench_decode_attention_int8(cfg.decoder, P),
+            bench_swin_block((("v0", cfg.encoder), ("HTSAT-large", large_cfg.encoder))),
+            bench_decode_attention_int8(cfg.decoder, P),
             bench_attn_block_kv_quant(cfg.decoder, P), bench_attn_block_w8a8(cfg.decoder, P),
-            bench_mlp_block_w8a8(cfg.decoder, P), bench_flash_gqa_prefill(gpt2_cfg.decoder, gpt2_cfg.prefix_length)]
+            bench_mlp_block_w8a8(cfg.decoder, P), bench_flash_gqa_prefill(gpt2_cfg.decoder, gpt2_cfg.prefix_length),
+            bench_window_attention(large_cfg.encoder)]
 
 
 # ---------------------------------------------------------------------------
@@ -644,45 +740,70 @@ class CallRecorder:
         self.wrapper.generate = self.generate
 
 
+def _mode(path: str) -> str:
+    """fp32, bf16, int8 (W8A8 weights) or int8_weights, from the path's
+    wrapper options."""
+    ctor = PATHS[path][1]
+    if ctor.get("compute_dtype") != "bfloat16":
+        return "fp32"
+    return {"int8-w8a8": "int8", "int8": "int8_weights"}.get(ctor.get("weight_dtype"), "bf16")
+
+
+def encoder_launches(enc, clip_batches: int) -> dict:
+    """What ``clip_batches`` bf16 encoder calls launch: log-mel once each,
+    and per Swin block the kernel of its stage's route (the Swin block
+    kernel, the window-attention kernel or none)."""
+    want = {name: 0 for name in KERNELS}
+    want["log_mel"] = clip_batches
+    res, C = enc.grid_size, enc.embed_dim
+    for si, depth in enumerate(enc.depths):
+        route = htsat.kernel_route(C, enc.num_heads[si], enc.window_size, res)
+        if route != "plain":
+            want[route] += clip_batches * depth
+        res, C = res // 2, C * 2
+    return want
+
+
 def expected_launches(cfg, steps: int, path: str) -> dict:
     """What one generate call of ``path`` (``cfg`` its config) must launch:
-    log-mel once per clip batch; beyond fp32 also the Swin block once per
-    gated block per clip batch and, for llama, each prefill block once per
-    layer and a decode attention once per layer per decode step (the last
-    token is chosen without a step): the bf16 kernels on the bf16 path; the
-    W8A8 blocks and the int8 decode attention on the int8 path; the bf16
-    blocks in their kv_quant mode (attention) and as they are (MLP) with the
-    int8 decode attention on the int8-weights path. GPT-2 in bf16 (int8
-    weights or not) runs the prefill attention once per layer, and its
-    decode step no kernel."""
-    want = {name: 0 for name in KERNELS}
-    want["log_mel"] = 2
-    if path in ("fp32", "gpt2_fp32"):
-        return want
-    enc, L = cfg.encoder, cfg.decoder.num_layers
-    res, C, swin = enc.grid_size, enc.embed_dim, 0
-    for si, depth in enumerate(enc.depths):
-        if sb.fused_block_vmem_bytes(C, enc.num_heads[si], enc.window_size, res) <= sb.FUSED_BLOCK_BUDGET:
-            swin += depth
-        res, C = res // 2, C * 2
-    want["swin_block"] = 2 * swin
+    log-mel once per clip batch; beyond fp32 also, per clip batch, the
+    kernel of each Swin block's route (v0: the Swin block kernel in stages
+    1-3; HTSAT-large: it in stage 1 and the window-attention kernel in
+    stage 2) and, for llama, each prefill block once per layer and a decode
+    attention once per layer per decode step (the last token is chosen
+    without a step): the bf16 kernels on the bf16 paths; the W8A8 blocks
+    and the int8 decode attention on the int8 path; the bf16 blocks in
+    their kv_quant mode (attention) and as they are (MLP) with the int8
+    decode attention on the int8-weights path. GPT-2 in bf16 (int8 weights
+    or not) runs the prefill attention once per layer, and its decode step
+    no kernel."""
+    mode = _mode(path)
+    if mode == "fp32":
+        return {name: 2 if name == "log_mel" else 0 for name in KERNELS}
+    want = encoder_launches(cfg.encoder, 2)
+    L = cfg.decoder.num_layers
     if cfg.decoder_family == "gpt2":
         want["flash_gqa_prefill"] = L
         return want
     attn, mlp, decode = {"bf16": ("attn_block", "mlp_block", "decode_attention"),
                          "int8": ("attn_block_w8a8", "mlp_block_w8a8", "decode_attention_int8"),
-                         "int8_weights": ("attn_block_kv_quant", "mlp_block", "decode_attention_int8")}[path]
+                         "int8_weights": ("attn_block_kv_quant", "mlp_block", "decode_attention_int8")}[mode]
     want[attn] = want[mlp] = L
     want[decode] = L * (steps - 1)
     return want
 
 
-def drive(wrapper, cfg, requests, path: str, full: bool = True) -> tuple:
+# What drive() sends on a path: the first request alone; the three singles
+# and a batch of 2; or those, a repeat and two requests through the engine.
+CALLS_ROWS = {"one": 1, "batch": 5, "all": 8}
+
+
+def drive(wrapper, cfg, requests, path: str, calls: str = "all") -> tuple:
     """Singles, a batch of 2, a repeated request, two requests through the
-    engine (only the first single with ``full=False``), with every count set
-    to 0 first; returns (single answers, launches of the run). Every call's
-    launches are checked, and so is that the path launched each of its
-    kernels."""
+    engine (as far as ``calls`` says), with every count set to 0 first;
+    returns (single answers, launches of the run, generate calls). Every
+    call's launches are checked, and so is that the path launched each of
+    its kernels."""
     rec = CallRecorder(wrapper)
     gen_kwargs = PATHS[path][2]
 
@@ -698,10 +819,10 @@ def drive(wrapper, cfg, requests, path: str, full: bool = True) -> tuple:
 
     try:
         zero_counts()
-        singles = [timed([ex])[0] for ex in (requests if full else requests[:1])]
-        if full:
-            if timed(requests[:2]) != singles[:2]:
-                raise RuntimeError(f"{path}: a batch of 2 answered otherwise than the single requests")
+        singles = [timed([ex])[0] for ex in (requests if calls != "one" else requests[:1])]
+        if calls != "one" and timed(requests[:2]) != singles[:2]:
+            raise RuntimeError(f"{path}: a batch of 2 answered otherwise than the single requests")
+        if calls == "all":
             if timed([requests[0]])[0] != singles[0]:
                 raise RuntimeError(f"{path}: a repeated request gave a different answer")
             engine = BatchingEngine(wrapper, dynamic_batch=False)
@@ -718,7 +839,7 @@ def drive(wrapper, cfg, requests, path: str, full: bool = True) -> tuple:
         rec.remove()
 
     rows = sum(c["rows"] for c in rec.calls)
-    if rows < (7 if full else 1):
+    if rows < CALLS_ROWS[calls]:
         raise RuntimeError(f"{path}: only {rows} rows answered")
     for i, call in enumerate(rec.calls):
         want = expected_launches(cfg, call["steps"], path)
@@ -729,7 +850,7 @@ def drive(wrapper, cfg, requests, path: str, full: bool = True) -> tuple:
     if missing:
         raise RuntimeError(f"{path}: kernels never launched on the path: {missing}")
     print(f"{path}: {rows} rows in {len(rec.calls)} generate calls, launches {launches}")
-    return singles, launches
+    return singles, launches, len(rec.calls)
 
 
 def prefix_and_logits(params, cfg, audio1, audio2, text, device, dtype, tokens=None, int8=False):
@@ -833,16 +954,16 @@ def _hold(label, names, got, ref, tols) -> None:
 
 def hold_family(label, cfg, params, trees, int8_name, inputs, int8_cache: bool, int8_tol,
                 device="cuda") -> None:
-    """One family at the batch of ``inputs`` (audio1, audio2, text ids):
-    the fp32 path (``trees[0]``) on ``device`` against the same weights on
-    the CPU, bf16 (``trees[1]``) against fp32, and the int8 path
-    (``trees[2]``, named ``int8_name``; llama: W8A8 weights and an int8 cache,
-    ``int8_cache``; GPT-2: int8 weights) against bf16, whose prefix it must
-    equal bit for bit: the int8 options change only the decoder."""
+    """One configuration at the batch of ``inputs`` (audio1, audio2, text
+    ids): the fp32 path (``trees[0]``) on ``device`` against the same
+    weights on the CPU, bf16 (``trees[1]``) against fp32, and, where
+    ``trees`` has a third, the int8 path (named ``int8_name``; llama: W8A8
+    weights and an int8 cache, ``int8_cache``; GPT-2: int8 weights) against
+    bf16, whose prefix it must equal bit for bit: the int8 options change
+    only the decoder."""
     names = ("prefix", "prefill logits", "decode-step logits")
     *ref32, tokens = prefix_and_logits(trees[0], cfg, *inputs, device, torch.float32)
     *got16, _ = prefix_and_logits(trees[1], cfg, *inputs, device, torch.bfloat16, tokens)
-    *got8, _ = prefix_and_logits(trees[2], cfg, *inputs, device, torch.bfloat16, tokens, int8=int8_cache)
     *cpu32, _ = prefix_and_logits(params_from_jax(params, "cpu"), cfg, *inputs, "cpu", torch.float32, tokens)
     for name, got, ref in zip(names, ref32, cpu32):
         if got.shape != ref.shape or not torch.isfinite(got).all():
@@ -850,27 +971,65 @@ def hold_family(label, cfg, params, trees, int8_name, inputs, int8_cache: bool, 
         print(f"{label}fp32 {name} {tuple(got.shape)}: CUDA vs CPU max_abs_err {(got - ref).abs().max().item():.3e}")
         torch.testing.assert_close(got, ref, **SLICE_TOL)
     _hold(f"{label}bf16 vs fp32 CUDA", names, got16, ref32, BF16_TOL)
+    print(f"{label}prefill argmax bf16 {got16[1].argmax(-1).tolist()}, fp32 {ref32[1].argmax(-1).tolist()}")
+    if len(trees) < 3:
+        return
+    *got8, _ = prefix_and_logits(trees[2], cfg, *inputs, device, torch.bfloat16, tokens, int8=int8_cache)
     if not torch.equal(got8[0], got16[0]):
         raise RuntimeError(f"the {int8_name} path's prefix differs from the bf16 path's")
     _hold(f"{int8_name} vs bf16 CUDA", names[1:], got8[1:], got16[1:], int8_tol)
-    print(f"{label}prefill argmax bf16 {got16[1].argmax(-1).tolist()}, fp32 {ref32[1].argmax(-1).tolist()}, "
-          f"{int8_name} {got8[1].argmax(-1).tolist()}")
+    print(f"{int8_name} prefill argmax {got8[1].argmax(-1).tolist()}")
+
+
+# The encoder's other entry points at HTSAT-large on the card: name,
+# function, seconds of wave (a long clip; a short one for the infer mode;
+# 10 s for the full 1025-row form).
+ENCODER_ENTRIES = (("htsat_embedding_long", htsat.htsat_embedding_long, 15.0),
+                   ("htsat_embedding_infer_mode", htsat.htsat_embedding_infer_mode, 3.0),
+                   ("htsat_embedding", htsat.htsat_embedding, 10.0))
+
+
+def hold_encoder_entries(cfg, params16, params32) -> dict:
+    """One bf16 call of each entry point on a seeded B=1 wave at 32 kHz: its
+    launches checked (the log-mel once, each Swin block's kernel once: the
+    long path's crops run as one batch), its embedding held against the
+    fp32 call on the card within the prefix limit of BF16_TOL. Returns each
+    call's launches."""
+    rng = np.random.default_rng(SEED + 11)
+    out = {}
+    for name, fn, seconds in ENCODER_ENTRIES:
+        wave_ = torch.from_numpy(
+            (rng.standard_normal((1, int(seconds * cfg.frontend.sample_rate))) * 0.1).astype(np.float32)).cuda()
+        with torch.no_grad():
+            zero_counts()
+            got = fn(wave_.bfloat16(), params16, cfg.frontend, cfg.encoder)["embedding"]
+            torch.cuda.synchronize()
+            launches = read_counts()
+            ref = fn(wave_, params32, cfg.frontend, cfg.encoder)["embedding"]
+        want = encoder_launches(cfg.encoder, 1)
+        if launches != want:
+            raise RuntimeError(f"{name}: launched {launches}, expected {want}")
+        _hold(f"large {name} ({seconds} s) bf16 vs fp32 CUDA", ("embedding",), (got.float().cpu(),),
+              (ref.float().cpu(),), BF16_TOL[:1])
+        out[name] = launches
+    return out
 
 
 def slice_phase() -> dict:
-    """Drive every path; return each path's kernel launches and the stage
-    timings."""
+    """Drive every path; return each path's kernel launches and generate
+    calls, the encoder entry points' launches and the stage timings."""
     t0 = time.perf_counter()
     register_config(GPT2_CONFIG, gpt2_config())
-    cfgs = {name: get_config(name) for name in ("v0", GPT2_CONFIG)}
+    register_config(LARGE_CONFIG, htsat_large_config())
+    cfgs = {name: get_config(name) for name in ("v0", GPT2_CONFIG, LARGE_CONFIG)}
     params = {name: init_params(cfg, SEED) for name, cfg in cfgs.items()}
     tok = DistinctTokenizer()
     wrappers = {path: MellowWrapper(config=name, model="v0", device="cuda", params=params[name], tokenizer=tok,
                                     **ctor)
                 for path, (name, ctor, _) in PATHS.items()}
     print(f"weights made and loaded ({', '.join(PATHS)}) in {time.perf_counter() - t0:.2f} s")
-    timings, launches, answers = {}, {}, {}
-    single = ("int8_weights", "gpt2_int8_weights")
+    timings, launches, answers, calls = {}, {}, {}, {}
+    scope = {"int8_weights": "one", "gpt2_int8_weights": "one", "large_fp32": "batch", "large_bf16": "batch"}
     with tempfile.TemporaryDirectory() as tmp:
         a = _write_wav(os.path.join(tmp, "a.wav"), 7.0, 1)  # repeat-padded
         b = _write_wav(os.path.join(tmp, "b.wav"), 9.5, 2)
@@ -878,36 +1037,41 @@ def slice_phase() -> dict:
                     [b, a, "what is different between the two clips?"],
                     [a, a, "is there speech?"]]
         for path, w in wrappers.items():
-            answers[path], launches[path] = drive(w, cfgs[PATHS[path][0]], requests, path,
-                                                  full=path not in single)
+            answers[path], launches[path], calls[path] = drive(w, cfgs[PATHS[path][0]], requests, path,
+                                                               scope.get(path, "all"))
         if not _agreement("bf16 vs fp32", answers["bf16"], answers["fp32"]):
             raise RuntimeError("bf16's first greedy token differs from fp32's")
+        if not _agreement("HTSAT-large bf16 vs fp32", answers["large_bf16"], answers["large_fp32"]):
+            raise RuntimeError("HTSAT-large bf16's first greedy token differs from fp32's")
         _agreement("int8 (W8A8 weights, int8 cache) vs bf16", answers["int8"], answers["bf16"])
         _agreement("int8 weights + int8 cache vs bf16", answers["int8_weights"], answers["bf16"][:1])
         _agreement("gpt2 bf16 vs gpt2 fp32", answers["gpt2_bf16"], answers["gpt2_fp32"])
         _agreement("gpt2 int8 weights vs gpt2 bf16", answers["gpt2_int8_weights"], answers["gpt2_bf16"][:1])
+        entries = hold_encoder_entries(cfgs[LARGE_CONFIG], wrappers["large_bf16"].params,
+                                       wrappers["large_fp32"].params)
 
         audio1 = wrappers["fp32"].preprocess_audio([r[0] for r in requests[:2]], True)
         audio2 = wrappers["fp32"].preprocess_audio([r[1] for r in requests[:2]], True)
         texts = {name: wrappers[path].preprocess_text([r[2] for r in requests[:2]])
-                 for name, path in (("v0", "fp32"), (GPT2_CONFIG, "gpt2_fp32"))}
+                 for name, path in (("v0", "fp32"), (GPT2_CONFIG, "gpt2_fp32"), (LARGE_CONFIG, "large_fp32"))}
         for path, batches in (("fp32", (1, 4)), ("bf16", (1, 4)), ("int8", (1, 4)),
-                              ("gpt2_fp32", (1,)), ("gpt2_bf16", (1,))):
+                              ("gpt2_fp32", (1,)), ("gpt2_bf16", (1,)), ("large_fp32", (1,)), ("large_bf16", (1,))):
             for batch in batches:
                 key = f"{path} B={batch}"
                 timings[key] = stage_times(wrappers[path], cfgs[PATHS[path][0]], requests[0], batch, path)
                 print(json.dumps({"stage_times": key, **timings[key]}))
-        for path in ("fp32", "bf16", "int8", "gpt2_fp32", "gpt2_bf16"):
+        for path in ("fp32", "bf16", "int8", "gpt2_fp32", "gpt2_bf16", "large_fp32", "large_bf16"):
             timings[f"profile {path}"] = profile_request(wrappers[path], requests[0], path)
 
     # Two rows (requests 0 and 1), so the batch strides of the prefill
     # blocks' cache writes and of decode attention's cache reads are used.
     for label, name, paths, int8_cache, int8_tol in (
             ("", "v0", ("fp32", "bf16", "int8"), True, INT8_TOL),
-            ("gpt2 ", GPT2_CONFIG, ("gpt2_fp32", "gpt2_bf16", "gpt2_int8_weights"), False, GPT2_INT8_TOL)):
-        hold_family(label, cfgs[name], params[name], [wrappers[p].params for p in paths], paths[2],
+            ("gpt2 ", GPT2_CONFIG, ("gpt2_fp32", "gpt2_bf16", "gpt2_int8_weights"), False, GPT2_INT8_TOL),
+            ("large ", LARGE_CONFIG, ("large_fp32", "large_bf16"), False, None)):
+        hold_family(label, cfgs[name], params[name], [wrappers[p].params for p in paths], paths[-1],
                     (audio1, audio2, texts[name]), int8_cache, int8_tol)
-    return {"launches": launches, "timings": timings}
+    return {"launches": launches, "calls": calls, "entries": entries, "timings": timings}
 
 
 def profile_request(wrapper, request, path: str) -> dict:
@@ -963,22 +1127,29 @@ def main() -> int:
                     print("ptxas:", line.strip())
 
     t = time.perf_counter()
-    rows = kernel_phase(get_config("v0"), gpt2_config())
+    rows = kernel_phase(get_config("v0"), gpt2_config(), htsat_large_config())
     print(f"kernel phase took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    launches = slice_phase()["launches"]
+    run = slice_phase()
+    launches = run["launches"]
     print(f"slice phase took {time.perf_counter() - t:.1f} s")
     # Each kernel's launches on the run of the path that carries it (the
     # int8 path's own kernels on that path, #4's kv_quant mode on the
-    # int8-weights path, the prefill attention on the GPT-2 bf16 path; the
-    # rest on the bf16 path), and on every path.
+    # int8-weights path, the prefill attention on the GPT-2 bf16 path, the
+    # window attention on the HTSAT-large bf16 path; the rest on the bf16
+    # path), with that run's generate calls, and on every path.
     home = {"decode_attention_int8": "int8", "attn_block_w8a8": "int8", "mlp_block_w8a8": "int8",
-            "attn_block_kv_quant": "int8_weights", "flash_gqa_prefill": "gpt2_bf16"}
+            "attn_block_kv_quant": "int8_weights", "flash_gqa_prefill": "gpt2_bf16",
+            "window_attention": "large_bf16"}
     for row in rows:
         name = row["name"]
         mod, _, per_call, *_ = KERNELS[name]
-        row["launches"] = launches[home.get(name, "bf16")][name]
-        row["launches_by_path"] = {path: counts[name] for path, counts in launches.items()}
+        path = home.get(name, "bf16")
+        row["launches"] = launches[path][name]
+        row["home_path"] = path
+        row["home_path_generate_calls"] = run["calls"][path]
+        row["launches_by_path"] = {p: counts[name] for p, counts in launches.items()}
+        row["launches_by_encoder_entry"] = {e: counts[name] for e, counts in run["entries"].items()}
         row["kernel_launches_per_call"] = getattr(mod, per_call)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

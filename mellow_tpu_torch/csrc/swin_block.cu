@@ -11,7 +11,7 @@
 // b_fc1; w_fc2 (4C, C) + b_fc2; bias (H, 64, 64) fp32 relative-position
 // bias per head; mask (nW, 64, 64) fp32 or null; scratch qkv (M, 3C),
 // o (M, C), x1 (M, C), hid (M, 4C) with M = B*R*R; out (M, C). The window
-// is 8 x 8 (N = 64 tokens); hd = C / H <= 32; C a multiple of 8.
+// is 8 x 8 (N = 64 tokens); hd = C / H <= 64; C a multiple of 8.
 //
 // What bounds it: at stage 1 of v0 (B=1, R=64, C=96, H=4) the block moves
 // ~6 MB (x, the qkv, hidden and output activations, weights) and does
@@ -29,129 +29,35 @@
 //   4. hid = bf16(gelu_tanh(bf16(LN2(x1) @ w_fc1 + b_fc1)))
 //   5. out = x1 + bf16(hid @ w_fc2 + b_fc2)
 //
-// The attention kernel: one block per (window, head, batch row). hd = 24
-// is not a multiple of the 16-deep wmma step, so q, k and v are staged with
-// their head dimension zero-padded to 32 in shared memory; the padded
-// columns add zeros to the scores and produce output columns that are never
-// stored. Rounding follows the TPU kernel: q = bf16(q * bf16(hd^-0.5));
-// s = (q . k) + bias + mask in fp32; p = bf16(exp(s - max) / sum) (the
-// softmax is normalised BEFORE the PV product here, unlike the decoder's
-// attention); o = bf16(p @ v) with fp32 accumulation.
+// The attention kernel: one block per (window, head, batch row), the
+// window read in place from the (B, R, R, 3C) qkv; the core is
+// window_core.cuh's, shared with TPU kernel #9 (window_attention.cu), with
+// its head dimension padded to 32 (hd <= 32, every v0 stage) or 64 (hd 33
+// to 64: HTSAT-large's stage 1 has hd = 64). Rounding follows the TPU
+// kernel: q = bf16(q * bf16(hd^-0.5)); s = (q . k) + bias + mask in fp32;
+// p = bf16(exp(s - max) / sum) (the softmax is normalised BEFORE the PV
+// product here, unlike the decoder's attention); o = bf16(p @ v) with fp32
+// accumulation.
 
-#include "gemm_bf16.cuh"
+#include "window_core.cuh"
 
 namespace {
 
-constexpr int SW_WS = 8;
-constexpr int SW_N = SW_WS * SW_WS;  // tokens per window
-constexpr int SW_HDP = 32;           // head dim padded to two wmma steps
-constexpr int SW_THREADS = 128;
-constexpr int SQ_LD = SW_HDP + 8;  // bf16
-constexpr int SS_LD = SW_N + 4;    // fp32
-constexpr int SP_LD = SW_N + 8;    // bf16
-constexpr int SO_LD = SW_HDP + 4;  // fp32
-
-__global__ void __launch_bounds__(SW_THREADS)
+template <int HDP>
+__global__ void __launch_bounds__(WIN_THREADS)
 swin_window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
                         const float* __restrict__ mask, bf16* __restrict__ o, int R, int C, int H,
                         int hd, float scale) {
-  __shared__ __align__(128) bf16 Qs[SW_N * SQ_LD];
-  __shared__ __align__(128) bf16 Ks[SW_N * SQ_LD];
-  __shared__ __align__(128) bf16 Vs[SW_N * SQ_LD];
-  __shared__ __align__(128) float Ss[SW_N * SS_LD];  // scores, later O
-  __shared__ __align__(128) bf16 Ps[SW_N * SP_LD];
-
+  __shared__ __align__(128) unsigned char smem[WindowSmem<HDP>::BYTES];
   const int w = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int nWw = R / SW_WS;
-  const int wy = w / nWw;
-  const int wx = w % nWw;
-
-  for (int e = tid; e < SW_N * SW_HDP; e += SW_THREADS) {
-    const int n = e / SW_HDP;
-    const int d = e % SW_HDP;
-    bf16 zq = __float2bfloat16(0.f), zk = zq, zv = zq;
-    if (d < hd) {
-      const size_t row = ((size_t)b * R + wy * SW_WS + n / SW_WS) * R + wx * SW_WS + n % SW_WS;
-      const bf16* src = qkv + row * 3 * C + h * hd + d;
-      zq = __float2bfloat16(bf2f(src[0]) * scale);
-      zk = src[C];
-      zv = src[2 * C];
-    }
-    Qs[n * SQ_LD + d] = zq;
-    Ks[n * SQ_LD + d] = zk;
-    Vs[n * SQ_LD + d] = zv;
-  }
-  __syncthreads();
-
-  // S = Q K^T: warp w owns query rows [16 w, 16 w + 16).
-#pragma unroll
-  for (int j = 0; j < SW_N / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < SW_HDP; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, Qs + warp * 16 * SQ_LD + kk, SQ_LD);
-      wmma::load_matrix_sync(fb, Ks + j * 16 * SQ_LD + kk, SQ_LD);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(Ss + warp * 16 * SS_LD + j * 16, acc, SS_LD, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  const float* bh = bias + (size_t)h * SW_N * SW_N;
-  const float* mw = mask != nullptr ? mask + (size_t)w * SW_N * SW_N : nullptr;
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-    float s0 = Ss[r * SS_LD + lane] + bh[r * SW_N + lane];
-    float s1 = Ss[r * SS_LD + lane + 32] + bh[r * SW_N + lane + 32];
-    if (mw != nullptr) {
-      s0 += mw[r * SW_N + lane];
-      s1 += mw[r * SW_N + lane + 32];
-    }
-    const float m = warp_max(fmaxf(s0, s1));
-    const float e0 = expf(s0 - m);
-    const float e1 = expf(s1 - m);
-    const float sum = warp_sum(e0 + e1);
-    Ps[r * SP_LD + lane] = __float2bfloat16(e0 / sum);
-    Ps[r * SP_LD + lane + 32] = __float2bfloat16(e1 / sum);
-  }
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[SW_HDP / 16];
-#pragma unroll
-  for (int j = 0; j < SW_HDP / 16; ++j) wmma::fill_fragment(oacc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < SW_N; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, Ps + warp * 16 * SP_LD + kk, SP_LD);
-#pragma unroll
-    for (int j = 0; j < SW_HDP / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, Vs + kk * SQ_LD + j * 16, SQ_LD);
-      wmma::mma_sync(oacc[j], fa, fb, oacc[j]);
-    }
-  }
-  __syncthreads();
-  float* Os = Ss;
-#pragma unroll
-  for (int j = 0; j < SW_HDP / 16; ++j)
-    wmma::store_matrix_sync(Os + warp * 16 * SO_LD + j * 16, oacc[j], SO_LD, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int e = tid; e < SW_N * SW_HDP; e += SW_THREADS) {
-    const int n = e / SW_HDP;
-    const int d = e % SW_HDP;
-    if (d < hd) {
-      const size_t row = ((size_t)b * R + wy * SW_WS + n / SW_WS) * R + wx * SW_WS + n % SW_WS;
-      o[row * C + h * hd + d] = __float2bfloat16(Os[n * SO_LD + d]);
-    }
-  }
+  const int nWw = R / WIN_WS;
+  const size_t row0 = ((size_t)b * R + (w / nWw) * WIN_WS) * R + (w % nWw) * WIN_WS;
+  window_attention_core<HDP, false>(qkv, o, row0, R, C, h, hd, scale,
+                                    bias + (size_t)h * WIN_N * WIN_N,
+                                    mask != nullptr ? mask + (size_t)w * WIN_N * WIN_N : nullptr,
+                                    smem);
 }
 
 }  // namespace
@@ -170,7 +76,7 @@ extern "C" int mellow_swin_block(const void* x, const void* ln1_s, const void* l
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * R * R;
   const int hd = C / H;
-  if (R % SW_WS != 0 || hd > SW_HDP || hd * H != C) return (int)cudaErrorInvalidValue;
+  if (R % WIN_WS != 0 || hd > 64 || hd * H != C) return (int)cudaErrorInvalidValue;
   int err;
 
   GemmArgs g = gemm_args(x, C, w_qkv, qkv_buf, M, 3 * C, C);
@@ -180,10 +86,17 @@ extern "C" int mellow_swin_block(const void* x, const void* ln1_s, const void* l
   g.eps = eps;
   if ((err = launch_gemm<NORM_LN, EPI_STORE>(g, st))) return err;
 
-  const int nW = (R / SW_WS) * (R / SW_WS);
-  swin_window_attn_kernel<<<dim3(nW, H, B), SW_THREADS, 0, st>>>(
-      static_cast<const bf16*>(qkv_buf), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<bf16*>(o_buf), R, C, H, hd, scale);
+  const int nW = (R / WIN_WS) * (R / WIN_WS);
+  const dim3 grid(nW, H, B);
+  const bf16* qkv_in = static_cast<const bf16*>(qkv_buf);
+  const float* bias_in = static_cast<const float*>(bias);
+  const float* mask_in = static_cast<const float*>(mask);
+  if (hd <= 32)
+    swin_window_attn_kernel<32><<<grid, WIN_THREADS, 0, st>>>(
+        qkv_in, bias_in, mask_in, static_cast<bf16*>(o_buf), R, C, H, hd, scale);
+  else
+    swin_window_attn_kernel<64><<<grid, WIN_THREADS, 0, st>>>(
+        qkv_in, bias_in, mask_in, static_cast<bf16*>(o_buf), R, C, H, hd, scale);
   if ((err = (int)cudaGetLastError())) return err;
 
   GemmArgs gp = gemm_args(o_buf, C, w_proj, x1_buf, M, C, C);

@@ -1,4 +1,4 @@
-"""HTSAT Swin-Transformer audio encoder in PyTorch, eval compact path.
+"""HTSAT Swin-Transformer audio encoder in PyTorch, eval paths.
 
 Port of ``mellow_tpu/models/htsat.py`` as plain functions on tensors with a
 parameter dict of the same tree (see ``models/params.py``). Activations are
@@ -9,20 +9,31 @@ copies of the JAX module's tables (held bit-equal by the tests).
 
 Everything runs in the dtype of the wave and the weights: float32 (parity
 mode) or bfloat16 (perf mode). In bf16 the Swin blocks whose weights pass
-the JAX package's fused-block gate (stages 1-3 at v0) run as the Swin
-block kernel (``ops/swin_block.py``: CUDA on the card, its plain version
-on the CPU), with its tanh-GELU; the rest keep the exact-erf formulation
-below with an fp32 softmax, as in the JAX package.
+the JAX package's fused-block gate (stages 1-3 at v0, stage 1 at
+HTSAT-large) run as the Swin block kernel (``ops/swin_block.py``: CUDA on
+the card, its plain version on the CPU), with its tanh-GELU; the rest keep
+the exact-erf formulation below with an fp32 softmax, as in the JAX
+package, and of those a block whose window passes the JAX per-window gate
+(stage 2 at HTSAT-large) runs its attention core as the window-attention
+kernel (``ops/window_attention.py``). ``return_attn`` forces the plain
+formulation, as in JAX.
 
-Not ported here: the full 1025-row ``htsat_embedding`` and ``tscam_head``,
-the long-audio and infer-mode paths, ``swin_features_with_attn``,
-drop-path and SpecAugment.
+Entry points: the compact eval path the wrapper runs
+(``encode_audio_compact``), and the full 1025-row ``htsat_embedding`` with
+``tscam_head``, ``encode_audio``, ``htsat_embedding_long``,
+``htsat_embedding_infer_mode``, ``swin_features_with_attn`` and
+``downsample_tokens``. The long and infer-mode paths cast the fp32 log-mel
+back to the wave's dtype, as ``frontend_image`` does, where the JAX package
+lets it promote the trunk to fp32 (ROADMAP Queue 3).
+
+Not ported here: the train-time arguments (``rng``, ``mixup_lambda``:
+drop-path, SpecAugment, mixup, projection dropout), which raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import numpy as np
 import torch
@@ -31,6 +42,7 @@ import torch.nn.functional as F
 from mellow_tpu_torch.config import FrontendConfig, HTSATConfig
 from mellow_tpu_torch.ops import frontend as fe
 from mellow_tpu_torch.ops import swin_block as swin_kernel
+from mellow_tpu_torch.ops import window_attention as window_kernel
 
 
 # ---------------------------------------------------------------------------
@@ -80,6 +92,13 @@ def _device_mask(resolution: int, window_size: int, shift: int, device: torch.de
 # layers
 # ---------------------------------------------------------------------------
 
+def _eval_only(**train_args) -> None:
+    """Raise for a train-time argument: training is not ported yet."""
+    given = [k for k, v in train_args.items() if v is not None]
+    if given:
+        raise NotImplementedError(f"train-time arguments are not ported: {', '.join(given)}")
+
+
 def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
     mu = x.mean(-1, keepdim=True)
     var = (x - mu).square().mean(-1, keepdim=True)
@@ -114,27 +133,54 @@ def window_attention(
     p: dict,
     num_heads: int,
     window_size: int,
-    mask: Optional[np.ndarray],  # (nW, N, N) or None
-) -> torch.Tensor:
-    """Window MSA with relative position bias."""
+    mask,  # (nW, N, N) numpy array or float32 tensor, or None
+    return_attn: bool = False,
+):
+    """Window MSA with relative position bias. In bf16, where one window
+    passes the JAX package's 6 MB gate, the core between the qkv and proj
+    products is the window-attention kernel (its plain version on the
+    CPU). ``return_attn`` also returns the softmax probabilities
+    (Bn, H, N, N) in x's dtype and forces the plain formulation."""
     Bn, N, C = x.shape
     hd = C // num_heads
-    qkv = linear(x, p["qkv"]).reshape(Bn, N, 3, num_heads, hd)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (Bn, N, H, hd)
+    qkv = linear(x, p["qkv"])  # (Bn, N, 3C)
 
     idx = torch.from_numpy(relative_position_index(window_size).reshape(-1)).to(x.device)
     bias = p["rel_bias_table"][idx].reshape(N, N, num_heads).permute(2, 0, 1)  # (H, N, N)
 
+    if (not return_attn and x.dtype == torch.bfloat16
+            and window_kernel.window_vmem_bytes(C, num_heads, N) <= window_kernel.WINDOW_BUDGET):
+        m = None if mask is None else torch.as_tensor(mask, device=x.device).float().contiguous()
+        out = window_kernel.window_attention(qkv, bias.float().contiguous(), m, num_heads=num_heads)
+        return linear(out, p["proj"])
+
+    qkv = qkv.reshape(Bn, N, 3, num_heads, hd)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (Bn, N, H, hd)
     attn = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k) + bias[None]
     if mask is not None:
         nW = mask.shape[0]
-        m = torch.from_numpy(mask).to(device=x.device, dtype=attn.dtype)
+        m = torch.as_tensor(mask, device=x.device).to(attn.dtype)
         attn = (attn.reshape(Bn // nW, nW, num_heads, N, N) + m[None, :, None])
         attn = attn.reshape(Bn, num_heads, N, N)
     # Softmax in fp32, back to the compute dtype (a no-op in parity mode).
     attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(Bn, N, C)
-    return linear(out, p["proj"])
+    out = linear(out, p["proj"])
+    return (out, attn) if return_attn else out
+
+
+def kernel_route(C: int, num_heads: int, window_size: int, resolution: int) -> str:
+    """The kernel a bf16 eval Swin block of this geometry runs, by the JAX
+    package's gates: "swin_block" (the whole block, when its weights and
+    activations pass the 10 MB gate), else "window_attention" (its
+    attention core, when one window passes the 6 MB gate), else "plain"."""
+    window_size = min(window_size, resolution)
+    if (swin_kernel.fused_block_vmem_bytes(C, num_heads, window_size, resolution)
+            <= swin_kernel.FUSED_BLOCK_BUDGET):
+        return "swin_block"
+    if window_kernel.window_vmem_bytes(C, num_heads, window_size ** 2) <= window_kernel.WINDOW_BUDGET:
+        return "window_attention"
+    return "plain"
 
 
 def swin_block(
@@ -144,18 +190,22 @@ def swin_block(
     num_heads: int,
     window_size: int,
     shift: int,
-) -> torch.Tensor:
+    *,
+    rng=None,
+    return_attn: bool = False,
+):
     """One Swin block (eval). When the window covers the whole resolution
-    the shift collapses to 0."""
+    the shift collapses to 0. ``return_attn`` also returns the window
+    attention probabilities and forces the plain formulation."""
+    _eval_only(rng=rng)
     H = W = resolution
     B, L, C = x.shape
     if min(H, W) <= window_size:
         window_size = min(H, W)
         shift = 0
 
-    if (x.dtype == torch.bfloat16
-            and swin_kernel.fused_block_vmem_bytes(C, num_heads, window_size, H)
-            <= swin_kernel.FUSED_BLOCK_BUDGET):
+    if (not return_attn and x.dtype == torch.bfloat16
+            and kernel_route(C, num_heads, window_size, H) == "swin_block"):
         N = window_size * window_size
         idx = torch.from_numpy(relative_position_index(window_size).reshape(-1)).to(x.device)
         bias = p["rel_bias_table"][idx].reshape(N, N, num_heads).permute(2, 0, 1).float()
@@ -173,15 +223,19 @@ def swin_block(
     x = layer_norm(x, p["norm1"]).reshape(B, H, W, C)
     if shift > 0:
         x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
-    mask = shifted_window_mask(H, window_size, shift) if shift > 0 else None
-    windows = window_attention(window_partition(x, window_size), p, num_heads, window_size, mask)
+    mask = _device_mask(H, window_size, shift, x.device) if shift > 0 else None
+    windows = window_attention(window_partition(x, window_size), p, num_heads, window_size, mask,
+                               return_attn=return_attn)
+    if return_attn:
+        windows, attn = windows
     x = window_reverse(windows, window_size, H, W)
     if shift > 0:
         x = torch.roll(x, shifts=(shift, shift), dims=(1, 2))
     x = shortcut + x.reshape(B, L, C)
 
     h = gelu(linear(layer_norm(x, p["norm2"]), p["fc1"]))
-    return x + linear(h, p["fc2"])
+    out = x + linear(h, p["fc2"])
+    return (out, attn) if return_attn else out
 
 
 def patch_merging(x: torch.Tensor, p: dict, resolution: int) -> torch.Tensor:
@@ -209,8 +263,10 @@ def patch_embed(img: torch.Tensor, p: dict, patch: int) -> torch.Tensor:
 # encoder
 # ---------------------------------------------------------------------------
 
-def swin_features(img: torch.Tensor, params: dict, cfg: HTSATConfig) -> torch.Tensor:
-    """Patch embed + Swin stages + final LayerNorm -> (B, 64, 768) tokens."""
+def swin_features(img: torch.Tensor, params: dict, cfg: HTSATConfig, *, rng=None) -> torch.Tensor:
+    """Patch embed + Swin stages + final LayerNorm -> (B, 64, num_features)
+    tokens."""
+    _eval_only(rng=rng)
     x = patch_embed(img, params["patch_embed"], cfg.patch_size)
     res = cfg.grid_size
     for si, depth in enumerate(cfg.depths):
@@ -222,6 +278,28 @@ def swin_features(img: torch.Tensor, params: dict, cfg: HTSATConfig) -> torch.Te
             x = patch_merging(x, stage["downsample"], res)
             res //= 2
     return layer_norm(x, params["norm"])
+
+
+def swin_features_with_attn(img: torch.Tensor, params: dict, cfg: HTSATConfig):
+    """The eval-time attention-map surface: ``swin_features`` on the plain
+    formulation, also returning for each stage the mean over its blocks of
+    the window attention probabilities, (nW*B, H, N, N) in float32."""
+    x = patch_embed(img, params["patch_embed"], cfg.patch_size)
+    res = cfg.grid_size
+    stage_attns = []
+    for si, depth in enumerate(cfg.depths):
+        stage = params["stages"][si]
+        attns = []
+        for d in range(depth):
+            shift = 0 if d % 2 == 0 else cfg.window_size // 2
+            x, attn = swin_block(x, stage["blocks"][d], res, cfg.num_heads[si], cfg.window_size, shift,
+                                 return_attn=True)
+            attns.append(attn)
+        stage_attns.append(torch.stack(attns).float().mean(0))
+        if "downsample" in stage:
+            x = patch_merging(x, stage["downsample"], res)
+            res //= 2
+    return layer_norm(x, params["norm"]), stage_attns
 
 
 def _tscam_core(tokens: torch.Tensor, params: dict, cfg: HTSATConfig):
@@ -247,6 +325,38 @@ def _tscam_core(tokens: torch.Tensor, params: dict, cfg: HTSATConfig):
     return latent, logits_t
 
 
+def tscam_head(tokens: torch.Tensor, params: dict, cfg: HTSATConfig) -> dict:
+    """TSCAM head: the frame-wise outputs (each of the 32 steps repeated 32
+    times, (B, 1024, O)), the clip-wise outputs (B, O) and the latent
+    (B, C)."""
+    latent, logits_t = _tscam_core(tokens, params, cfg)
+    fpx = torch.sigmoid(logits_t).transpose(1, 2)  # (B, 32, O)
+    return {
+        "framewise_output": fpx.repeat_interleave(32, dim=1),
+        "clipwise_output": torch.sigmoid(logits_t.mean(-1)),
+        "latent_output": latent,
+    }
+
+
+def _with_embedding(out: dict, params: dict) -> dict:
+    """``out`` plus its (B, 1025, C) embedding: [latent | c2l(frames)]."""
+    oframe = linear(out["framewise_output"], params["c2l"])
+    out["embedding"] = torch.cat([out["latent_output"][:, None], oframe], dim=1)
+    return out
+
+
+def htsat_embedding(
+    wave: torch.Tensor, params: dict, fe_cfg: FrontendConfig, cfg: HTSATConfig, *,
+    rng=None, mixup_lambda=None,
+) -> dict:
+    """The full eval forward: (B, 320000) -> ``tscam_head``'s outputs and
+    the (B, 1025, C) embedding."""
+    _eval_only(rng=rng, mixup_lambda=mixup_lambda)
+    enc = params["encoder"]
+    img = fe.frontend_image(wave, fe_cfg, enc["bn0"], cfg.freq_ratio, cfg.target_frames)
+    return _with_embedding(tscam_head(swin_features(img, enc, cfg), enc, cfg), params)
+
+
 def htsat_embedding_compact(
     wave: torch.Tensor, params: dict, fe_cfg: FrontendConfig, cfg: HTSATConfig
 ) -> torch.Tensor:
@@ -262,11 +372,63 @@ def htsat_embedding_compact(
     return torch.cat([latent[:, None], oframe], dim=1)
 
 
+def _log_mel_bn(wave: torch.Tensor, fe_cfg: FrontendConfig, enc: dict) -> torch.Tensor:
+    """(B, T) -> (B, 1 + T // hop, 64): the fp32 log-mel of any length,
+    cast back to the wave's dtype, then bn0."""
+    x = fe.log_mel_auto(wave.float(), fe_cfg).to(wave.dtype)
+    return fe.batchnorm_mel(x, enc["bn0"])
+
+
+def htsat_embedding_long(
+    wave: torch.Tensor, params: dict, fe_cfg: FrontendConfig, cfg: HTSATConfig, *,
+    crop_frames: int = 689, overlap_frames: int = 344,
+) -> dict:
+    """Long audio (more than 10.24 s): the log-mel cut into crops of
+    ``crop_frames`` every ``overlap_frames``, all crops through the trunk as
+    one batch, and the outputs averaged over the crops."""
+    B = wave.shape[0]
+    enc = params["encoder"]
+    x = _log_mel_bn(wave, fe_cfg, enc)
+    T = x.shape[1]
+    if T <= cfg.target_frames:
+        raise ValueError("use htsat_embedding for <= 10.24 s audio")
+    starts = list(range(0, T - crop_frames - 1, overlap_frames))
+    crops = torch.stack([x[:, s : s + crop_frames] for s in starts])
+    crops = crops.reshape(len(starts) * B, crop_frames, x.shape[2])
+    img = fe.fold_time_to_freq(fe.resize_time_bicubic(crops, cfg.target_frames), cfg.freq_ratio)
+    out = tscam_head(swin_features(img, enc, cfg), enc, cfg)
+    avg = {k: v.reshape((len(starts), B) + v.shape[1:]).mean(0) for k, v in out.items()}
+    return _with_embedding(avg, params)
+
+
+def htsat_embedding_infer_mode(
+    wave: torch.Tensor, params: dict, fe_cfg: FrontendConfig, cfg: HTSATConfig
+) -> dict:
+    """Short audio: the log-mel repeated floor(1024 / T) times along time
+    (cut to 1024 frames), then the resize, fold and trunk."""
+    enc = params["encoder"]
+    x = _log_mel_bn(wave, fe_cfg, enc)
+    x = x.repeat(1, max(1, cfg.target_frames // x.shape[1]), 1)[:, : cfg.target_frames]
+    img = fe.fold_time_to_freq(fe.resize_time_bicubic(x, cfg.target_frames), cfg.freq_ratio)
+    return _with_embedding(tscam_head(swin_features(img, enc, cfg), enc, cfg), params)
+
+
 def projection(x: torch.Tensor, p: dict) -> torch.Tensor:
     """Residual MLP + LayerNorm into the decoder width (eval: no dropout)."""
     e1 = x @ p["linear1"]["kernel"]
     e2 = gelu(e1) @ p["linear2"]["kernel"]
     return layer_norm(e1 + e2, p["layer_norm"])
+
+
+def encode_audio(
+    wave: torch.Tensor, params: dict, fe_cfg: FrontendConfig, cfg: HTSATConfig, *,
+    rng=None, mixup_lambda=None,
+) -> torch.Tensor:
+    """(B, 320000) -> projected (B, 1025, d_proj), eval: the compact rows
+    re-expanded, each frame row 32 times, as the JAX package does."""
+    _eval_only(rng=rng, mixup_lambda=mixup_lambda)
+    c = encode_audio_compact(wave, params, fe_cfg, cfg)
+    return torch.cat([c[:, :1], c[:, 1:].repeat_interleave(32, dim=1)], dim=1)
 
 
 def encode_audio_compact(
@@ -281,3 +443,11 @@ def downsample_tokens_compact(x: torch.Tensor) -> torch.Tensor:
     frame rows [8g, 8g + 8), which all repeat unique row g // 4, so the
     mean of 8 equal rows is that row (exact in fp32)."""
     return torch.cat([x[:, :1], x[:, 1:].repeat_interleave(4, dim=1)], dim=1)
+
+
+def downsample_tokens(x: torch.Tensor) -> torch.Tensor:
+    """(B, 1025, D) -> (B, 129, D): token 0 kept, tokens 1..1024 mean-pooled
+    in groups of 8."""
+    B, N, D = x.shape
+    pooled = x[:, 1:].reshape(B, (N - 1) // 8, 8, D).mean(2)
+    return torch.cat([x[:, :1], pooled], dim=1)

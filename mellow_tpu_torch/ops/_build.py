@@ -45,6 +45,7 @@ SIGNATURES = {
     "mellow_attn_block_w8a8": [_P] * 17 + [_L] + [_P] * 6 + [_L, _P, _P, _L] + [_I] * 6 + [_F, _P],
     "mellow_mlp_block_w8a8": [_P] * 14 + [_I, _I, _I, _F, _P],
     "mellow_flash_gqa_prefill": [_P] * 4 + [_L, _I, _L, _I] + [_I] * 5 + [_P],
+    "mellow_window_attention": [_P] * 4 + [_I] * 4 + [_F, _P],
 }
 
 

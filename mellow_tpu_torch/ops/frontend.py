@@ -184,7 +184,8 @@ def logmel(power: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
 
 
 def log_mel_spectrogram(wave: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
-    """Plain version of the log-mel kernel: (B, 320000) -> (B, 1001, 64)."""
+    """Plain version of the log-mel kernel: (B, T) -> (B, 1 + T // hop, 64),
+    (B, 1001, 64) for a 10 s clip."""
     return logmel(power_spectrogram(wave, cfg), cfg)
 
 

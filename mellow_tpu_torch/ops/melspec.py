@@ -25,8 +25,10 @@ N_MELS = 64
 
 
 def log_mel_cuda(wave: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
-    """(B, 320000) float32 contiguous CUDA tensor -> (B, 1001, 64) log-mel,
-    one launch of the fused kernel on the current stream. Raises on any
+    """(B, T) float32 contiguous CUDA tensor -> (B, 1 + T // 320, 64)
+    log-mel (T = 320,000 gives the 1001 frames of a 10 s clip), one launch
+    of the fused kernel on the current stream. T is any length of at least
+    n_fft // 2 + 1 samples, what the reflect padding needs. Raises on any
     input the kernel does not take, and on a failed launch."""
     global LAUNCHES
     if not wave.is_cuda:
@@ -40,20 +42,20 @@ def log_mel_cuda(wave: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
         )
     if cfg.top_db is not None:
         raise ValueError("log_mel_cuda does not apply top_db")
-    if wave.ndim != 2 or wave.shape[1] != cfg.num_samples or wave.shape[0] < 1:
-        raise ValueError(f"expected wave (B, {cfg.num_samples}), got {tuple(wave.shape)}")
+    if wave.ndim != 2 or wave.shape[1] < N_FFT // 2 + 1 or wave.shape[0] < 1:
+        raise ValueError(f"expected wave (B, T) with T >= {N_FFT // 2 + 1}, got {tuple(wave.shape)}")
     if not wave.is_contiguous():
         raise ValueError("log_mel_cuda needs a contiguous wave")
 
     lib = load_library()
     basis, fb = fe.device_tables(cfg, wave.device)
-    B = wave.shape[0]
-    out = torch.empty((B, cfg.num_frames, cfg.n_mels), dtype=torch.float32, device=wave.device)
+    B, T = wave.shape
+    out = torch.empty((B, 1 + T // HOP, N_MELS), dtype=torch.float32, device=wave.device)
     with torch.cuda.device(wave.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mellow_log_mel(
             wave.data_ptr(), basis.data_ptr(), fb.data_ptr(), out.data_ptr(),
-            B, cfg.num_samples, float(cfg.amin), fe.ref_db(cfg), stream,
+            B, T, float(cfg.amin), fe.ref_db(cfg), stream,
         )
     check(err, "log-mel kernel")
     LAUNCHES += 1

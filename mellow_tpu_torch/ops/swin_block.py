@@ -36,7 +36,8 @@ _GELU_C = 0.7978845608028654  # sqrt(2 / pi)
 def fused_block_vmem_bytes(C: int, num_heads: int, ws: int, R: int) -> int:
     """The JAX package's gate for the fused Swin block (a copy of
     ``pallas_swin_block.fused_block_vmem_bytes``): the port takes the
-    kernel exactly where the TPU path does, which is stages 1-3 at v0."""
+    kernel exactly where the TPU path does: stages 1-3 at v0, stage 1 at
+    HTSAT-large."""
     N = ws * ws
     weights = 2 * (C * 3 * C + C * C + 2 * C * 4 * C)
     bias = 4 * num_heads * (2 * N) * (2 * N) + 4 * (R // ws) ** 2 * 2 * N * N
@@ -99,7 +100,8 @@ def swin_block_cuda(x: torch.Tensor, p: dict, bias: torch.Tensor, mask: Optional
                     num_heads: int, window_size: int, eps: float = 1e-5) -> torch.Tensor:
     """The kernel chain on the current stream. x (B, R, R, C) contiguous
     bf16 CUDA; the block's weights bf16; bias (H, 64, 64) and mask
-    (nW, 64, 64) float32 on the same device."""
+    (nW, 64, 64) float32 on the same device; hd = C / H <= 64 and C a
+    multiple of 8."""
     global LAUNCHES
     B, R, R2, C = x.shape
     H = num_heads
@@ -110,7 +112,7 @@ def swin_block_cuda(x: torch.Tensor, p: dict, bias: torch.Tensor, mask: Optional
         raise ValueError("swin_block_cuda needs bfloat16 activations and weights")
     if not (x.is_contiguous() and all(w.is_contiguous() for w in weights)):
         raise ValueError("swin_block_cuda needs contiguous tensors")
-    if window_size != 8 or R != R2 or R % 8 or C % H or C // H > 32 or C % 8:
+    if window_size != 8 or R != R2 or R % 8 or C % H or C // H > 64 or C % 8:
         raise ValueError(f"unsupported block: R={R}, C={C}, H={H}, ws={window_size}")
     nW = (R // 8) ** 2
     bias = bias.float().contiguous()

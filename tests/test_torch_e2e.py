@@ -181,6 +181,7 @@ def test_port_never_imports_jax():
         "import mellow_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(mellow_tpu_torch.__path__, 'mellow_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "assert {'mellow_tpu_torch.ops.window_attention', 'mellow_tpu_torch.models.registry'} <= set(names)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'mellow_tpu')\n"
         "       and sys.modules[n] is not None]\n"
         "print(len(names), bad)\n"

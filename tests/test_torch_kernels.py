@@ -28,6 +28,7 @@ from mellow_tpu_torch.ops import melspec
 from mellow_tpu_torch.ops import mlp_block as mb
 from mellow_tpu_torch.ops import mlp_block_w8a8 as mw
 from mellow_tpu_torch.ops import swin_block as sb
+from mellow_tpu_torch.ops import window_attention as wa
 
 pytestmark = pytest.mark.cuda
 
@@ -70,7 +71,7 @@ def test_log_mel_auto_launches_the_kernel_on_cuda(device):
     "make",
     [
         lambda w: w.double(),
-        lambda w: w[:, : CFG.num_samples // 2],
+        lambda w: w[:, : CFG.n_fft // 2],  # too short to reflect-pad
         lambda w: torch.cat([w, w], dim=1)[:, ::2],
     ],
     ids=["float64", "short", "strided"],
@@ -78,6 +79,17 @@ def test_log_mel_auto_launches_the_kernel_on_cuda(device):
 def test_log_mel_kernel_rejects_what_it_does_not_take(device, make):
     with pytest.raises(ValueError):
         melspec.log_mel_cuda(make(_wave(1, 8, device)), CFG)
+
+
+@pytest.mark.parametrize("seconds", [3, 15])
+def test_log_mel_kernel_takes_other_lengths(device, seconds):
+    """The infer-mode (3 s) and long-audio (15 s) waves: 1 + T // 320 frames."""
+    rng = np.random.RandomState(seconds)
+    wave = torch.from_numpy((rng.randn(2, seconds * 32000) * 0.1).astype(np.float32)).to(device)
+    out = melspec.log_mel_cuda(wave, CFG)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 1 + seconds * 100, 64)
+    torch.testing.assert_close(out, fe.log_mel_spectrogram(wave, CFG), atol=5e-4, rtol=1e-4)
 
 
 BF16_TOL = 2e-2
@@ -144,7 +156,8 @@ def test_mlp_block_kernel_matches_plain_version(device, B, S):
     _close_bf16(out, mb.mlp_block_plain(*args, eps=1e-5))
 
 
-@pytest.mark.parametrize("B, R, C, H, shift", [(1, 64, 96, 4, 4), (2, 32, 192, 8, 0), (1, 16, 384, 16, 4)])
+@pytest.mark.parametrize("B, R, C, H, shift", [(1, 64, 96, 4, 4), (2, 32, 192, 8, 0), (1, 16, 384, 16, 4),
+                                                (1, 64, 256, 4, 4), (2, 64, 256, 4, 0)])
 def test_swin_block_kernel_matches_plain_version(device, B, R, C, H, shift):
     from mellow_tpu_torch.models.htsat import shifted_window_mask
 
@@ -305,3 +318,50 @@ def test_flash_gqa_prefill_kernel_rejects_what_it_does_not_take(device, shape, c
     q, k, v = (_bf16(rng, *shape).to(dtype)[..., cols] for _ in range(3))
     with pytest.raises(ValueError):
         fp.flash_gqa_prefill_cuda(q, k, v, num_heads=H, num_kv_heads=H, head_dim=768 // H)
+
+
+# ---------------------------------------------------------------------------
+# window attention (#9)
+# ---------------------------------------------------------------------------
+
+def _window_inputs(B, R, C, H, shift, device):
+    """qkv of the B * (R/8)^2 windows of an R x R grid, the (H, 64, 64)
+    bias and the grid's shifted-window mask (or None)."""
+    from mellow_tpu_torch.models.htsat import shifted_window_mask
+
+    rng = np.random.RandomState(R + C + B)
+    qkv = _bf16(rng, B * (R // 8) ** 2, 64, 3 * C, scale=0.5)
+    bias = _bf16(rng, H, 64, 64, scale=0.5).float()
+    mask = torch.from_numpy(shifted_window_mask(R, 8, shift)).to(device) if shift else None
+    return qkv, bias, mask
+
+
+@pytest.mark.parametrize("B, R, C, H, shift", [
+    (1, 32, 512, 8, 0), (1, 32, 512, 8, 4), (4, 32, 512, 8, 0), (4, 32, 512, 8, 4),  # HTSAT-large stage 2
+    (2, 64, 96, 4, 4), (1, 32, 256, 8, 4), (1, 16, 384, 6, 0),  # hd = 24, 32, 64
+])
+def test_window_attention_kernel_matches_plain_version(device, B, R, C, H, shift):
+    qkv, bias, mask = _window_inputs(B, R, C, H, shift, device)
+    before = wa.LAUNCHES
+    out = wa.window_attention(qkv, bias, mask, num_heads=H)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES == before + 1
+    _close_bf16(out, wa.window_attention_plain(qkv, bias, mask, num_heads=H))
+
+
+@pytest.mark.parametrize("what", ["float32", "bias_shape", "strided", "cpu", "head_dim"])
+def test_window_attention_kernel_rejects_what_it_does_not_take(device, what):
+    qkv, bias, mask = _window_inputs(1, 32, 512, 8, 4, device)
+    H = 8
+    if what == "float32":
+        qkv = qkv.float()
+    elif what == "bias_shape":
+        bias = bias[:, :32].contiguous()
+    elif what == "strided":
+        qkv = torch.cat([qkv, qkv], dim=-1)[..., ::2]
+    elif what == "cpu":
+        qkv, bias, mask = qkv.cpu(), bias.cpu(), mask.cpu()
+    else:
+        H = 4  # hd = 128
+    with pytest.raises(ValueError):
+        wa.window_attention_cuda(qkv, bias, mask, num_heads=H)

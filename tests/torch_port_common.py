@@ -1,6 +1,7 @@
 """Shared set-up for the port-vs-JAX tests (tests/test_torch_*.py): the tiny
-configuration of tests/test_e2e.py, its GPT-2-family twin, and one set of
-weights for both sides.
+configuration of tests/test_e2e.py, its GPT-2-family twin, an
+HTSAT-large-shaped twin at reduced width and depth, and one set of weights
+for both sides.
 
 The weights are ``mellow_tpu.models.mellow.init_params`` with seeded noise
 added to every leaf: the plain init has zero biases and identity norms,
@@ -53,6 +54,21 @@ tconfig.register_config(TINY_GPT2.name, tconfig.MellowConfig(
     name=TINY_GPT2.name, encoder=tconfig.HTSATConfig(embed_dim=24, out_emb=192),
     decoder=tgpt2.GPT2Config(**GPT2_DEC), d_proj=64, text_tokenization_len=8, prefix_length=268,
     **GPT2_IDS,
+))
+
+
+# HTSAT-large's shape at reduced width and depth: its embed_dim-to-heads
+# ratio (256 / 4), so hd = 64 at every stage, behind the tiny decoder.
+LARGE_ENC = dict(embed_dim=64, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8), out_emb=512)
+TINY_LARGE = MellowConfig(
+    name="test_torch_tiny_htsat_large", encoder=HTSATConfig(**LARGE_ENC), decoder=DEC, d_proj=64,
+    text_tokenization_len=8, prefix_length=268,
+).validate()
+register_config(TINY_LARGE.name, TINY_LARGE)
+tconfig.register_config(TINY_LARGE.name, tconfig.MellowConfig(
+    name=TINY_LARGE.name, encoder=tconfig.HTSATConfig(**LARGE_ENC),
+    decoder=tconfig.get_config(TINY.name).decoder, d_proj=64, text_tokenization_len=8,
+    prefix_length=268,
 ))
 
 
