@@ -12,13 +12,19 @@ result line is printed:
 3. kernel phase: each kernel against its plain PyTorch version on the card,
    at the main path's full v0 shapes (B=1 and B=4; every Swin stage that
    takes the kernel; decode attention at the prefix length and 31 positions
-   past it), for the prefill attention (#10) the GPT-2 prefill's (S=389,
-   H=KV=12, hd=64), for the Swin block also HTSAT-large's stage 1 (hd=64)
-   and for the window attention (#9) HTSAT-large's stage 2 (C=512, H=8,
-   W-MSA and SW-MSA), with the tolerance printed, CUDA-event medians of the
-   kernel and of the plain version, the least time the card could take
-   (``bound_ms``) and, where one PyTorch call computes the same function,
-   that call's time (``library_ms``);
+   past it; the int8 decode attention with 1 extra row and with a whole
+   flush window of them), for the prefill attention (#10) the GPT-2
+   prefill's (S=389, H=KV=12, hd=64), for the Swin block also HTSAT-large's
+   stage 1 (hd=64) and for the window attention (#9) HTSAT-large's stage 2
+   (C=512, H=8, W-MSA and SW-MSA), with the tolerance printed, device-time
+   medians of the kernel and of the plain version (each call queued behind
+   a spin kernel, so the host's launch overhead is not counted), the least
+   time the card could take (``bound_ms``) and, where one PyTorch call
+   computes the same function, that call's time (``library_ms``); the
+   decode attention (#2) and the prefill attention (#10) are timed against
+   their library call in turns over 5 rounds, with the median and range,
+   in device time and also with the host's launch overhead (how this
+   script timed every kernel before it timed device time);
 4. fp32 path: ``MellowWrapper(config="v0", device="cuda")`` at full v0 width
    with random weights from a seed answers requests one at a time, as a
    batch, and through the port's ``BatchingEngine``; every ``generate``
@@ -32,7 +38,8 @@ result line is printed:
    token agreement with fp32 is printed;
 6. int8 path: the same requests at ``weight_dtype="int8-w8a8"`` with
    ``kv_cache_dtype="int8"`` (the W8A8 prefill blocks and the int8 decode
-   attention), every call's launches checked; then one request at
+   attention, at the default flush window of 8 steps), every call's
+   launches checked; then one request at
    ``weight_dtype="int8"`` with an int8 cache (the bf16 blocks in their
    ``kv_quant`` mode), its launches checked; at a batch of 2 the int8
    path's prefix must equal bf16's and its prefill logits and one decode
@@ -58,7 +65,8 @@ result line is printed:
 9. timings of the paths by stage (host preprocessing, log-mel, encoder,
    prefill, decode step as the slope of two lengths, whole request), and
    torch.profiler over one warm B=1 request of each path (device time,
-   kernel launches, the device's idle share).
+   kernel launches, the device's idle share, and the device time of the
+   decode and prefill attention kernels in the request).
 
 The launch counts are set to 0 just before each path is driven and read
 just after. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -215,14 +223,45 @@ def htsat_large_config():
     ).validate()
 
 
-def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+_CYCLES_PER_MS = []
+
+
+def _spin_cycles_per_ms() -> float:
+    """The card's clock as ``torch.cuda._sleep`` counts it, measured once."""
+    if not _CYCLES_PER_MS:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        _CYCLES_PER_MS.append(20_000_000 / start.elapsed_time(end))
+    return _CYCLES_PER_MS[0]
+
+
+def _median_ms(fn, reps: int = 20, warmup: int = 3, host: bool = False) -> float:
+    """Median time of one call of ``fn`` over ``reps`` calls, by CUDA events
+    around the call on an idle card. By default it is device time: each
+    timed call is queued behind a spin kernel (``torch.cuda._sleep``) three
+    times as long as the host took to issue the call, so the events bracket
+    the device's work only. ``host=True`` leaves the spin out, as this
+    script once timed every kernel: the events then also bracket the host's launch overhead (a
+    wrapper's Python checks and ctypes call, PyTorch's dispatch), which an
+    eager decode loop pays on every call."""
+    issue = []
     for _ in range(warmup):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         fn()
+        issue.append(time.perf_counter() - t)
     torch.cuda.synchronize()
+    spin = 0 if host else int(_spin_cycles_per_ms() * max(0.2, 3e3 * max(issue)))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(spin)
         start.record()
         fn()
         end.record()
@@ -238,6 +277,26 @@ def _alternate(plain, kernel) -> tuple:
     k = [_median_ms(kernel) for _ in range(2)]
     p.append(_median_ms(plain))
     return statistics.mean(k), statistics.mean(p)
+
+
+def _paired(kernel, library, rounds: int = 5) -> dict:
+    """The kernel against one library call computing the same function, in
+    turns: ``rounds`` rounds, the kernel first in even rounds and the
+    library call first in odd ones, each call timed in a round by both of
+    ``_median_ms``'s measures (medians of 20 launches): device time
+    (``ms``, ``library_ms``) and events around the call with the host's
+    launch overhead (``host_ms``, ``library_host_ms``). Returns the medians
+    over the rounds, their ranges and every round."""
+    t = {key: [] for key in ("ms", "library_ms", "host_ms", "library_host_ms")}
+    for i in range(rounds):
+        pairs = (("", kernel), ("library_", library))
+        for prefix, fn in (pairs if i % 2 == 0 else pairs[::-1]):
+            t[prefix + "ms"].append(_median_ms(fn))
+            t[prefix + "host_ms"].append(_median_ms(fn, host=True))
+    out = {key: statistics.median(v) for key, v in t.items()}
+    out.update({f"{key}_range": [min(v), max(v)] for key, v in t.items()})
+    out.update({f"{key}_rounds": v for key, v in t.items()})
+    return out
 
 
 def _bound(n_bytes: float, flops: float, peak: float) -> tuple:
@@ -305,13 +364,28 @@ def _check_bf16(name, out, ref) -> float:
     return err
 
 
-def _case(name, shape, err, tol, ms, plain_ms, bound, library_ms=None) -> dict:
+def _case(name, shape, err, tol, ms, plain_ms, bound, library_ms=None, paired=None) -> dict:
+    """One shape's readings. With ``paired`` (``_paired``'s result), the
+    kernel's time and the library's are the paired medians, printed with
+    their ranges."""
     bound_ms, bound_by = bound
+    extra = {}
+    if paired is not None:
+        ms, library_ms = paired["ms"], paired["library_ms"]
+        extra = {k: v for k, v in paired.items() if k not in ("ms", "library_ms")}
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"{name} {shape}: max_abs_err {err:.3e} ({tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}), library {lib} (CUDA-event medians of 20)")
+          f"bound {bound_ms:.4f} ms ({bound_by}), library {lib} (device-time medians of 20)")
+    if paired is not None:
+        rounds = len(paired["ms_rounds"])
+        for label, key in (("device time", "ms"), ("with the host's launch overhead", "host_ms")):
+            k, lk = paired[key], paired["library_" + key]
+            kr, lr = paired[key + "_range"], paired["library_" + key + "_range"]
+            print(f"{name} {shape}: kernel vs library, {label}, paired over {rounds} rounds: "
+                  f"{k:.4f} ms ({kr[0]:.4f}-{kr[1]:.4f}) vs {lk:.4f} ms ({lr[0]:.4f}-{lr[1]:.4f}), "
+                  f"ratio {k / lk:.3f}")
     return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **extra}
 
 
 def _row(name, cases) -> dict:
@@ -365,15 +439,17 @@ def bench_decode_attention(dec, prefix_len: int) -> dict:
         err = _check_bf16("decode_attention", out, da.decode_attention_plain(q, k, v, n))
         ms, plain_ms = _alternate(lambda: da.decode_attention_plain(q, k, v, n),
                                   lambda: da.decode_attention_cuda(q, k, v, n))
-        # The one PyTorch call for the same function, on the same cache views.
+        # The one PyTorch call for the same function, on the same cache views,
+        # timed against the kernel in turns.
         qs, ks, vs = q[:, :, None], k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
         _check_bf16("decode_attention vs SDPA", out,
                     F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)[:, :, 0])
-        library_ms = _median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True))
+        paired = _paired(lambda: da.decode_attention_cuda(q, k, v, n),
+                         lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True))
         n_bytes = _nbytes(q, out) + 2 * batch * n * KV * hd * k.element_size()
         bound = _bound(n_bytes, 4 * batch * H * n * hd, PEAK_BF16)
-        cases.append(_case("decode_attention", f"B={batch} n={n}", err,
-                           f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound, library_ms))
+        cases.append({**_case("decode_attention", f"B={batch} n={n}", err, f"{BF16_KERNEL_TOL} x max|plain|",
+                              ms, plain_ms, bound, paired=paired), "cluster_blocks": da.cluster_blocks(n)})
     return _row("decode_attention", cases)
 
 
@@ -562,23 +638,27 @@ def bench_decode_attention_int8(dec, prefix_len: int) -> dict:
     H, KV, hd = dec.num_heads, dec.num_kv_heads, dec.head_dim
     s_max = prefix_len + MAX_LEN
     cases = []
-    for batch, n in ((1, prefix_len), (1, prefix_len + 31), (4, prefix_len), (4, prefix_len + 31)):
+    W = gen.effective_window(None, MAX_LEN, 1)
+    # E = 1 (a window's first step) and E = W (its last), both as slices of
+    # the window's (B, W, KV, hd) buffer, as the decode step hands them over.
+    for batch, n, E in ((1, prefix_len, 1), (1, prefix_len + 31, 1), (4, prefix_len, 1), (4, prefix_len + 31, 1),
+                        (1, prefix_len + 24, W), (4, prefix_len + 24, W)):
         q = _bf16(rng, batch, H, hd)
         k8, ks = llama.quantize_kv(_bf16(rng, batch, s_max, KV * hd, scale=0.5))
         v8, vs = llama.quantize_kv(_bf16(rng, batch, s_max, KV * hd))
         k8, v8 = k8.reshape(batch, s_max, KV, hd), v8.reshape(batch, s_max, KV, hd)
-        cur = (_bf16(rng, batch, KV, hd, scale=0.5), _bf16(rng, batch, KV, hd))
+        cur = (_bf16(rng, batch, W, KV, hd, scale=0.5)[:, :E], _bf16(rng, batch, W, KV, hd)[:, :E])
         args = (q, k8, v8, ks, vs, n, *cur)
         out = di.decode_attention_int8_cuda(*args)
         torch.cuda.synchronize()
         err = _check_bf16("decode_attention_int8", out, di.decode_attention_int8_plain(*args))
         ms, plain_ms = _alternate(lambda: di.decode_attention_int8_plain(*args),
                                   lambda: di.decode_attention_int8_cuda(*args))
-        # q, the step's row and the output in bf16; n positions of int8 k
+        # q, the extra rows and the output in bf16; n positions of int8 k
         # and v and their fp32 scales. No PyTorch call takes an int8 cache.
         n_bytes = _nbytes(q, out, *cur) + 2 * batch * n * (KV * hd + 4)
-        bound = _bound(n_bytes, 4 * batch * H * n * hd, PEAK_INT8)
-        cases.append(_case("decode_attention_int8", f"B={batch} n={n}", err,
+        bound = _bound(n_bytes, 4 * batch * H * (n + E) * hd, PEAK_INT8)
+        cases.append(_case("decode_attention_int8", f"B={batch} n={n} E={E}", err,
                            f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound))
     return _row("decode_attention_int8", cases)
 
@@ -682,11 +762,12 @@ def bench_flash_gqa_prefill(dec, S: int) -> dict:
         heads = [t.unflatten(-1, (H, hd)).transpose(1, 2) for t in (q, k, v)]
         _check_bf16("flash_gqa_prefill vs SDPA", out,
                     F.scaled_dot_product_attention(*heads, is_causal=True).transpose(1, 2).reshape(batch, S, D))
-        library_ms = _median_ms(lambda: F.scaled_dot_product_attention(*heads, is_causal=True))
+        paired = _paired(lambda: fp.flash_gqa_prefill_cuda(q, k, v, **kw),
+                         lambda: F.scaled_dot_product_attention(*heads, is_causal=True))
         # q, k, v read once, o written once; the causal triangle of QK^T and PV.
         bound = _bound(_nbytes(q, k, v, out), 2 * 2 * batch * H * hd * (S * (S + 1) // 2), PEAK_BF16)
         cases.append(_case("flash_gqa_prefill", f"B={batch} S={S} H=KV={H} hd={hd}", err,
-                           f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound, library_ms))
+                           f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound, paired=paired))
     return _row("flash_gqa_prefill", cases)
 
 
@@ -875,15 +956,17 @@ def prefix_and_logits(params, cfg, audio1, audio2, text, device, dtype, tokens=N
             logits = llama.logits_from_hidden(p, dec, llama.prefill(p, dec, prefix, cache, w8a8=int8))
             tokens = logits.argmax(-1).cpu() if tokens is None else tokens
             cos, sin = llama.rope_device_tables(dec, P + 1, dtype, device)
-            hidden = llama.decode_step(p, dec, p["embed"][tokens.to(device)], cache, P, cos, sin)
+            # An int8 cache takes the step's row through a window of one.
+            window = llama.FlushWindow(dec, B, 1, P, device, dtype) if int8 else None
+            hidden = llama.decode_step(p, dec, p["embed"][tokens.to(device)], cache, P, cos, sin, window)
             step = llama.logits_from_hidden(p, dec, hidden)
     return prefix.float().cpu(), logits.float().cpu(), step.float().cpu(), tokens
 
 
 def stage_times(wrapper, cfg, request, batch: int, path: str) -> dict:
     """Per-stage times of one path at batch ``batch``: host clock around
-    work that ends in a synchronize (medians of 3), the log-mel by CUDA
-    events (median of 5), the decode step as the slope between 32 and 64
+    work that ends in a synchronize (medians of 3), the log-mel's device
+    time (median of 5), the decode step as the slope between 32 and 64
     generated tokens at a fixed prefix (medians of 5 each) with no stop
     token, so both lengths run in full."""
     dev, dt, dec, p = wrapper.device, wrapper.dtype, cfg.decoder, wrapper.params
@@ -1074,11 +1157,17 @@ def slice_phase() -> dict:
     return {"launches": launches, "calls": calls, "entries": entries, "timings": timings}
 
 
+# Kernels whose device time per request the profile reports: name -> a
+# substring of the CUDA symbol.
+PROFILED_KERNELS = {"decode_attention": "decode_gqa_kernel", "decode_attention_int8": "decode_gqa_int8_kernel",
+                    "flash_gqa_prefill": "flash_prefill_kernel"}
+
+
 def profile_request(wrapper, request, path: str) -> dict:
     """One warm B=1 request unprofiled (host clock), then the same request
     under torch.profiler: device time (the sum of kernel times), kernel
-    launches, the device's idle share against both walls, and the kernels
-    that take the most device time."""
+    launches, the device's idle share against both walls, the kernels that
+    take the most device time, and the totals of ``PROFILED_KERNELS``."""
     from torch.profiler import ProfilerActivity, profile
 
     gen_kwargs = PATHS[path][2]
@@ -1096,6 +1185,11 @@ def profile_request(wrapper, request, path: str) -> dict:
     out = {"wall_ms": wall_ms, "profiled_wall_ms": profiled_ms, "device_ms": device_ms,
            "kernel_launches": len(kernels), "idle_share": 1 - device_ms / wall_ms,
            "idle_share_profiled": 1 - device_ms / profiled_ms}
+    for label, sym in PROFILED_KERNELS.items():
+        hits = [(n, t) for name, (n, t) in by_name.items() if sym in name]
+        if hits:
+            out[f"{label}_ms"] = sum(t for _, t in hits)
+            out[f"{label}_launches"] = sum(n for n, _ in hits)
     print(json.dumps({"profile": path, **out}))
     for name, (n, total) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"  {path} {total:9.3f} ms {n:6d} launches  {name[:110]}")

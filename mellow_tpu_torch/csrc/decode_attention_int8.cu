@@ -5,18 +5,25 @@
 // (flash_gqa_decode_tiled, the group-tiled int8 kernel, whose math is
 // flash_gqa_decode's int8 branch): per query head, q is quantized to int8
 // with its own scale; scores are int8 x int8 dots with the per-position k
-// scales folded in after; the step's own k/v row rides in bf16 as one extra
-// position; the softmax weights times the per-position v scales are
+// scales folded in after; the flush window's pending rows and the step's
+// own row ride in bf16 as E extra positions (the TPU kernel's ex_ref rows,
+// pallas_decode_attention._kernel_tiled), sharing the score max and the
+// fp32 sum; the softmax weights times the per-position v scales are
 // re-quantized to int8 (by truncation) for an int8 x int8 value dot; the
-// extra position's value is added in fp32 and the sum is normalised.
+// extras' value sum, bf16(exp) times the bf16 rows in fp32, is added and
+// the sum is normalised.
 //
 // Contract: q (B, H, hd) bf16, roped; k8 and v8 are one layer of the
 // port's int8 cache, (B, S_max, KV, hd), batch stride kv_bstride and
 // position stride kv_sstride (elements, multiples of 16); k_scale and
-// v_scale (B, S_max) fp32 with batch stride sc_bstride; k_cur and v_cur
-// (B, KV, hd) bf16, this step's row; positions [0, n) of the cache are
-// attended, plus the extra row. out (B, H, hd) bf16. hd is a multiple of
-// 16, at most 128; H / KV <= 8.
+// v_scale (B, S_max) fp32 with batch stride sc_bstride; k_extra and
+// v_extra (B, E, KV, hd) bf16 with batch stride ex_bstride (elements) and
+// contiguous (E, KV, hd) rows, 1 <= E <= 8, every row live: the window's
+// pending rows, then this step's; positions [0, n) of the cache are
+// attended, plus the E extra rows. out (B, H, hd) bf16. hd is a multiple
+// of 16, at most 128; H / KV <= 8. With E = 1 the arithmetic is the one
+// of the single-extra-row kernel this contract replaced, operation for
+// operation.
 //
 // What bounds it: bytes. A step reads a layer's valid int8 cache and its
 // scales, 2 * B * n * (KV * hd + 4) bytes (at v0, B=1, n ~ 400: 0.15 MB),
@@ -39,6 +46,7 @@
 namespace {
 
 constexpr int ITHREADS = 128;
+constexpr int IMAX_EXTRA = 8;
 
 __device__ __forceinline__ void unpack16_s8(int4 u, int* f) {
   const int w[4] = {u.x, u.y, u.z, u.w};
@@ -52,10 +60,11 @@ template <int REP>
 __global__ void __launch_bounds__(ITHREADS)
 decode_gqa_int8_kernel(const bf16* __restrict__ q, const signed char* __restrict__ kc,
                        const signed char* __restrict__ vc, const float* __restrict__ ksc,
-                       const float* __restrict__ vsc, const bf16* __restrict__ kcur,
-                       const bf16* __restrict__ vcur, bf16* __restrict__ out, int H, int KV,
-                       int hd, int n, long long kv_bstride, int kv_sstride, long long sc_bstride,
-                       float scale, float score_scale) {
+                       const float* __restrict__ vsc, const bf16* __restrict__ kex,
+                       const bf16* __restrict__ vex, bf16* __restrict__ out, int H, int KV,
+                       int hd, int n, int E, long long kv_bstride, int kv_sstride,
+                       long long sc_bstride, long long ex_bstride, float scale,
+                       float score_scale) {
   extern __shared__ __align__(16) unsigned char ism[];
   const int chunks = hd / 16;
   const int G = ITHREADS / chunks;
@@ -65,7 +74,8 @@ decode_gqa_int8_kernel(const bf16* __restrict__ q, const signed char* __restrict
   float* ss = reinterpret_cast<float*>(q8s + REP * hd);                   // REP x n: s, then w
   signed char* w8s = reinterpret_cast<signed char*>(ss + REP * n);         // REP x n
   __shared__ float wred[ITHREADS / 32][REP];
-  __shared__ float qmax_s[REP], sx_s[REP], m_s[REP], ex_s[REP], d_s[REP], wmax_s[REP];
+  __shared__ float qmax_s[REP], m_s[REP], d_s[REP], wmax_s[REP];
+  __shared__ float sx_s[REP][IMAX_EXTRA], ex_s[REP][IMAX_EXTRA];
 
   const int g = blockIdx.x;
   const int b = blockIdx.y;
@@ -77,23 +87,27 @@ decode_gqa_int8_kernel(const bf16* __restrict__ q, const signed char* __restrict
   const signed char* vb = vc + (size_t)b * kv_bstride + (size_t)g * hd;
   const float* ksb = ksc + (size_t)b * sc_bstride;
   const float* vsb = vsc + (size_t)b * sc_bstride;
-  const bf16* kcb = kcur + ((size_t)b * KV + g) * hd;
-  const bf16* vcb = vcur + ((size_t)b * KV + g) * hd;
+  // Extra row e of this group: kxb + e * KV * hd.
+  const bf16* kxb = kex + (size_t)b * ex_bstride + (size_t)g * hd;
+  const bf16* vxb = vex + (size_t)b * ex_bstride + (size_t)g * hd;
+  const int ex_sstride = KV * hd;
 
-  // Per head: max|q| and the extra position's score (fp32 from bf16).
+  // Per head: max|q|, and per extra row its score (fp32 from bf16).
   for (int r = warp; r < REP; r += ITHREADS / 32) {
-    float amax = 0.f, dot = 0.f;
-    for (int d = lane; d < hd; d += 32) {
-      const float qv = bf2f(qb[r * hd + d]);
-      amax = fmaxf(amax, fabsf(qv));
-      dot += qv * bf2f(kcb[d]);  // bf16 x bf16 is exact in fp32
-    }
+    float amax = 0.f;
+    for (int d = lane; d < hd; d += 32) amax = fmaxf(amax, fabsf(bf2f(qb[r * hd + d])));
     amax = warp_max(amax);
-    dot = warp_sum(dot);
-    if (lane == 0) {
-      qmax_s[r] = fmaxf(amax, 1e-8f);
-      sx_s[r] = dot * scale;
+    for (int e = 0; e < E; ++e) {
+      const bf16* kxr = kxb + (size_t)e * ex_sstride;
+      float dot = 0.f;
+      for (int d = lane; d < hd; d += 32) {
+        const float qv = bf2f(qb[r * hd + d]);
+        dot += qv * bf2f(kxr[d]);  // bf16 x bf16 is exact in fp32
+      }
+      dot = warp_sum(dot);
+      if (lane == 0) sx_s[r][e] = dot * scale;
     }
+    if (lane == 0) qmax_s[r] = fmaxf(amax, 1e-8f);
   }
   __syncthreads();
   for (int i = tid; i < REP * hd; i += ITHREADS) {
@@ -140,7 +154,8 @@ decode_gqa_int8_kernel(const bf16* __restrict__ q, const signed char* __restrict
   }
   __syncthreads();
   if (tid < REP) {
-    float m = sx_s[tid];
+    float m = sx_s[tid][0];
+    for (int e = 1; e < E; ++e) m = fmaxf(m, sx_s[tid][e]);
     for (int w = 0; w < ITHREADS / 32; ++w) m = fmaxf(m, wred[w][tid]);
     m_s[tid] = m;
   }
@@ -174,9 +189,14 @@ decode_gqa_int8_kernel(const bf16* __restrict__ q, const signed char* __restrict
   if (tid < REP) {
     float s = 0.f;
     for (int w = 0; w < ITHREADS / 32; ++w) s += wred[w][tid];
-    const float ex = expf(sx_s[tid] - m_s[tid]);
-    ex_s[tid] = ex;
-    d_s[tid] = s + ex;
+    // The TPU kernel's sum(e) + sum(e_extra); one extra row adds its exp.
+    float xs = 0.f;
+    for (int e = 0; e < E; ++e) {
+      const float ex = expf(sx_s[tid][e] - m_s[tid]);
+      ex_s[tid][e] = ex;
+      xs += ex;
+    }
+    d_s[tid] = s + xs;
   }
   __syncthreads();
 #pragma unroll
@@ -247,7 +267,11 @@ decode_gqa_int8_kernel(const bf16* __restrict__ q, const signed char* __restrict
     int s = 0;
     for (int gg = 0; gg < G; ++gg) s += part[(r * G + gg) * hd + dd];
     const float wm = wmax_s[r] / 127.f;
-    const float xv = __fmul_rn(bf16_round(ex_s[r]), bf2f(vcb[dd]));
+    // The extras' value sum: bf16(exp) x bf16 is exact in fp32, the adds
+    // round in row order.
+    float xv = 0.f;
+    for (int e = 0; e < E; ++e)
+      xv = __fadd_rn(xv, __fmul_rn(bf16_round(ex_s[r][e]), bf2f(vxb[(size_t)e * ex_sstride + dd])));
     const float o = __fadd_rn(__fmul_rn((float)s, wm), xv);
     out[((size_t)b * H + (size_t)g * REP + r) * hd + dd] = __float2bfloat16(o / d_s[r]);
   }
@@ -255,9 +279,9 @@ decode_gqa_int8_kernel(const bf16* __restrict__ q, const signed char* __restrict
 
 template <int REP>
 int launch_int8_decode(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-                       const void* kcur, const void* vcur, void* out, int B, int H, int KV, int hd,
-                       int n, long long kv_bstride, int kv_sstride, long long sc_bstride,
-                       cudaStream_t stream) {
+                       const void* kex, const void* vex, void* out, int B, int H, int KV, int hd,
+                       int n, int E, long long kv_bstride, int kv_sstride, long long sc_bstride,
+                       long long ex_bstride, cudaStream_t stream) {
   const int G = ITHREADS / (hd / 16);
   const size_t smem = (size_t)REP * G * hd * 4 + (size_t)REP * n * 4 + (size_t)REP * hd +
                       (size_t)REP * n;
@@ -268,9 +292,9 @@ int launch_int8_decode(const void* q, const void* k, const void* v, const void* 
   decode_gqa_int8_kernel<REP><<<dim3(KV, B), ITHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const signed char*>(k),
       static_cast<const signed char*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const bf16*>(kcur),
-      static_cast<const bf16*>(vcur), static_cast<bf16*>(out), H, KV, hd, n, kv_bstride,
-      kv_sstride, sc_bstride, scale, scale / 127.f);
+      static_cast<const float*>(vs), static_cast<const bf16*>(kex),
+      static_cast<const bf16*>(vex), static_cast<bf16*>(out), H, KV, hd, n, E, kv_bstride,
+      kv_sstride, sc_bstride, ex_bstride, scale, scale / 127.f);
   return (int)cudaGetLastError();
 }
 
@@ -279,19 +303,20 @@ int launch_int8_decode(const void* q, const void* k, const void* v, const void* 
 // Launches one kernel on `stream`; returns the cudaError_t, 0 on success.
 // Does not synchronise.
 extern "C" int mellow_decode_attention_int8(const void* q, const void* k, const void* v,
-                                            const void* ks, const void* vs, const void* kcur,
-                                            const void* vcur, void* out, int B, int H, int KV,
-                                            int hd, int n, long long kv_bstride, int kv_sstride,
-                                            long long sc_bstride, void* stream) {
+                                            const void* ks, const void* vs, const void* kex,
+                                            const void* vex, void* out, int B, int H, int KV,
+                                            int hd, int n, int E, long long kv_bstride,
+                                            int kv_sstride, long long sc_bstride,
+                                            long long ex_bstride, void* stream) {
   const int rep = H / KV;
   if (rep * KV != H || hd % 16 != 0 || hd > 128 || n < 1 || kv_sstride % 16 != 0 ||
-      kv_bstride % 16 != 0)
+      kv_bstride % 16 != 0 || E < 1 || E > IMAX_EXTRA)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MELLOW_INT8_DECODE(R) \
   case R:                     \
-    return launch_int8_decode<R>(q, k, v, ks, vs, kcur, vcur, out, B, H, KV, hd, n, kv_bstride, \
-                                 kv_sstride, sc_bstride, st);
+    return launch_int8_decode<R>(q, k, v, ks, vs, kex, vex, out, B, H, KV, hd, n, E, kv_bstride, \
+                                 kv_sstride, sc_bstride, ex_bstride, st);
   switch (rep) {
     MELLOW_INT8_DECODE(1)
     MELLOW_INT8_DECODE(2)

@@ -3,11 +3,13 @@
 logits_from_hidden / embed_table.
 
 The port's families differ from the JAX package's protocol where the port
-differs: no ``flush_pending`` (the port writes each step's k/v into its
-cache), no ``forward`` (training is not ported), and the random init is
-``models/mellow.py``'s ``init_params``. The llama step also takes the rope
-tables and the prefill its ``w8a8`` flag, so ``models/generate.py`` calls
-those two per family."""
+differs: no ``flush_pending`` (a float cache takes each step's k/v at
+once; an int8 cache flushes its window inside ``llama.decode_step``,
+through ``llama.FlushWindow``), no ``forward`` (training is not ported),
+and the random init is ``models/mellow.py``'s ``init_params``. The llama
+step also takes the rope tables and the int8 cache's window, and the
+prefill its ``w8a8`` flag, so ``models/generate.py`` calls those two per
+family."""
 
 from __future__ import annotations
 

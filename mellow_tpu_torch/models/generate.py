@@ -9,7 +9,12 @@ Port of the greedy path of ``mellow_tpu/models/generate.py``. Semantics:
 
 The JAX loop runs in whole flush windows, so its ``num_steps`` is rounded
 up to the window and its raw token arrays can run past this loop's; the
-stop-trimmed rows are the same.
+stop-trimmed rows are the same. An int8 KV cache decodes in the JAX
+package's flush windows (``effective_window``: W = 8, or 4 above a batch of
+128, at most ``max_len``): a window's rows ride in bf16 and are quantized
+into the cache once per window (``llama.FlushWindow``). A float cache is
+written every step: its pending rows would be in the cache's own dtype, so
+a window changes nothing there.
 
 The compute dtype is the prefix's (float32 parity mode or bfloat16 perf
 mode); the rope tables and the logits are in it, and so is the KV cache
@@ -38,6 +43,15 @@ class GenerateResult(NamedTuple):
     num_steps: int  # steps actually executed
 
 
+def effective_window(flush_window: Optional[int], max_len: int, batch: int) -> int:
+    """The flush window W (``mellow_tpu/models/generate.py``
+    ``_effective_window``): ``flush_window``, or by default 8, and 4 for a
+    batch above 128; never more than ``max_len``, at least 1."""
+    if flush_window is None:
+        flush_window = 4 if batch > 128 else 8
+    return max(1, min(flush_window, max_len))
+
+
 @torch.no_grad()
 def generate(
     params: dict,
@@ -49,11 +63,13 @@ def generate(
     kv_cache_dtype: Optional[str] = None,
     w8a8: bool = False,
     family: str = "llama",
+    flush_window: Optional[int] = None,
 ) -> GenerateResult:
     """Prefill, then per step: logits -> argmax -> done mask -> decode_step
-    writing position P + t into the cache. One host sync per step reads the
-    done mask. ``kv_cache_dtype``: None (the compute dtype) or "int8";
-    ``w8a8``: the W8A8 prefill blocks for int8 weights."""
+    at position P + t. One host sync per step reads the done mask.
+    ``kv_cache_dtype``: None (the compute dtype) or "int8"; ``w8a8``: the
+    W8A8 prefill blocks for int8 weights; ``flush_window``: the int8
+    cache's window, as the JAX package's (``effective_window``)."""
     ops = get_decoder_ops(family)
     B, P, _ = prefix_embeds.shape
     device = prefix_embeds.device
@@ -63,9 +79,13 @@ def generate(
         cache = ops.create_cache(cfg, B, P + max_len, device, cache_dtype)
         hidden = ops.prefill(params, cfg, prefix_embeds, cache, w8a8=w8a8)
         cos, sin = llama.rope_device_tables(cfg, P + max_len, dtype, device)
+        window = None
+        if cache.quantized:
+            W = effective_window(flush_window, max_len, B)
+            window = llama.FlushWindow(cfg, B, W, P, device, dtype)
 
         def step(embeds, pos):
-            return ops.decode_step(params, cfg, embeds, cache, pos, cos, sin)
+            return ops.decode_step(params, cfg, embeds, cache, pos, cos, sin, window)
     else:
         if P + max_len > cfg.max_position_embeddings:
             raise ValueError(

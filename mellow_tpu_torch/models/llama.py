@@ -24,10 +24,13 @@ int8 perf options (bf16 compute only), as in the JAX package:
     (``ops/attn_block_w8a8.py``, ``ops/mlp_block_w8a8.py``).
   * an int8 KV cache (``KVCache.create(..., torch.int8)``): per-position
     scales over all KV heads together (``quantize_kv``). The prefill blocks
-    quantize k/v in their ``kv_quant`` mode; the decode step attends over
-    the int8 cache plus its own k/v row in bf16
-    (``ops/decode_attention_int8.py``), then quantizes that row into the
-    cache: the JAX package's packed decode at a flush window of 1.
+    quantize k/v in their ``kv_quant`` mode. The decode step runs in flush
+    windows of W steps, as the JAX package's packed decode does
+    (``decode_step_packed``, ``flush_packed``): each step's k/v row goes
+    into a bf16 ``FlushWindow``, the attention reads the flushed int8
+    positions plus the window's rows in bf16 as extra positions
+    (``ops/decode_attention_int8.py``), and a full window is quantized
+    into the cache at once.
 
 Parameters are per layer (the JAX tree stacks them on a leading L axis;
 ``models/params.py`` unstacks):
@@ -42,7 +45,8 @@ Parameters are per layer (the JAX tree stacks them on a leading L axis;
 
 The KV cache is a static buffer (L, B, S_max, KV, hd) in the compute dtype
 or int8, written in place. Not ported: the packed-lane cache, pending/flush
-windows, chunked prefill, an int8 cache under fp32 compute.
+windows for float caches (a pending row in the cache's own dtype changes
+nothing), chunked prefill, an int8 cache under fp32 compute.
 """
 
 from __future__ import annotations
@@ -89,6 +93,37 @@ class KVCache(NamedTuple):
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+
+class FlushWindow:
+    """The flush window of an int8 cache: the k/v rows of the window's
+    steps in the compute dtype, ``k``, ``v`` (L, B, W, KV, hd), rows
+    [0, count) live, covering positions [flushed, flushed + count). The
+    JAX package's ``extras`` buffer of its packed decode."""
+
+    def __init__(self, cfg: LlamaConfig, batch: int, window: int, flushed: int, device,
+                 dtype: torch.dtype):
+        shape = (cfg.num_layers, batch, window, cfg.num_kv_heads, cfg.head_dim)
+        self.k = torch.zeros(shape, dtype=dtype, device=device)
+        self.v = torch.zeros(shape, dtype=dtype, device=device)
+        self.flushed = flushed
+        self.count = 0
+
+    @property
+    def size(self) -> int:
+        return self.k.shape[2]
+
+    def flush(self, cache: "KVCache") -> None:
+        """Quantize the window's rows into ``cache`` at [flushed, flushed +
+        W), one scale per position (``flush_packed``), and start the next
+        window."""
+        L, B, W, KV, hd = self.k.shape
+        for rows, vals, scales in ((self.k, cache.k, cache.k_scale), (self.v, cache.v, cache.v_scale)):
+            q8, sc = quantize_kv(rows.reshape(L, B, W, KV * hd))
+            vals[:, :, self.flushed : self.flushed + W] = q8.reshape(L, B, W, KV, hd)
+            scales[:, :, self.flushed : self.flushed + W] = sc
+        self.flushed += W
+        self.count = 0
 
 
 def quantize_kv(x: torch.Tensor):
@@ -282,6 +317,7 @@ def decode_step(
     pos: int,  # this token's position; positions [0, pos) are cached
     cos_full: torch.Tensor,  # (S_max, hd) rope tables on the device
     sin_full: torch.Tensor,
+    window: Optional[FlushWindow] = None,
 ) -> torch.Tensor:
     """One incremental step over positions [0, pos]. Returns the
     post-final-norm hidden (B, D). In bf16 the attention is a decode-attention
@@ -289,24 +325,33 @@ def decode_step(
     plain matmuls, as the JAX package leaves them to XLA.
 
     A float cache is written at ``pos`` first and attended over [0, pos].
-    An int8 cache is attended over [0, pos) with this token's k/v row in
-    bf16 as one extra position, and the row is quantized into the cache at
-    ``pos`` after (the JAX package's packed decode at a flush window of 1)."""
+    An int8 cache takes this step's k/v row into ``window`` (row ``pos -
+    window.flushed``; the JAX package's ``decode_step_packed``), attends
+    over its flushed positions [0, window.flushed) plus the window's rows
+    in bf16 as extra positions, and, once the window is full, quantizes
+    its rows into the cache; it raises without ``window`` (a window of one
+    quantizes each row into the cache after its step)."""
     _check_int8_cache(cache, token_embed)
     cos = cos_full[pos : pos + 1]
     sin = sin_full[pos : pos + 1]
     x = token_embed[:, None, :]
     B = x.shape[0]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cache.quantized:
+        if window is None:
+            raise ValueError("an int8 cache decodes through a FlushWindow")
+        i = pos - window.flushed
+        if i != window.count or i >= window.size:
+            raise ValueError(f"position {pos} is not the next row of the flush window "
+                             f"({window.count} of {window.size} rows from {window.flushed})")
     for li, lp in enumerate(params["layers"]):
         q, k, v = _qkv(cfg, x, lp, cos, sin)
         if cache.quantized:
+            window.k[li, :, i] = k[:, 0]
+            window.v[li, :, i] = v[:, 0]
             o = decode_attention_int8(q.reshape(B, H, hd), cache.k[li], cache.v[li], cache.k_scale[li],
-                                      cache.v_scale[li], pos, k.reshape(B, KV, hd), v.reshape(B, KV, hd))
-            for new, vals, scales in ((k, cache.k, cache.k_scale), (v, cache.v, cache.v_scale)):
-                q8, sc = quantize_kv(new.reshape(B, KV * hd))
-                vals[li, :, pos] = q8.reshape(B, KV, hd)
-                scales[li, :, pos] = sc
+                                      cache.v_scale[li], window.flushed, window.k[li, :, : i + 1],
+                                      window.v[li, :, : i + 1])
             o = o.reshape(B, 1, H * hd)
         else:
             cache.k[li, :, pos : pos + 1] = k
@@ -317,4 +362,8 @@ def decode_step(
             else:
                 o = _attend(cfg, q, cache.k[li, :, : pos + 1], cache.v[li, :, : pos + 1], None)
         x = _mlp(cfg, x + _mm(o, lp["wo"]), lp)
+    if cache.quantized:
+        window.count = i + 1
+        if window.count == window.size:
+            window.flush(cache)
     return rms_norm(x[:, 0, :], params["norm_f"], cfg.rms_norm_eps)

@@ -11,6 +11,12 @@ over positions ``[0, n)``:
     s = (q . k) / sqrt(hd) in fp32;  e = exp(s - max(s));
     o = (e rounded to the input dtype) @ v, accumulated in fp32, / sum(e).
 
+The kernel splits the positions of each (KV head, batch row) over a
+thread-block cluster of ``cluster_blocks(n)`` blocks, about
+``POSITIONS_PER_BLOCK`` positions each, at most ``MAX_CLUSTER``; the
+blocks combine their maxima, sums and partial outputs through distributed
+shared memory inside the one launch.
+
 ``decode_attention`` dispatches by device: a CUDA tensor goes through the
 kernel (it raises on what the kernel does not take), a CPU tensor through
 ``decode_attention_plain``. ``LAUNCHES`` counts the kernel's launches.
@@ -19,13 +25,17 @@ kernel (it raises on what the kernel does not take), a CPU tensor through
 from __future__ import annotations
 
 import math
-
 import torch
 
 from mellow_tpu_torch.ops._build import check, load_library
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 1
+POSITIONS_PER_BLOCK = 48
+# The kernel's largest cluster. Above 8 blocks a cluster is non-portable;
+# the H100 takes 16, which read faster than 8 on long caches and even with it
+# at v0's lengths when the kernel was designed (PERF.md).
+MAX_CLUSTER = 16
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
@@ -41,11 +51,16 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n:
     return (o / e.sum(-1, keepdim=True)).to(q.dtype).reshape(B, H, hd)
 
 
+def cluster_blocks(n: int) -> int:
+    """Blocks per (KV head, batch row) for ``n`` positions."""
+    return max(1, min(MAX_CLUSTER, -(-n // POSITIONS_PER_BLOCK)))
+
+
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
     """The kernel on the current stream: q (B, H, hd) contiguous bf16 CUDA;
     k, v (B, S_max, KV, hd) bf16 with contiguous (KV, hd) rows (a layer of
-    the cache). Raises on any input it does not take and on a failed
-    launch."""
+    the cache), split over clusters of ``cluster_blocks(n)`` blocks. Raises
+    on any input it does not take and on a failed launch."""
     global LAUNCHES
     B, H, hd = q.shape
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
@@ -55,12 +70,15 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: 
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"cache layer {tuple(k.shape)} does not match q {tuple(q.shape)}")
     KV = k.shape[2]
-    if H % KV or H // KV > 8 or hd % 8 or hd > 128 or 128 % (hd // 8):
+    if H % KV or H // KV > 8 or hd not in (8, 16, 32, 64, 128):
         raise ValueError(f"unsupported geometry H={H}, KV={KV}, hd={hd}")
     if not 1 <= n <= k.shape[1]:
         raise ValueError(f"n={n} outside the cache's {k.shape[1]} positions")
-    if (H // KV) * (hd + n + 8 * 128) * 4 > 200 * 1024:
-        raise ValueError(f"n={n} exceeds the kernel's shared-memory score buffer")
+    blocks = cluster_blocks(n)
+    # Shared memory per block: q, the scores of the block's positions, the
+    # warps' partial PV sums and the cluster's partial sums of its outputs.
+    if ((H // KV) * (hd + -(-n // blocks) + 5 * hd) + blocks) * 4 > 200 * 1024:
+        raise ValueError(f"n={n} over {blocks} blocks exceeds the kernel's shared-memory score buffer")
     if not q.is_contiguous() or k.stride() != v.stride() or k.stride()[2:] != (hd, 1):
         raise ValueError("decode_attention_cuda needs contiguous q and (KV, hd)-contiguous cache rows")
     lib = load_library()
@@ -68,7 +86,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: 
     with torch.cuda.device(q.device):
         err = lib.mellow_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, hd, n,
-            k.stride(0), k.stride(1), torch.cuda.current_stream().cuda_stream,
+            k.stride(0), k.stride(1), blocks, torch.cuda.current_stream().cuda_stream,
         )
     check(err, "decode attention kernel")
     LAUNCHES += 1

@@ -6,16 +6,18 @@ Port of the TPU kernel ``mellow_tpu/ops/pallas_decode_attention.py``
 which computes the same function as ``flash_gqa_decode``'s int8 branch; only
 the TPU lane tiling differs. The port keeps its ``(L, B, S_max, KV, hd)``
 cache with fp32 per-position scales ``(L, B, S_max)`` (one per position over
-all KV heads, ``llama.quantize_kv``), and the step's own k/v row rides in
-bf16 as the one "extra" position (the TPU kernel's flush window of 1). Per
-batch row and query head h of KV group g, over cached positions n < ``n``:
+all KV heads, ``llama.quantize_kv``). The flush window's pending rows and
+the step's own row ride in bf16 as the E extra positions ``k_extra``,
+``v_extra`` ``(B, E, KV, hd)``, 1 <= E <= 8, all live (the TPU kernel's
+``extra`` rows below ``n_extra``). Per batch row and query head h of KV
+group g, over cached positions n < ``n`` and extra rows x < E:
 
     qmax = max(max|q_h|, 1e-8);  q8 = round(q_h * (127 / qmax))
     s_n = float(q8 . k8_n) * (qmax * (1/sqrt(hd) / 127)) * ks_n
-    s_x = (q_h . k_cur) / sqrt(hd)                     fp32 from bf16
-    m = max(s, s_x);  e = exp(s - m);  e_x = exp(s_x - m);  d = sum(e) + e_x
+    s_x = (q_h . k_extra_x) / sqrt(hd)                 fp32 from bf16
+    m = max(s, s_x);  e = exp(s - m);  e_x = exp(s_x - m);  d = sum(e) + sum(e_x)
     w = e * vs;  wmax = max(max w, 1e-30);  w8 = trunc(w * (127 / wmax))
-    o = (float(w8 . v8) * (wmax / 127) + bf16(e_x) * v_cur) / d, as bf16
+    o = (float(w8 . v8) * (wmax / 127) + sum_x bf16(e_x) * v_extra_x) / d, as bf16
 
 ``decode_attention_int8`` dispatches by device: a CUDA tensor goes through
 the kernel (it raises on what the kernel does not take), a CPU tensor
@@ -34,6 +36,7 @@ from mellow_tpu_torch.ops._build import check, load_library
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 1
+MAX_EXTRA = 8  # the TPU kernel's EP: the default flush window
 
 
 def _score_scale(hd: int) -> float:
@@ -41,11 +44,11 @@ def _score_scale(hd: int) -> float:
     return float(np.float32(1.0 / math.sqrt(hd)) / np.float32(127.0))
 
 
-def decode_attention_int8_plain(q, k8, v8, k_scale, v_scale, n: int, k_cur, v_cur) -> torch.Tensor:
+def decode_attention_int8_plain(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_extra) -> torch.Tensor:
     """q (B, H, hd) bf16; k8, v8 (B, S_max, KV, hd) int8 with positions
-    [0, n) attended; k_scale, v_scale (B, S_max) fp32; k_cur, v_cur
-    (B, KV, hd) bf16, this step's row. Returns (B, H, hd) bf16; head
-    h = g * (H // KV) + r reads KV head g."""
+    [0, n) attended; k_scale, v_scale (B, S_max) fp32; k_extra, v_extra
+    (B, E, KV, hd) bf16, the window's pending rows and this step's. Returns
+    (B, H, hd) bf16; head h = g * (H // KV) + r reads KV head g."""
     B, H, hd = q.shape
     KV = k8.shape[2]
     scale = 1.0 / math.sqrt(hd)
@@ -55,38 +58,44 @@ def decode_attention_int8_plain(q, k8, v8, k_scale, v_scale, n: int, k_cur, v_cu
     # Integer dots, exact in float64 as in the kernels' int32 sums.
     s32 = torch.einsum("bgrd,bngd->bgrn", q8.double(), k8[:, :n].double()).float()
     s = s32 * (qmax * _score_scale(hd)) * k_scale[:, None, None, :n]
-    s_x = (qf * k_cur.float()[:, :, None]).sum(-1, keepdim=True) * scale
-    m = torch.maximum(s.amax(-1, keepdim=True), s_x)
+    kx = k_extra.float().permute(0, 2, 1, 3)  # (B, KV, E, hd)
+    vx = v_extra.float().permute(0, 2, 1, 3)
+    s_x = (qf[:, :, :, None] * kx[:, :, None]).sum(-1) * scale  # (B, KV, rep, E)
+    m = torch.maximum(s.amax(-1, keepdim=True), s_x.amax(-1, keepdim=True))
     e = torch.exp(s - m)
     e_x = torch.exp(s_x - m)
-    denom = e.sum(-1, keepdim=True) + e_x
+    denom = e.sum(-1, keepdim=True) + e_x.sum(-1, keepdim=True)
     w = e * v_scale[:, None, None, :n]
     wmax = w.amax(-1, keepdim=True).clamp_min(1e-30)
     w8 = torch.trunc(w * (127.0 / wmax))
     o32 = torch.einsum("bgrn,bngd->bgrd", w8.double(), v8[:, :n].double()).float()
-    o = o32 * (wmax / 127.0) + e_x.to(q.dtype).float() * v_cur.float()[:, :, None]
+    o = o32 * (wmax / 127.0) + torch.einsum("bgrx,bgxd->bgrd", e_x.to(q.dtype).float(), vx)
     return (o / denom).to(q.dtype).reshape(B, H, hd)
 
 
-def decode_attention_int8_cuda(q, k8, v8, k_scale, v_scale, n: int, k_cur, v_cur) -> torch.Tensor:
+def decode_attention_int8_cuda(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_extra) -> torch.Tensor:
     """The kernel on the current stream. q (B, H, hd) contiguous bf16 CUDA;
     k8, v8 (B, S_max, KV, hd) int8 with contiguous (KV, hd) rows and equal
     strides (a layer of the cache); k_scale, v_scale (B, S_max) fp32 with
-    unit position stride; k_cur, v_cur (B, KV, hd) contiguous bf16. Raises
-    on any input it does not take and on a failed launch."""
+    unit position stride; k_extra, v_extra (B, E, KV, hd) bf16, 1 <= E <= 8,
+    with contiguous (E, KV, hd) rows and equal strides (a slice of the
+    window's pending buffer). Raises on any input it does not take and on a
+    failed launch."""
     global LAUNCHES
     B, H, hd = q.shape
-    tensors = (q, k8, v8, k_scale, v_scale, k_cur, v_cur)
+    tensors = (q, k8, v8, k_scale, v_scale, k_extra, v_extra)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("decode_attention_int8_cuda needs CUDA tensors")
-    if not (q.dtype == k_cur.dtype == v_cur.dtype == torch.bfloat16 and k8.dtype == v8.dtype == torch.int8
-            and k_scale.dtype == v_scale.dtype == torch.float32):
-        raise ValueError("decode_attention_int8_cuda needs bf16 q/k_cur/v_cur, int8 k8/v8, fp32 scales")
+    if not (q.dtype == k_extra.dtype == v_extra.dtype == torch.bfloat16
+            and k8.dtype == v8.dtype == torch.int8 and k_scale.dtype == v_scale.dtype == torch.float32):
+        raise ValueError("decode_attention_int8_cuda needs bf16 q/k_extra/v_extra, int8 k8/v8, fp32 scales")
     if k8.ndim != 4 or k8.shape != v8.shape or k8.shape[0] != B or k8.shape[3] != hd:
         raise ValueError(f"cache layer {tuple(k8.shape)} does not match q {tuple(q.shape)}")
     KV, s_max = k8.shape[2], k8.shape[1]
-    if k_cur.shape != (B, KV, hd) or v_cur.shape != (B, KV, hd):
-        raise ValueError(f"k_cur/v_cur must be {(B, KV, hd)}")
+    E = k_extra.shape[1] if k_extra.ndim == 4 else 0
+    if k_extra.shape != (B, E, KV, hd) or v_extra.shape != k_extra.shape or not 1 <= E <= MAX_EXTRA:
+        raise ValueError(f"k_extra/v_extra must be (B={B}, E, KV={KV}, hd={hd}) with 1 <= E <= "
+                         f"{MAX_EXTRA}, got {tuple(k_extra.shape)}, {tuple(v_extra.shape)}")
     if k_scale.shape != (B, s_max) or v_scale.shape != (B, s_max):
         raise ValueError(f"scales must be {(B, s_max)}")
     if H % KV or H // KV > 8 or hd % 16 or hd > 128:
@@ -97,25 +106,27 @@ def decode_attention_int8_cuda(q, k8, v8, k_scale, v_scale, n: int, k_cur, v_cur
     # fp32 scores and int8 weights per position.
     if (H // KV) * (128 * 16 * 4 + hd + 5 * n) > 200 * 1024:
         raise ValueError(f"n={n} exceeds the kernel's shared-memory buffers")
-    if (not (q.is_contiguous() and k_cur.is_contiguous() and v_cur.is_contiguous())
+    if (not q.is_contiguous() or k_extra.stride() != v_extra.stride()
+            or k_extra.stride()[1:] != (KV * hd, hd, 1)
             or k8.stride() != v8.stride() or k8.stride()[2:] != (hd, 1)
             or k_scale.stride() != v_scale.stride() or k_scale.stride(1) != 1):
-        raise ValueError("decode_attention_int8_cuda needs contiguous q/k_cur/v_cur, "
-                         "(KV, hd)-contiguous cache rows and unit-stride scales")
+        raise ValueError("decode_attention_int8_cuda needs contiguous q, (E, KV, hd)-contiguous extra "
+                         "rows, (KV, hd)-contiguous cache rows and unit-stride scales")
     lib = load_library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.mellow_decode_attention_int8(
             q.data_ptr(), k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            k_cur.data_ptr(), v_cur.data_ptr(), out.data_ptr(), B, H, KV, hd, n,
-            k8.stride(0), k8.stride(1), k_scale.stride(0), torch.cuda.current_stream().cuda_stream,
+            k_extra.data_ptr(), v_extra.data_ptr(), out.data_ptr(), B, H, KV, hd, n, E,
+            k8.stride(0), k8.stride(1), k_scale.stride(0), k_extra.stride(0),
+            torch.cuda.current_stream().cuda_stream,
         )
     check(err, "int8 decode attention kernel")
     LAUNCHES += 1
     return out
 
 
-def decode_attention_int8(q, k8, v8, k_scale, v_scale, n: int, k_cur, v_cur) -> torch.Tensor:
+def decode_attention_int8(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_extra) -> torch.Tensor:
     """The kernel for CUDA tensors, the plain version otherwise."""
     fn = decode_attention_int8_cuda if q.is_cuda else decode_attention_int8_plain
-    return fn(q, k8, v8, k_scale, v_scale, n, k_cur, v_cur)
+    return fn(q, k8, v8, k_scale, v_scale, n, k_extra, v_extra)

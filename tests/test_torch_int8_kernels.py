@@ -8,8 +8,9 @@ them, on the same seeded inputs and the same int8 weights
   against #2 ``flash_gqa_decode``'s int8 branch at the tiny geometry. The
   TPU kernels read a packed [K | V] int8 cache with merged scales and a
   window of extra positions; that layout is built here only: the cache
-  holds positions [0, n) and the step's own bf16 row rides as the one
-  extra row. Tolerance 1e-2 x max|ref|: both sides quantize q and w at the
+  holds positions [0, n) and E bf16 rows (the flush window's pending rows
+  and the step's own; E = 1, and E = 4 and 8 for #3) ride as the extra
+  rows. Tolerance 1e-2 x max|ref|: both sides quantize q and w at the
   same points, but exp and the sums round in another order, so a w8 level
   can move by one and the bf16 output by an ulp (read: <= 0.6 %).
 * the ``kv_quant`` mode of the attention block against #4
@@ -61,24 +62,25 @@ def _close(ours, theirs, tol=TOL):
 # int8 decode attention
 # ---------------------------------------------------------------------------
 
-def _decode_inputs(seed, B, H, KV, hd, n):
+def _decode_inputs(seed, B, H, KV, hd, n, E=1):
     """bf16 q, and an int8 cache of n positions made by quantize_kv from
-    bf16 rows, plus the step's own bf16 row."""
+    bf16 rows, plus E bf16 extra rows (B, E, KV, hd): the positions after
+    n, unquantized."""
     rng = np.random.RandomState(seed)
     q = torch.from_numpy((rng.randn(B, H, hd) * 0.5).astype(np.float32)).bfloat16()
-    k = torch.from_numpy((rng.randn(B, n + 3, KV * hd) * 0.5).astype(np.float32)).bfloat16()
-    v = torch.from_numpy(rng.randn(B, n + 3, KV * hd).astype(np.float32)).bfloat16()
+    k = torch.from_numpy((rng.randn(B, n + E + 2, KV * hd) * 0.5).astype(np.float32)).bfloat16()
+    v = torch.from_numpy(rng.randn(B, n + E + 2, KV * hd).astype(np.float32)).bfloat16()
     k8, ks = quantize_kv(k)
     v8, vs = quantize_kv(v)
     k8[:, n:] = 127  # positions from n on must not be read
     v8[:, n:] = -127
-    cur = (k[:, n].reshape(B, KV, hd), v[:, n].reshape(B, KV, hd))
-    return q, k8.reshape(B, n + 3, KV, hd), v8.reshape(B, n + 3, KV, hd), ks, vs, cur
+    extra = (k[:, n:n + E].reshape(B, E, KV, hd), v[:, n:n + E].reshape(B, E, KV, hd))
+    return q, k8.reshape(B, -1, KV, hd), v8.reshape(B, -1, KV, hd), ks, vs, extra
 
 
 def _packed(k8, v8, ks, vs, cur, n):
     """The TPU kernels' packed layout: [K | V] int8 rows, merged scales,
-    the current row as extra row 0."""
+    the E extra rows as extra rows [0, E)."""
     B, _, KV, hd = k8.shape
     KL = KV * hd
     S8 = -(-n // 8) * 8
@@ -89,23 +91,26 @@ def _packed(k8, v8, ks, vs, cur, n):
     sc = np.zeros((1, B, 2 * SP), np.float32)
     sc[0, :, :n] = ks[:, :n].numpy()
     sc[0, :, SP:SP + n] = vs[:, :n].numpy()
+    E = cur[0].shape[1]
     extra = np.zeros((B, 8, 2 * KL), np.float32)
-    extra[:, 0, :KL] = cur[0].float().reshape(B, KL).numpy()
-    extra[:, 0, KL:] = cur[1].float().reshape(B, KL).numpy()
+    extra[:, :E, :KL] = cur[0].float().reshape(B, E, KL).numpy()
+    extra[:, :E, KL:] = cur[1].float().reshape(B, E, KL).numpy()
     return jnp.asarray(kv), jnp.asarray(sc), jnp.asarray(extra, jnp.bfloat16)
 
 
 @pytest.mark.parametrize(
-    "kernel, H, KV, hd, n",
-    [("tiled", 9, 3, 64, 9), ("tiled", 9, 3, 64, 17), ("full", 4, 2, 16, 9), ("full", 4, 2, 16, 17)],
-    ids=["tiled-v0geom-n9", "tiled-v0geom-n17", "full-tiny-n9", "full-tiny-n17"],
+    "kernel, H, KV, hd, n, E",
+    [("tiled", 9, 3, 64, 9, 1), ("tiled", 9, 3, 64, 17, 1), ("full", 4, 2, 16, 9, 1),
+     ("full", 4, 2, 16, 17, 1), ("tiled", 9, 3, 64, 17, 4), ("tiled", 9, 3, 64, 9, 8)],
+    ids=["tiled-v0geom-n9", "tiled-v0geom-n17", "full-tiny-n9", "full-tiny-n17", "tiled-v0geom-n17-e4",
+         "tiled-v0geom-n9-e8"],
 )
-def test_int8_decode_plain_matches_tpu_kernel(kernel, H, KV, hd, n):
+def test_int8_decode_plain_matches_tpu_kernel(kernel, H, KV, hd, n, E):
     B, rep = 2, H // KV
-    q, k8, v8, ks, vs, cur = _decode_inputs(n + H, B, H, KV, hd, n)
+    q, k8, v8, ks, vs, cur = _decode_inputs(n + H, B, H, KV, hd, n, E)
     ours = di.decode_attention_int8_plain(q, k8, v8, ks, vs, n, *cur)
     kv, sc, extra = _packed(k8, v8, ks, vs, cur, n)
-    args = (kv, sc, extra, jnp.int32(0), jnp.int32(n), jnp.int32(1))
+    args = (kv, sc, extra, jnp.int32(0), jnp.int32(n), jnp.int32(E))
     if kernel == "tiled":
         out = flash_gqa_decode_tiled(build_q_tiled(_jb(q).reshape(B, KV, rep, hd)), *args,
                                      head_dim=hd, interpret=True)

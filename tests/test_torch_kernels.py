@@ -10,7 +10,15 @@ and int8 kernels' bf16 outputs within 2e-2 x max|plain| (both round at the
 same points; the sums run in another order, so a value may round to the
 neighbouring bf16, or an int8 activation to the neighbouring level); int8
 k/v rows within one level of the plain version and their scales within
-2^-7 relative (one bf16 ulp of the row's max)."""
+2^-7 relative (one bf16 ulp of the row's max).
+
+The kernels this file's digests name (#3 with one extra row, #4 and #5,
+whose attention core ``attn_core.cuh`` is shared) must give, bit for bit,
+the outputs their previous versions gave on the same seeded inputs: the
+digests were recorded on an NVIDIA H100 from the kernels of the commit
+before the int8 flush window and the redesigns of #2 and #10."""
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -181,6 +189,76 @@ def test_swin_block_kernel_matches_plain_version(device, B, R, C, H, shift):
     _close_bf16(out, sb.swin_block_plain(x, p, bias, mask, num_heads=H, window_size=8))
 
 
+@pytest.mark.parametrize("rep", [1, 3, 8])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("n", [1, 7, 63, 64, 389, 420, 4096])
+def test_decode_attention_kernel_at_every_length(device, n, B, rep):
+    """The cluster split at the lengths around its block edges, at the
+    v0 prefix lengths and at a long cache, for H/KV of 1, 3 and 8."""
+    rng = np.random.RandomState(n + 10 * B + rep)
+    KV, hd = 3, 64
+    q = _bf16(rng, B, KV * rep, hd)
+    k = _bf16(rng, B, n + 8, KV, hd)
+    v = _bf16(rng, B, n + 8, KV, hd)
+    before = da.LAUNCHES
+    out = da.decode_attention(q, k, v, n)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES == before + 1
+    _close_bf16(out, da.decode_attention_plain(q, k, v, n))
+
+
+@pytest.mark.parametrize("n, blocks", [(40, 1), (340, 8), (800, 16)])
+def test_decode_attention_kernel_at_every_cluster_size(device, n, blocks):
+    """A cluster of 1, the portable 8 and the non-portable 16 blocks, as the
+    wrapper takes them from n."""
+    assert da.cluster_blocks(n) == blocks
+    rng = np.random.RandomState(n + blocks)
+    H, KV, hd = 9, 3, 64
+    q = _bf16(rng, 2, H, hd)
+    k = _bf16(rng, 2, n + 3, KV, hd)
+    v = _bf16(rng, 2, n + 3, KV, hd)
+    out = da.decode_attention_cuda(q, k, v, n)
+    torch.cuda.synchronize()
+    _close_bf16(out, da.decode_attention_plain(q, k, v, n))
+
+
+@pytest.mark.parametrize("blocks", [8, 16])
+def test_decode_attention_kernel_with_blocks_past_n(device, blocks):
+    """A cluster larger than n, through the library's entry point (the
+    wrapper never asks for one): the blocks without a position still join
+    the cluster's barriers and add nothing."""
+    from mellow_tpu_torch.ops._build import check, load_library
+
+    rng = np.random.RandomState(blocks)
+    B, H, KV, hd, n = 2, 9, 3, 64, 7
+    q = _bf16(rng, B, H, hd)
+    k = _bf16(rng, B, n + 3, KV, hd)
+    v = _bf16(rng, B, n + 3, KV, hd)
+    out = torch.empty_like(q)
+    check(load_library().mellow_decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, hd, n, k.stride(0),
+        k.stride(1), blocks, torch.cuda.current_stream().cuda_stream), "decode attention kernel")
+    torch.cuda.synchronize()
+    _close_bf16(out, da.decode_attention_plain(q, k, v, n))
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("n", [1, 389, 800])
+def test_decode_attention_kernel_at_every_head_dim(device, n, hd):
+    """Every head width the kernel is built for, at one, nine and sixteen
+    blocks a cluster."""
+    rng = np.random.RandomState(n + hd)
+    B, H, KV = 2, 9, 3
+    q = _bf16(rng, B, H, hd)
+    k = _bf16(rng, B, n + 5, KV, hd)
+    v = _bf16(rng, B, n + 5, KV, hd)
+    before = da.LAUNCHES
+    out = da.decode_attention(q, k, v, n)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES == before + 1
+    _close_bf16(out, da.decode_attention_plain(q, k, v, n))
+
+
 # ---------------------------------------------------------------------------
 # int8 kernels
 # ---------------------------------------------------------------------------
@@ -200,20 +278,37 @@ def _close_kv(got, want):
         torch.testing.assert_close(g, w, rtol=2.0 ** -7, atol=0)
 
 
-@pytest.mark.parametrize("B, n", [(1, 389), (4, 420), (2, 7)])
-def test_int8_decode_attention_kernel_matches_plain_version(device, B, n):
+def _int8_decode_inputs(B, n, E):
+    """q, an int8 cache layer of 450 positions with its scales, and E bf16
+    extra rows as a slice of a flush window's (B, 8, KV, hd) buffer."""
     rng = np.random.RandomState(n + 1)
     H, KV, hd, s_max = 9, 3, 64, 450
     q = _bf16(rng, B, H, hd)
     k8, ks = quantize_kv(_bf16(rng, B, s_max, KV * hd, scale=0.5))
     v8, vs = quantize_kv(_bf16(rng, B, s_max, KV * hd))
     k8, v8 = k8.reshape(B, s_max, KV, hd), v8.reshape(B, s_max, KV, hd)
-    cur = (_bf16(rng, B, KV, hd, scale=0.5), _bf16(rng, B, KV, hd))
+    extra = (_bf16(rng, B, 8, KV, hd, scale=0.5)[:, :E], _bf16(rng, B, 8, KV, hd)[:, :E])
+    return q, k8, v8, ks, vs, extra
+
+
+@pytest.mark.parametrize("B, n, E", [(1, 389, 1), (4, 420, 1), (2, 7, 1), (1, 389, 4), (4, 420, 8),
+                                     (2, 7, 8)])
+def test_int8_decode_attention_kernel_matches_plain_version(device, B, n, E):
+    q, k8, v8, ks, vs, extra = _int8_decode_inputs(B, n, E)
     before = di.LAUNCHES
-    out = di.decode_attention_int8(q, k8, v8, ks, vs, n, *cur)
+    out = di.decode_attention_int8(q, k8, v8, ks, vs, n, *extra)
     torch.cuda.synchronize()
     assert di.LAUNCHES == before + 1
-    _close_bf16(out, di.decode_attention_int8_plain(q, k8, v8, ks, vs, n, *cur))
+    _close_bf16(out, di.decode_attention_int8_plain(q, k8, v8, ks, vs, n, *extra))
+
+
+@pytest.mark.parametrize("E", [0, 9])
+def test_int8_decode_attention_kernel_rejects_extra_counts(device, E):
+    q, k8, v8, ks, vs, _ = _int8_decode_inputs(1, 9, 1)
+    rng = np.random.RandomState(E)
+    extra = (_bf16(rng, 1, 9, 3, 64)[:, :E], _bf16(rng, 1, 9, 3, 64)[:, :E])
+    with pytest.raises(ValueError):
+        di.decode_attention_int8_cuda(q, k8, v8, ks, vs, 9, *extra)
 
 
 def _rope(S, hd):
@@ -304,11 +399,41 @@ def test_flash_gqa_prefill_kernel_matches_plain_version(device, B, S, H, KV, pac
     _close_bf16(out, fp.flash_gqa_prefill_plain(q, k, v, **kw))
 
 
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("S", [1, 17, 64, 65, 389, 1024, 4096])
+def test_flash_gqa_prefill_kernel_at_every_length(device, S, B):
+    """GPT-2's geometry (H = KV = 12) with q, k, v the column slices of one
+    qkv product, around the 64-row tile edges and up to 4096 positions."""
+    rng = np.random.RandomState(S + B)
+    H, hd = 12, 64
+    q, k, v = _bf16(rng, B, S, 3 * H * hd).split(H * hd, dim=-1)
+    kw = dict(num_heads=H, num_kv_heads=H, head_dim=hd)
+    before = fp.LAUNCHES
+    out = fp.flash_gqa_prefill(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES == before + 1
+    _close_bf16(out, fp.flash_gqa_prefill_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("B, S, H, KV", [(1, 389, 9, 3), (4, 130, 9, 3), (2, 389, 8, 2), (1, 200, 8, 1),
+                                         (2, 77, 4, 2)])
+def test_flash_gqa_prefill_kernel_shares_tiles_across_a_group(device, B, S, H, KV):
+    """GQA: the query heads of a KV group share a block's K/V tiles (3, 4,
+    4 of 8, and 2 heads per block)."""
+    rng = np.random.RandomState(S + H + KV)
+    hd = 64
+    q, k, v = _bf16(rng, B, S, (H + 2 * KV) * hd).split([H * hd, KV * hd, KV * hd], dim=-1)
+    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd)
+    out = fp.flash_gqa_prefill(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _close_bf16(out, fp.flash_gqa_prefill_plain(q, k, v, **kw))
+
+
 @pytest.mark.parametrize(
     "shape, cols, dtype, H",
     [((1, 389, 768), slice(None), torch.float32, 12),
      ((1, 389, 768), slice(None), torch.bfloat16, 24),  # hd = 32
-     ((1, 1100, 768), slice(None), torch.bfloat16, 12),  # S > 1024
+     ((1, fp.MAX_SEQ + 8, 768), slice(None), torch.bfloat16, 12),  # S past the kernel's range
      ((1, 389, 776), slice(1, 769), torch.bfloat16, 12),  # a base off 16-byte alignment
      ((1, 389, 772), slice(0, 768), torch.bfloat16, 12)],  # a row stride not a multiple of 8
     ids=["float32", "head_dim", "long", "misaligned", "row_stride"],
@@ -365,3 +490,51 @@ def test_window_attention_kernel_rejects_what_it_does_not_take(device, what):
         H = 4  # hd = 128
     with pytest.raises(ValueError):
         wa.window_attention_cuda(qkv, bias, mask, num_heads=H)
+
+
+# ---------------------------------------------------------------------------
+# outputs kept bit for bit
+# ---------------------------------------------------------------------------
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _previous_case(name):
+    """The outputs of one kernel call on seeded inputs."""
+    if name.startswith("int8_decode"):
+        B, n = (1, 389) if name.endswith("b1") else (4, 420)
+        q, k8, v8, ks, vs, extra = _int8_decode_inputs(B, n, 1)
+        return (di.decode_attention_int8_cuda(q, k8, v8, ks, vs, n, *extra),)
+    rng = np.random.RandomState(11)
+    D, H, KV, hd, S = 576, 9, 3, 64, 389
+    x = _bf16(rng, 1, S, D, scale=0.5)
+    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd, eps=1e-5, kv_quant=name != "attn_block")
+    if name == "attn_block_w8a8":
+        ln = _bf16(rng, D, scale=0.1) + 1
+        ws = [t for shape in ((D, H * hd), (D, KV * hd), (D, KV * hd), (H * hd, D)) for t in _int8(rng, *shape)]
+        return aw.attn_block_w8a8_cuda(x, ln, *ws, *_rope(S, hd), **kw)
+    ws = [_bf16(rng, D, scale=0.1) + 1, _bf16(rng, D, H * hd, scale=0.05), _bf16(rng, D, KV * hd, scale=0.05),
+          _bf16(rng, D, KV * hd, scale=0.05), _bf16(rng, H * hd, D, scale=0.05)]
+    return ab.attn_block_cuda(x, *ws, *_rope(S, hd), **kw)
+
+
+PREVIOUS_DIGESTS = {
+    "int8_decode_e1_b1": "ba5ea95714dd421c",
+    "int8_decode_e1_b4": "254b82997ed3bc13",
+    "attn_block": "b031f557c078b18c",
+    "attn_block_kv_quant": "da17b80f6a09dd88",
+    "attn_block_w8a8": "072e3e92f10831c8",
+}
+
+
+@pytest.mark.parametrize("name", list(PREVIOUS_DIGESTS))
+def test_kernels_keep_their_previous_output(device, name):
+    out = _previous_case(name)
+    torch.cuda.synchronize()
+    got = _digest(*out)
+    print(f"{name}: {got}")
+    assert got == PREVIOUS_DIGESTS[name]
