@@ -12,8 +12,8 @@ result line is printed:
 3. kernel phase: each kernel against its plain PyTorch version on the card,
    at the main path's full v0 shapes (B=1 and B=4; every Swin stage that
    takes the kernel; decode attention at the prefix length and 31 positions
-   past it; the int8 decode attention with 1 extra row and with a whole
-   flush window of them), for the prefill attention (#10) the GPT-2
+   past it; the int8 decode attention there with 1 extra row and with a
+   whole flush window of them), for the prefill attention (#10) the GPT-2
    prefill's (S=389, H=KV=12, hd=64), for the Swin block also HTSAT-large's
    stage 1 (hd=64) and for the window attention (#9) HTSAT-large's stage 2
    (C=512, H=8, W-MSA and SW-MSA), with the tolerance printed, device-time
@@ -21,10 +21,13 @@ result line is printed:
    a spin kernel, so the host's launch overhead is not counted), the least
    time the card could take (``bound_ms``) and, where one PyTorch call
    computes the same function, that call's time (``library_ms``); the
-   decode attention (#2) and the prefill attention (#10) are timed against
-   their library call in turns over 5 rounds, with the median and range,
-   in device time and also with the host's launch overhead (how this
-   script timed every kernel before it timed device time);
+   decode attention (#2), the prefill attention (#10) and the window
+   attention (#9) are timed against their library call in turns over 5
+   rounds, with the median and range, in device time and also with the
+   host's launch overhead (how this script timed every kernel before it
+   timed device time); the int8 decode attention (#3) is also timed at a
+   cluster of 1 block, and its outputs at clusters of 1, 8, 16 and the
+   default size are held within one bf16 ulp of each other;
 4. fp32 path: ``MellowWrapper(config="v0", device="cuda")`` at full v0 width
    with random weights from a seed answers requests one at a time, as a
    batch, and through the port's ``BatchingEngine``; every ``generate``
@@ -603,13 +606,14 @@ def bench_window_attention(enc) -> dict:
                 sdpa_err = (sdpa.float() - out.float()).abs().max().item()
                 print(f"window_attention vs SDPA: max_abs_err {sdpa_err:.3e} "
                       f"({sdpa_err / out.float().abs().max().item():.4f} x max|kernel|; not held)")
-                library_ms = _median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=add))
+                paired = _paired(lambda: wa.window_attention_cuda(qkv, bias, mask, **kw),
+                                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=add))
                 # qkv read once, the output written once, the bias as its bf16
                 # table; QK^T and PV over every window.
                 bound = _bound(_nbytes(qkv, out, table), 4 * batch * nW * N * N * C, PEAK_BF16)
                 cases.append(_case("window_attention", f"HTSAT-large stage {si + 1} B={batch} R={res} C={C} H={H} "
                                    f"hd={C // H} {'SW-MSA' if shifted else 'W-MSA'}", err,
-                                   f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound, library_ms))
+                                   f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound, paired=paired))
     return _row("window_attention", cases)
 
 
@@ -633,7 +637,19 @@ def _check_int8_kv(name, got, want) -> dict:
     return {"kv_int8_max_level_diff": levels, "kv_scale_max_rel_err": rel}
 
 
+def max_ulp(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance between two bf16 tensors in units in the last
+    place (bit patterns mapped to ordered integers; +0 and -0 coincide)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
 def bench_decode_attention_int8(dec, prefix_len: int) -> dict:
+    """v0's shapes at E = 1 and E = 8, B = 1 and B = 4; at each the kernel
+    also at a cluster of 1 block (timed) and of 8 and 16 (held within one
+    bf16 ulp of the others)."""
     rng = np.random.default_rng(SEED + 5)
     H, KV, hd = dec.num_heads, dec.num_kv_heads, dec.head_dim
     s_max = prefix_len + MAX_LEN
@@ -642,7 +658,7 @@ def bench_decode_attention_int8(dec, prefix_len: int) -> dict:
     # E = 1 (a window's first step) and E = W (its last), both as slices of
     # the window's (B, W, KV, hd) buffer, as the decode step hands them over.
     for batch, n, E in ((1, prefix_len, 1), (1, prefix_len + 31, 1), (4, prefix_len, 1), (4, prefix_len + 31, 1),
-                        (1, prefix_len + 24, W), (4, prefix_len + 24, W)):
+                        (1, prefix_len, W), (1, prefix_len + 31, W), (4, prefix_len, W), (4, prefix_len + 31, W)):
         q = _bf16(rng, batch, H, hd)
         k8, ks = llama.quantize_kv(_bf16(rng, batch, s_max, KV * hd, scale=0.5))
         v8, vs = llama.quantize_kv(_bf16(rng, batch, s_max, KV * hd))
@@ -654,12 +670,26 @@ def bench_decode_attention_int8(dec, prefix_len: int) -> dict:
         err = _check_bf16("decode_attention_int8", out, di.decode_attention_int8_plain(*args))
         ms, plain_ms = _alternate(lambda: di.decode_attention_int8_plain(*args),
                                   lambda: di.decode_attention_int8_cuda(*args))
+        # Cluster sizes: only the order of the fp32 sum d follows the split.
+        by_blocks = {b: di.decode_attention_int8_cuda(*args, blocks=b) for b in (1, 8, 16)}
+        torch.cuda.synchronize()
+        ulp = max(max_ulp(x, y) for x in (out, *by_blocks.values()) for y in by_blocks.values())
+        if ulp > 1:
+            raise RuntimeError(f"decode_attention_int8 B={batch} n={n} E={E}: clusters of "
+                               f"{di.cluster_blocks(n)}, 1, 8 and 16 blocks differ by {ulp} bf16 ulp")
+        one_ms = statistics.mean(_median_ms(lambda: di.decode_attention_int8_cuda(*args, blocks=1))
+                                 for _ in range(2))
+        print(f"decode_attention_int8 B={batch} n={n} E={E}: {di.cluster_blocks(n)} blocks a cluster "
+              f"{ms:.4f} ms, 1 block {one_ms:.4f} ms; clusters of {di.cluster_blocks(n)}, 1, 8, 16 "
+              f"within {ulp} bf16 ulp")
         # q, the extra rows and the output in bf16; n positions of int8 k
         # and v and their fp32 scales. No PyTorch call takes an int8 cache.
         n_bytes = _nbytes(q, out, *cur) + 2 * batch * n * (KV * hd + 4)
         bound = _bound(n_bytes, 4 * batch * H * (n + E) * hd, PEAK_INT8)
-        cases.append(_case("decode_attention_int8", f"B={batch} n={n} E={E}", err,
-                           f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound))
+        cases.append({**_case("decode_attention_int8", f"B={batch} n={n} E={E}", err,
+                              f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound),
+                      "cluster_blocks": di.cluster_blocks(n), "ms_one_block": one_ms,
+                      "max_ulp_across_clusters": ulp})
     return _row("decode_attention_int8", cases)
 
 

@@ -23,29 +23,31 @@
 // bytes bound it; in practice one launch of 16 x 8 = 128 blocks on 132 SMs,
 // each a single pass over one window, is bound by its latency.
 //
-// What the design does about it, for now: window_core.cuh's core (shared
-// with #8's attention), one block per (window, head), both products on the
-// tensor cores (wmma bf16, fp32 accumulation), the scores and
-// probabilities never leave shared memory. Vector loads, several heads per
-// block and wgmma are later work.
+// What the design does about it: window_mma_core.cuh, one block of four
+// warps per (window, head) whose chain of dependent memory round trips is
+// one round long: every load (q, k, v by 16-byte cp.async; the bias and mask
+// of each thread's score fragment into registers) is issued at once before
+// the block's one barrier, both products run on mma.sync with the scores and
+// probabilities in registers, and the output leaves in 16-byte stores.
+// (#8, swin_block.cu, keeps window_core.cuh.)
 
-#include "window_core.cuh"
+#include "window_mma_core.cuh"
 
 namespace {
 
+// At most 128 registers a thread, so that four blocks fit an SM and B=4's
+// 512 blocks run in one wave.
 template <int HDP>
-__global__ void __launch_bounds__(WIN_THREADS)
+__global__ void __launch_bounds__(WM_THREADS, 4)
 window_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
                         const float* __restrict__ mask, int n_mask, bf16* __restrict__ o, int C,
-                        int hd, float scale) {
-  __shared__ __align__(128) unsigned char smem[WindowSmem<HDP>::BYTES];
+                        int hd, float scale, bool vec) {
+  __shared__ __align__(128) unsigned char smem[WindowMmaSmem<HDP>::BYTES];
   const int w = blockIdx.x;
   const int h = blockIdx.y;
-  window_attention_core<HDP, true>(qkv, o, (size_t)w * WIN_N, WIN_WS, C, h, hd, scale,
-                                   bias + (size_t)h * WIN_N * WIN_N,
-                                   mask != nullptr ? mask + (size_t)(w % n_mask) * WIN_N * WIN_N
-                                                   : nullptr,
-                                   smem);
+  window_mma_core<HDP>(qkv, o, w, h, C, hd, scale, bias + (size_t)h * WM_N * WM_N,
+                       mask != nullptr ? mask + (size_t)(w % n_mask) * WM_N * WM_N : nullptr, vec,
+                       reinterpret_cast<bf16*>(smem));
 }
 
 }  // namespace
@@ -58,16 +60,19 @@ extern "C" int mellow_window_attention(const void* qkv, const void* bias, const 
   const int hd = H > 0 ? C / H : 0;
   if (Bn < 1 || H < 1 || hd < 1 || hd > 64 || hd * H != C || (mask != nullptr && n_mask < 1))
     return (int)cudaErrorInvalidValue;
+  // 16-byte copies need 8-element head slices and 16-byte aligned rows.
+  const bool vec = hd % 8 == 0 && reinterpret_cast<uintptr_t>(qkv) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const dim3 grid(Bn, H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* q = static_cast<const bf16*>(qkv);
   const float* b = static_cast<const float*>(bias);
   const float* m = static_cast<const float*>(mask);
   if (hd <= 32)
-    window_attention_kernel<32><<<grid, WIN_THREADS, 0, st>>>(q, b, m, n_mask,
-                                                              static_cast<bf16*>(out), C, hd, scale);
+    window_attention_kernel<32><<<grid, WM_THREADS, 0, st>>>(q, b, m, n_mask,
+                                                             static_cast<bf16*>(out), C, hd, scale, vec);
   else
-    window_attention_kernel<64><<<grid, WIN_THREADS, 0, st>>>(q, b, m, n_mask,
-                                                              static_cast<bf16*>(out), C, hd, scale);
+    window_attention_kernel<64><<<grid, WM_THREADS, 0, st>>>(q, b, m, n_mask,
+                                                             static_cast<bf16*>(out), C, hd, scale, vec);
   return (int)cudaGetLastError();
 }

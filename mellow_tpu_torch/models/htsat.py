@@ -82,6 +82,13 @@ def shifted_window_mask(resolution: int, window_size: int, shift: int) -> np.nda
 
 
 @functools.lru_cache(maxsize=16)
+def _device_index(window_size: int, device: torch.device) -> torch.Tensor:
+    """``relative_position_index`` flattened, as an int64 tensor on
+    ``device``, copied there once."""
+    return torch.from_numpy(relative_position_index(window_size).reshape(-1)).to(device)
+
+
+@functools.lru_cache(maxsize=16)
 def _device_mask(resolution: int, window_size: int, shift: int, device: torch.device) -> torch.Tensor:
     """``shifted_window_mask`` as a float32 tensor on ``device``, copied
     there once."""
@@ -145,8 +152,8 @@ def window_attention(
     hd = C // num_heads
     qkv = linear(x, p["qkv"])  # (Bn, N, 3C)
 
-    idx = torch.from_numpy(relative_position_index(window_size).reshape(-1)).to(x.device)
-    bias = p["rel_bias_table"][idx].reshape(N, N, num_heads).permute(2, 0, 1)  # (H, N, N)
+    bias = p["rel_bias_table"][_device_index(window_size, x.device)]
+    bias = bias.reshape(N, N, num_heads).permute(2, 0, 1)  # (H, N, N)
 
     if (not return_attn and x.dtype == torch.bfloat16
             and window_kernel.window_vmem_bytes(C, num_heads, N) <= window_kernel.WINDOW_BUDGET):
@@ -207,8 +214,8 @@ def swin_block(
     if (not return_attn and x.dtype == torch.bfloat16
             and kernel_route(C, num_heads, window_size, H) == "swin_block"):
         N = window_size * window_size
-        idx = torch.from_numpy(relative_position_index(window_size).reshape(-1)).to(x.device)
-        bias = p["rel_bias_table"][idx].reshape(N, N, num_heads).permute(2, 0, 1).float()
+        bias = p["rel_bias_table"][_device_index(window_size, x.device)]
+        bias = bias.reshape(N, N, num_heads).permute(2, 0, 1).float()
         mask = _device_mask(H, window_size, shift, x.device) if shift > 0 else None
         x4 = x.reshape(B, H, W, C)
         if shift > 0:

@@ -19,6 +19,15 @@ group g, over cached positions n < ``n`` and extra rows x < E:
     w = e * vs;  wmax = max(max w, 1e-30);  w8 = trunc(w * (127 / wmax))
     o = (float(w8 . v8) * (wmax / 127) + sum_x bf16(e_x) * v_extra_x) / d, as bf16
 
+The kernel splits the positions of each (KV group, batch row) over a
+thread-block cluster of ``cluster_blocks(n)`` blocks (the rule of
+``decode_attention.cluster_blocks``: about 48 positions a block, at most
+16), which exchange their maxima, sums and int32 partial value sums
+through distributed shared memory inside the one launch. Only the order of
+the fp32 sum ``d`` depends on the split, so any two cluster sizes agree
+within one bf16 ulp, and one block gives the single-block kernel's output
+bit for bit.
+
 ``decode_attention_int8`` dispatches by device: a CUDA tensor goes through
 the kernel (it raises on what the kernel does not take), a CPU tensor
 through ``decode_attention_int8_plain``. ``LAUNCHES`` counts the kernel's
@@ -28,15 +37,22 @@ launches.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
 from mellow_tpu_torch.ops._build import check, load_library
+from mellow_tpu_torch.ops.decode_attention import MAX_CLUSTER, cluster_blocks
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 1
 MAX_EXTRA = 8  # the TPU kernel's EP: the default flush window
+THREADS = 128  # a block's threads (csrc ITHREADS)
+MAX_SHARED = 200 * 1024  # the dynamic shared memory a launch may ask for (csrc IMAX_DSMEM)
+# The most positions whose int32 value sum w8 . v8 cannot overflow
+# (|w8|, |v8| <= 127; csrc IMAX_N).
+MAX_N = (2 ** 31 - 1) // (127 * 127)
 
 
 def _score_scale(hd: int) -> float:
@@ -73,14 +89,49 @@ def decode_attention_int8_plain(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_
     return (o / denom).to(q.dtype).reshape(B, H, hd)
 
 
-def decode_attention_int8_cuda(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_extra) -> torch.Tensor:
+def shared_bytes(rep: int, hd: int, n: int, blocks: int) -> int:
+    """A block's dynamic shared memory for ``n`` positions over ``blocks``
+    blocks (csrc ``int8_smem``, each region rounded up to 16 bytes): the
+    slice's fp32 scores, int8 q, the slice's int8 weights (rounded up to 4
+    positions), the value pass's int32 partial sums, and the cluster's
+    partial sums of the block's outputs."""
+    def a16(x):
+        return -(-x // 16) * 16
+    chunk, per, groups = -(-n // blocks), -(-(rep * hd) // blocks), THREADS // (hd // 4)
+    return (a16(rep * chunk * 4) + a16(rep * hd) + a16(rep * -(-chunk // 4) * 4)
+            + a16(groups * rep * hd * 4) + a16(blocks * per * 4))
+
+
+def cluster_launch(rep: int, hd: int, n: int, blocks: Optional[int] = None) -> tuple:
+    """(blocks a cluster, shared bytes a block) of a launch over ``n``
+    positions with ``rep`` query heads a KV group; ``blocks`` defaults to
+    ``cluster_blocks(n)``. The batch only sizes the grid (one cluster per
+    KV group and batch row). Raises ValueError where the kernel would
+    refuse: a cluster outside 1..16, more than ``MAX_N`` positions, or a
+    block's slice over ``MAX_SHARED``."""
+    blocks = cluster_blocks(n) if blocks is None else blocks
+    if not 1 <= blocks <= MAX_CLUSTER:
+        raise ValueError(f"blocks={blocks} outside 1..{MAX_CLUSTER}")
+    if n > MAX_N:
+        raise ValueError(f"n={n} over the {MAX_N} positions whose int32 value sums cannot overflow")
+    need = shared_bytes(rep, hd, n, blocks)
+    if need > MAX_SHARED:
+        raise ValueError(f"n={n} over {blocks} blocks needs {need} bytes of shared memory a block, "
+                         f"over the kernel's {MAX_SHARED}")
+    return blocks, need
+
+
+def decode_attention_int8_cuda(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_extra,
+                               blocks: Optional[int] = None) -> torch.Tensor:
     """The kernel on the current stream. q (B, H, hd) contiguous bf16 CUDA;
     k8, v8 (B, S_max, KV, hd) int8 with contiguous (KV, hd) rows and equal
     strides (a layer of the cache); k_scale, v_scale (B, S_max) fp32 with
     unit position stride; k_extra, v_extra (B, E, KV, hd) bf16, 1 <= E <= 8,
     with contiguous (E, KV, hd) rows and equal strides (a slice of the
-    window's pending buffer). Raises on any input it does not take and on a
-    failed launch."""
+    window's pending buffer). The positions are split over clusters of
+    ``blocks`` blocks (default ``cluster_blocks(n)``; blocks past n hold no
+    position). Raises on any input it does not take and on a failed
+    launch."""
     global LAUNCHES
     B, H, hd = q.shape
     tensors = (q, k8, v8, k_scale, v_scale, k_extra, v_extra)
@@ -98,14 +149,11 @@ def decode_attention_int8_cuda(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_e
                          f"{MAX_EXTRA}, got {tuple(k_extra.shape)}, {tuple(v_extra.shape)}")
     if k_scale.shape != (B, s_max) or v_scale.shape != (B, s_max):
         raise ValueError(f"scales must be {(B, s_max)}")
-    if H % KV or H // KV > 8 or hd % 16 or hd > 128:
+    if H % KV or H // KV > 8 or hd % 16 or not 16 <= hd <= 128:
         raise ValueError(f"unsupported geometry H={H}, KV={KV}, hd={hd}")
     if not 1 <= n <= s_max:
         raise ValueError(f"n={n} outside the cache's {s_max} positions")
-    # Shared memory: the partial value sums (rep x 128 x 16 int32), int8 q,
-    # fp32 scores and int8 weights per position.
-    if (H // KV) * (128 * 16 * 4 + hd + 5 * n) > 200 * 1024:
-        raise ValueError(f"n={n} exceeds the kernel's shared-memory buffers")
+    blocks, _ = cluster_launch(H // KV, hd, n, blocks)
     if (not q.is_contiguous() or k_extra.stride() != v_extra.stride()
             or k_extra.stride()[1:] != (KV * hd, hd, 1)
             or k8.stride() != v8.stride() or k8.stride()[2:] != (hd, 1)
@@ -118,7 +166,7 @@ def decode_attention_int8_cuda(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_e
         err = lib.mellow_decode_attention_int8(
             q.data_ptr(), k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
             k_extra.data_ptr(), v_extra.data_ptr(), out.data_ptr(), B, H, KV, hd, n, E,
-            k8.stride(0), k8.stride(1), k_scale.stride(0), k_extra.stride(0),
+            k8.stride(0), k8.stride(1), k_scale.stride(0), k_extra.stride(0), blocks,
             torch.cuda.current_stream().cuda_stream,
         )
     check(err, "int8 decode attention kernel")

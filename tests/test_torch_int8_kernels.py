@@ -137,6 +137,29 @@ def test_int8_decode_dispatch_uses_plain_version_on_cpu():
         di.decode_attention_int8_cuda(q, k8, v8, ks, vs, 6, *cur)
 
 
+@pytest.mark.parametrize("rep, hd, n_top", [(3, 64, di.MAX_N), (1, 16, di.MAX_N), (8, 128, 20000)])
+def test_int8_decode_cluster_rule_and_shared_memory(rep, hd, n_top):
+    """#3's launch over a grid of n (the batch only sizes the grid, one
+    cluster per KV group and batch row): about 48 positions a block up to
+    16 blocks, and every block's slice within the shared memory a launch
+    may ask for, at v0's geometry (rep 3, hd 64) up to the most positions
+    whose int32 sums cannot overflow (the single-block kernel stopped near
+    12,000); the refusals past that, at a slice too long for one block and
+    at a cluster outside 1..16."""
+    for n in (1, 7, 47, 48, 49, 96, 389, 413, 420, 768, 769, 4096, n_top):
+        blocks, shared = di.cluster_launch(rep, hd, n)
+        assert blocks == min(16, -(-n // 48)) == di.cluster_blocks(n)
+        assert -(-n // blocks) <= 48 or blocks == 16
+        assert 0 < shared == di.shared_bytes(rep, hd, n, blocks) <= di.MAX_SHARED
+    with pytest.raises(ValueError, match="overflow"):
+        di.cluster_launch(rep, hd, di.MAX_N + 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        di.cluster_launch(rep, hd, 60000, blocks=1)
+    for blocks in (0, 17):
+        with pytest.raises(ValueError, match="outside"):
+            di.cluster_launch(rep, hd, 389, blocks=blocks)
+
+
 # ---------------------------------------------------------------------------
 # prefill blocks
 # ---------------------------------------------------------------------------

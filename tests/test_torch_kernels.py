@@ -12,11 +12,12 @@ neighbouring bf16, or an int8 activation to the neighbouring level); int8
 k/v rows within one level of the plain version and their scales within
 2^-7 relative (one bf16 ulp of the row's max).
 
-The kernels this file's digests name (#3 with one extra row, #4 and #5,
-whose attention core ``attn_core.cuh`` is shared) must give, bit for bit,
-the outputs their previous versions gave on the same seeded inputs: the
-digests were recorded on an NVIDIA H100 from the kernels of the commit
-before the int8 flush window and the redesigns of #2 and #10."""
+The kernels this file's digests name (#3 with one extra row at a cluster
+of one block, #4 and #5, whose attention core ``attn_core.cuh`` is shared)
+must give, bit for bit, the outputs their previous versions gave on the
+same seeded inputs: the digests were recorded on an NVIDIA H100 from the
+kernels of the commit before the int8 flush window and the redesigns of
+#2 and #10. #3's other cluster sizes stay within one bf16 ulp of it."""
 
 import hashlib
 
@@ -278,11 +279,11 @@ def _close_kv(got, want):
         torch.testing.assert_close(g, w, rtol=2.0 ** -7, atol=0)
 
 
-def _int8_decode_inputs(B, n, E):
-    """q, an int8 cache layer of 450 positions with its scales, and E bf16
+def _int8_decode_inputs(B, n, E, s_max=450):
+    """q, an int8 cache layer of s_max positions with its scales, and E bf16
     extra rows as a slice of a flush window's (B, 8, KV, hd) buffer."""
     rng = np.random.RandomState(n + 1)
-    H, KV, hd, s_max = 9, 3, 64, 450
+    H, KV, hd = 9, 3, 64
     q = _bf16(rng, B, H, hd)
     k8, ks = quantize_kv(_bf16(rng, B, s_max, KV * hd, scale=0.5))
     v8, vs = quantize_kv(_bf16(rng, B, s_max, KV * hd))
@@ -300,6 +301,44 @@ def test_int8_decode_attention_kernel_matches_plain_version(device, B, n, E):
     torch.cuda.synchronize()
     assert di.LAUNCHES == before + 1
     _close_bf16(out, di.decode_attention_int8_plain(q, k8, v8, ks, vs, n, *extra))
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("E", [1, 8])
+@pytest.mark.parametrize("n", [1, 7, 48, 49, 389, 420, 4096])
+def test_int8_decode_attention_kernel_at_every_length(device, n, E, B):
+    """The cluster split around its block edges (48 positions a block), at
+    the v0 prefix lengths and at a long cache, with one extra row and a
+    whole flush window of them."""
+    q, k8, v8, ks, vs, extra = _int8_decode_inputs(B, n, E, s_max=n + 8)
+    before = di.LAUNCHES
+    out = di.decode_attention_int8(q, k8, v8, ks, vs, n, *extra)
+    torch.cuda.synchronize()
+    assert di.LAUNCHES == before + 1
+    _close_bf16(out, di.decode_attention_int8_plain(q, k8, v8, ks, vs, n, *extra))
+
+
+def _max_ulp(a, b):
+    """The largest distance between two bf16 tensors in units in the last
+    place (+0 and -0 coincide)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs().max().item()
+
+
+@pytest.mark.parametrize("E", [1, 8])
+@pytest.mark.parametrize("B, n", [(2, 7), (1, 49), (4, 389), (1, 4096)])
+def test_int8_decode_attention_kernel_across_cluster_sizes(device, B, n, E):
+    """Clusters of 1, 8 and 16 blocks and the default give outputs within
+    one bf16 ulp of each other (only the order of the fp32 sum of exp
+    follows the split), blocks that hold no position included (n = 7 and
+    49 over 8 or 16 blocks)."""
+    q, k8, v8, ks, vs, extra = _int8_decode_inputs(B, n, E, s_max=n + 8)
+    outs = [di.decode_attention_int8_cuda(q, k8, v8, ks, vs, n, *extra, blocks=b) for b in (None, 1, 8, 16)]
+    torch.cuda.synchronize()
+    assert max(_max_ulp(a, b) for a in outs for b in outs) <= 1
+    _close_bf16(outs[1], di.decode_attention_int8_plain(q, k8, v8, ks, vs, n, *extra))
 
 
 @pytest.mark.parametrize("E", [0, 9])
@@ -464,6 +503,7 @@ def _window_inputs(B, R, C, H, shift, device):
 @pytest.mark.parametrize("B, R, C, H, shift", [
     (1, 32, 512, 8, 0), (1, 32, 512, 8, 4), (4, 32, 512, 8, 0), (4, 32, 512, 8, 4),  # HTSAT-large stage 2
     (2, 64, 96, 4, 4), (1, 32, 256, 8, 4), (1, 16, 384, 6, 0),  # hd = 24, 32, 64
+    (1, 16, 384, 8, 4), (2, 16, 60, 3, 4),  # hd = 48; hd = 20, no 16-byte copies
 ])
 def test_window_attention_kernel_matches_plain_version(device, B, R, C, H, shift):
     qkv, bias, mask = _window_inputs(B, R, C, H, shift, device)
@@ -472,6 +512,16 @@ def test_window_attention_kernel_matches_plain_version(device, B, R, C, H, shift
     torch.cuda.synchronize()
     assert wa.LAUNCHES == before + 1
     _close_bf16(out, wa.window_attention_plain(qkv, bias, mask, num_heads=H))
+
+
+@pytest.mark.parametrize("Bn", [5, 20])
+def test_window_attention_kernel_takes_bn_not_a_multiple_of_the_mask(device, Bn):
+    """Window w takes mask[w % nW] where Bn is not a multiple of nW = 16."""
+    qkv, bias, mask = _window_inputs(2, 32, 512, 8, 4, device)
+    qkv = qkv[:Bn].contiguous()
+    out = wa.window_attention_cuda(qkv, bias, mask, num_heads=8)
+    torch.cuda.synchronize()
+    _close_bf16(out, wa.window_attention_plain(qkv, bias, mask, num_heads=8))
 
 
 @pytest.mark.parametrize("what", ["float32", "bias_shape", "strided", "cpu", "head_dim"])
@@ -506,9 +556,11 @@ def _digest(*tensors) -> str:
 def _previous_case(name):
     """The outputs of one kernel call on seeded inputs."""
     if name.startswith("int8_decode"):
+        # At a cluster of one block the kernel repeats the single-block
+        # kernel's arithmetic operation for operation.
         B, n = (1, 389) if name.endswith("b1") else (4, 420)
         q, k8, v8, ks, vs, extra = _int8_decode_inputs(B, n, 1)
-        return (di.decode_attention_int8_cuda(q, k8, v8, ks, vs, n, *extra),)
+        return (di.decode_attention_int8_cuda(q, k8, v8, ks, vs, n, *extra, blocks=1),)
     rng = np.random.RandomState(11)
     D, H, KV, hd, S = 576, 9, 3, 64, 389
     x = _bf16(rng, 1, S, D, scale=0.5)
