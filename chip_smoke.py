@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``mellow_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
+    python3 chip_smoke.py --ab TAG [--tree DIR] [--out OUT]   # #4/#5 readings of DIR's package
+    python3 chip_smoke.py --ab compare [--out OUT]            # their outputs, parent vs change
 
 Phases, in order; any failure raises, so the exit code is non-zero and no
 result line is printed:
@@ -27,7 +29,12 @@ result line is printed:
    host's launch overhead (how this script timed every kernel before it
    timed device time); the int8 decode attention (#3) is also timed at a
    cluster of 1 block, and its outputs at clusters of 1, 8, 16 and the
-   default size are held within one bf16 ulp of each other;
+   default size are held within one bf16 ulp of each other; the attention
+   blocks (#4, #4 ``kv_quant``, #5) print each launch's device time and
+   count (torch.profiler over 40 calls), and #4 is also timed in turns
+   against the same function composed of library calls (RMSNorm, one
+   matmul on the concatenated weights, RoPE, SDPA, matmul and residual),
+   a yardstick that is not the table's library call;
 4. fp32 path: ``MellowWrapper(config="v0", device="cuda")`` at full v0 width
    with random weights from a seed answers requests one at a time, as a
    batch, and through the port's ``BatchingEngine``; every ``generate``
@@ -68,8 +75,13 @@ result line is printed:
 9. timings of the paths by stage (host preprocessing, log-mel, encoder,
    prefill, decode step as the slope of two lengths, whole request), and
    torch.profiler over one warm B=1 request of each path (device time,
-   kernel launches, the device's idle share, and the device time of the
-   decode and prefill attention kernels in the request).
+   kernel launches, the device's idle share, and the device time and
+   launches of the decode attention, of the prefill attention core, and
+   of #4/#5's projections and quantizers in the request).
+
+``--ab TAG [--tree DIR]`` runs none of that: it reads #4, #4 ``kv_quant``
+and #5 of DIR's package (an earlier commit unpacked under ``build/``, or
+this checkout) for an A/B in one call (``ab_run``).
 
 The launch counts are set to 0 just before each path is driven and read
 just after. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -88,6 +100,11 @@ import tempfile
 import threading
 import time
 import wave
+
+# ``--tree DIR`` (the A/B mode below): import DIR's package, e.g. an
+# unpacked earlier commit, instead of this checkout's.
+if __name__ == "__main__" and "--tree" in sys.argv:
+    sys.path.insert(0, os.path.abspath(sys.argv[sys.argv.index("--tree") + 1]))
 
 import numpy as np
 import torch
@@ -325,6 +342,69 @@ def _host_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
+def stage_split(fn, calls: int = 40, tries: int = 5) -> dict:
+    """The device time and launches of each CUDA kernel one call of ``fn``
+    runs, from torch.profiler over ``calls`` warm calls: {kernel symbol:
+    [launches a call, ms a call]}. The tracer drops kernels launched just
+    after it starts, so each window begins with a warm-up step of
+    ``calls`` calls whose events are discarded; a window whose counts are
+    still not whole launches a call is taken again, up to ``tries`` times;
+    then it raises."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        split = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, ms = split.get(e.name, (0, 0.0))
+                split[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+        if split and all(n % calls == 0 for n, _ in split.values()):
+            break
+    else:
+        raise RuntimeError(f"stage_split: in {tries} windows of {calls} calls the tracer saw "
+                           + ("no kernel" if not split else f"counts that are not whole launches a call: "
+                              f"{ {name: n for name, (n, _) in split.items()} }"))
+    return {name: [n // calls, ms / calls] for name, (n, ms) in sorted(split.items(), key=lambda kv: -kv[1][1])}
+
+
+def _print_split(label, split) -> None:
+    total = sum(ms for _, ms in split.values())
+    print(f"{label}: {total:.4f} ms of kernels a call (torch.profiler over 40 calls)")
+    for name, (n, ms) in split.items():
+        print(f"  {label} {ms:.4f} ms {n:g} launches  {name[:100]}")
+
+
+def composed_attn_block(x, ln, wqkv, wo, cos, sin, H: int, KV: int, hd: int, eps: float):
+    """#4's function composed of library calls: RMSNorm, one matmul on the
+    concatenated [wq | wk | wv], RoPE, SDPA ``is_causal`` with
+    ``enable_gqa``, a matmul and the residual. A yardstick timed beside
+    the hand-written chain; the port never calls it."""
+    B, S, D = x.shape
+    if hasattr(F, "rms_norm"):
+        h = F.rms_norm(x, (D,), ln, eps)
+    else:
+        h = (x.float() * torch.rsqrt(x.float().pow(2).mean(-1, keepdim=True) + eps) * ln.float()).to(x.dtype)
+    q, k, v = torch.matmul(h, wqkv).split((H * hd, KV * hd, KV * hd), dim=-1)
+    c, s_ = cos[None, None], sin[None, None]
+
+    def rope(t):
+        t1, t2 = t.chunk(2, dim=-1)
+        return t * c + torch.cat((-t2, t1), dim=-1) * s_
+
+    q, k, v = (t.unflatten(-1, (-1, hd)).transpose(1, 2) for t in (q, k, v))
+    o = F.scaled_dot_product_attention(rope(q), rope(k), v, is_causal=True, enable_gqa=True)
+    return x + torch.matmul(o.transpose(1, 2).reshape(B, S, H * hd), wo)
+
+
 def _write_wav(path: str, seconds: float, seed: int, sr: int = 44100) -> str:
     """Seeded mono PCM16 clip: two tones and noise."""
     rng = np.random.default_rng(seed)
@@ -486,8 +566,20 @@ def bench_attn_block(dec, S: int) -> dict:
         flops = (2 * M * D * (H + 2 * KV) * hd + 2 * M * H * hd * D
                  + 2 * 2 * batch * H * hd * (S * (S + 1) // 2))
         bound = _bound(_nbytes(x, *w, cos, sin, *got), flops, PEAK_BF16)
-        cases.append(_case("attn_block", f"B={batch} S={S}", err, f"{BF16_KERNEL_TOL} x max|plain|",
-                           ms, plain_ms, bound))
+        split = stage_split(lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
+        _print_split(f"attn_block B={batch} S={S} stages", split)
+        # Not the table's library call (no one PyTorch call computes the
+        # block): the same function composed of library calls, in turns.
+        wqkv = torch.cat([lp["wq"], lp["wk"], lp["wv"]], dim=1)
+        comp = lambda: composed_attn_block(x, lp["ln_attn"], wqkv, lp["wo"], cos, sin, H, KV, hd,  # noqa: E731
+                                           dec.rms_norm_eps)
+        _check_bf16("attn_block vs the composed library chain", got[0], comp())
+        chain_ms, composed_ms = _alternate(comp, lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
+        print(f"attn_block B={batch} S={S}: hand-written chain {chain_ms:.4f} ms, composed library chain "
+              f"{composed_ms:.4f} ms, ratio {chain_ms / composed_ms:.3f} (device time)")
+        cases.append({**_case("attn_block", f"B={batch} S={S}", err, f"{BF16_KERNEL_TOL} x max|plain|",
+                              ms, plain_ms, bound),
+                      "stages": split, "composed_library_ms": composed_ms, "chain_ms_beside_it": chain_ms})
     return _row("attn_block", cases)
 
 
@@ -719,9 +811,11 @@ def bench_attn_block_kv_quant(dec, S: int) -> dict:
         ms, plain_ms = _alternate(lambda: ab.attn_block_plain(x, *w, cos, sin, **kw),
                                   lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
         bound = _bound(_nbytes(x, *w, cos, sin, *got), sum(_attn_flops(batch, S, D, H, KV, hd)), PEAK_BF16)
+        split = stage_split(lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
+        _print_split(f"attn_block_kv_quant B={batch} S={S} stages", split)
         cases.append({**_case("attn_block_kv_quant", f"B={batch} S={S}", err,
                               f"{BF16_KERNEL_TOL} x max|plain|; int8 k/v {INT8_LEVELS} level, "
-                              f"scales {SCALE_RTOL:.2e} rel", ms, plain_ms, bound), **kv})
+                              f"scales {SCALE_RTOL:.2e} rel", ms, plain_ms, bound), **kv, "stages": split})
     return _row("attn_block_kv_quant", cases)
 
 
@@ -747,9 +841,11 @@ def bench_attn_block_w8a8(dec, S: int) -> dict:
         proj, attn = _attn_flops(batch, S, D, H, KV, hd)
         t_ops = proj / PEAK_INT8 + attn / PEAK_BF16
         bound = _bound(_nbytes(x, ln, *w, cos, sin, *got), t_ops * PEAK_BF16, PEAK_BF16)
+        split = stage_split(lambda: aw.attn_block_w8a8_cuda(x, ln, *w, cos, sin, **kw))
+        _print_split(f"attn_block_w8a8 B={batch} S={S} stages", split)
         cases.append({**_case("attn_block_w8a8", f"B={batch} S={S} kv_quant", err,
                               f"{BF16_KERNEL_TOL} x max|plain|; int8 k/v {INT8_LEVELS} level, "
-                              f"scales {SCALE_RTOL:.2e} rel", ms, plain_ms, bound), **kv})
+                              f"scales {SCALE_RTOL:.2e} rel", ms, plain_ms, bound), **kv, "stages": split})
     return _row("attn_block_w8a8", cases)
 
 
@@ -1188,9 +1284,13 @@ def slice_phase() -> dict:
 
 
 # Kernels whose device time per request the profile reports: name -> a
-# substring of the CUDA symbol.
+# substring of the CUDA symbol. The prefill attention core's symbol is #10
+# on the GPT-2 paths and #4/#5's attention stage on the llama paths (the
+# only callers of each); rowquant_kernel is #4/#5's kv_quant launch, and on
+# the int8 path also #7's two quantizers.
 PROFILED_KERNELS = {"decode_attention": "decode_gqa_kernel", "decode_attention_int8": "decode_gqa_int8_kernel",
-                    "flash_gqa_prefill": "flash_prefill_kernel"}
+                    "prefill_attention_core": "flash_prefill_kernel", "attn_qkv_projection": "qkv_proj_",
+                    "attn_o_projection": "o_proj_", "rowquant": "rowquant_kernel"}
 
 
 def profile_request(wrapper, request, path: str) -> dict:
@@ -1221,9 +1321,120 @@ def profile_request(wrapper, request, path: str) -> dict:
             out[f"{label}_ms"] = sum(t for _, t in hits)
             out[f"{label}_launches"] = sum(n for n, _ in hits)
     print(json.dumps({"profile": path, **out}))
-    for name, (n, total) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for name, (n, total) in ranked[:8]:
         print(f"  {path} {total:9.3f} ms {n:6d} launches  {name[:110]}")
+    out["by_kernel"] = {name: [n, total] for name, (n, total) in ranked}
     return out
+
+
+# ---------------------------------------------------------------------------
+# A/B mode: #4 and #5 of one tree (this checkout's or --tree's package)
+# ---------------------------------------------------------------------------
+
+AB_DIGEST_CASES = ("attn_block", "attn_block_kv_quant", "attn_block_w8a8")
+
+
+def ab_run(tag: str, out_dir: str) -> dict:
+    """One tree's readings of #4, #4 kv_quant and #5 at v0 (B=1, B=4):
+    device-time medians (3 medians of 20 each), the per-stage split, the
+    composed library chain, the outputs of the digest cases of
+    ``tests/torch_kernel_cases.py`` (this checkout's file, on the imported
+    package; saved for ``ab_compare``), and the profile of one warm B=1
+    bf16 and int8 request. Writes ``ab_<tag>_<time>.json`` to ``out_dir``."""
+    sys.path.append(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_kernel_cases as kc
+
+    cfg = get_config("v0")
+    dec, S = cfg.decoder, cfg.prefix_length
+    D, H, KV, hd = dec.hidden_size, dec.num_heads, dec.num_kv_heads, dec.head_dim
+    res = {"tree": tag, "t": time.time(), "device": torch.cuda.get_device_name(0)}
+    outs = {name: [t.cpu() for t in kc.digest_case(name)] for name in AB_DIGEST_CASES}
+    res["digests"] = {name: kc.digest(*o) for name, o in outs.items()}
+    res["digests"]["attn_block_w8a8_kv"] = kc.digest(*outs["attn_block_w8a8"][1:])
+    path = os.path.join(out_dir, f"ab_{tag}_outputs.pt")
+    if not os.path.exists(path):
+        torch.save(outs, path)
+    rng = np.random.default_rng(SEED + 2)
+    lp = _decoder_layer(rng, dec)
+    w16 = [lp[k] for k in ("ln_attn", "wq", "wk", "wv", "wo")]
+    w8 = [lp["ln_attn"]] + [t for shape in ((D, H * hd), (D, KV * hd), (D, KV * hd), (H * hd, D))
+                            for t in _int8_weight(rng, *shape)]
+    cos, sin = llama.rope_device_tables(dec, S, torch.bfloat16, "cuda")
+    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd, eps=dec.rms_norm_eps)
+    wqkv = torch.cat([lp["wq"], lp["wk"], lp["wv"]], dim=1)
+    for batch in (1, 4):
+        x = _bf16(rng, batch, S, D, scale=0.5)
+        calls = {"attn_block": lambda: ab.attn_block_cuda(x, *w16, cos, sin, **kw),
+                 "attn_block_kv_quant": lambda: ab.attn_block_cuda(x, *w16, cos, sin, **kw, kv_quant=True),
+                 "attn_block_w8a8": lambda: aw.attn_block_w8a8_cuda(x, *w8, cos, sin, **kw, kv_quant=True)}
+        for name, call in calls.items():
+            key = f"{name} B={batch}"
+            call()
+            times = [_median_ms(call) for _ in range(3)]
+            res[key] = {"ms": statistics.median(times), "ms_all": times, "stages": stage_split(call)}
+            _print_split(f"{tag} {key}", res[key]["stages"])
+            print(f"{tag} {key}: {statistics.median(times):.4f} ms ({min(times):.4f}-{max(times):.4f})")
+        comp = lambda: composed_attn_block(x, lp["ln_attn"], wqkv, lp["wo"], cos, sin, H, KV, hd,  # noqa: E731
+                                           dec.rms_norm_eps)
+        res[f"composed_library B={batch}"] = statistics.median(_median_ms(comp) for _ in range(3))
+        print(f"{tag} composed library chain B={batch}: {res[f'composed_library B={batch}']:.4f} ms")
+    params = init_params(cfg, SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        req = [_write_wav(os.path.join(tmp, "a.wav"), 7.0, 1), _write_wav(os.path.join(tmp, "b.wav"), 9.5, 2),
+               "caption the audio."]
+        for path in ("bf16", "int8"):
+            name, ctor, gen_kwargs = PATHS[path]
+            w = MellowWrapper(config=name, model="v0", device="cuda", params=params,
+                              tokenizer=DistinctTokenizer(), **ctor)
+            w.generate([req], max_len=MAX_LEN, **gen_kwargs)
+            res[f"profile_{path}"] = profile_request(w, req, path)
+            del w
+    with open(os.path.join(out_dir, f"ab_{tag}_{int(res['t'])}.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    print(json.dumps({"ab": tag, "digests": res["digests"]}))
+    return res
+
+
+def ab_compare(out_dir: str) -> dict:
+    """The largest bf16 ulp distance between the parent's and the change's
+    outputs on the digest tests' inputs (int8 rows: the largest level
+    difference; fp32 scales: whether they are equal)."""
+    a, b = (torch.load(os.path.join(out_dir, f"ab_{t}_outputs.pt")) for t in ("parent", "change"))
+    diff = {}
+    for name in a:
+        for i, (x, y) in enumerate(zip(a[name], b[name])):
+            if x.dtype == torch.bfloat16:
+                diff[f"{name}[{i}] max ulp"] = max_ulp(x, y)
+            elif x.dtype == torch.int8:
+                diff[f"{name}[{i}] max levels"] = int((x.int() - y.int()).abs().max().item())
+            else:
+                diff[f"{name}[{i}] equal"] = bool(torch.equal(x, y))
+    print(json.dumps({"ab_compare": diff}))
+    return diff
+
+
+def ab_main(argv) -> int:
+    """``chip_smoke.py --ab TAG [--tree DIR] [--out OUT]``: ``ab_run`` for
+    DIR's package (default this checkout); ``chip_smoke.py --ab compare
+    [--out OUT]``: ``ab_compare``. Results go to OUT (default ``build/ab``
+    of this checkout)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.abspath(argv[argv.index("--out") + 1]) if "--out" in argv else os.path.join(here, "build", "ab")
+    os.makedirs(out_dir, exist_ok=True)
+    tag = argv[argv.index("--ab") + 1]
+    if tag == "compare":
+        ab_compare(out_dir)
+        return 0
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    _build.load_library()
+    ab_run(tag, out_dir)
+    return 0
 
 
 def main() -> int:
@@ -1285,4 +1496,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_main(sys.argv) if "--ab" in sys.argv else main())

@@ -50,7 +50,7 @@
 //     16 x 64 tile through shared memory and writes it with 16-byte stores.
 // Shared memory does not grow with S; the launcher caps S at FP_MAX_S.
 //
-// Strides as in attn_core.cuh: q row s of batch b starts at b * q_bstride +
+// Strides: q row s of batch b starts at b * q_bstride +
 // s * ldq, k and v rows at b * kv_bstride + s * ldkv (head h at column h * 64,
 // group g at g * 64); bases and strides are multiples of 8 elements. The
 // output is contiguous (B, S, H * 64).

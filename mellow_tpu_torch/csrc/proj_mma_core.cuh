@@ -1,0 +1,648 @@
+// The projection GEMMs of the prefill attention blocks (#4 fused_attn_block,
+// #5 fused_attn_block_w8a8) for Hopper (sm_90a): a block owns 16 * MW rows
+// (MW warps, 16 rows each) and one 64-column tile of the output, which is
+// one head of q, k or v, or 64 columns of the o-projection.
+//
+//   q/k/v launch: every column tile of [wq | wk | wv] in one grid; a tile
+//     picks its weight, its destination and its epilogue (RoPE into the q
+//     scratch, RoPE into the strided k rows, a store into the v rows);
+//   o launch:     out = bf16(x + bf16(o @ wo)).
+//
+// The block's A operand is a panel of whole rows (all K columns) in shared
+// memory, formed once before the mainloop; each warp loads, and in the
+// q/k/v launch normalises, its own 16 rows, so the panel needs no block
+// barrier of its own:
+//   bf16: h = bf16(x * rsqrt(mean(x^2) + eps) * gamma), the row statistics
+//     in gemm_bf16.cuh's order (one warp a row, lanes 8 columns wide), so
+//     h is bit for bit what the bf16 GEMM's prologue formed;
+//   int8 (q/k/v): rowquant_kernel's arithmetic: the fp32 norm, not
+//     rounded, its sum of squares in rowquant's order (one warp a row,
+//     lanes striding one column, warp_sum), then sc = max(max|h|, 1e-8) /
+//     127 and q = clip(rint(h / sc), -127, 127) (order-free; the division
+//     without a divide, pj_quant). The int8 rows and scales are those
+//     rowquant_kernel writes, bit for bit, and never reach device memory.
+//   int8 (o): o8 and its row scales come from rowquant_kernel (a launch of
+//     its own); each 16-byte chunk is put in the panel's k order.
+// All 16 rows of a warp go through each pass side by side, so that 16
+// independent chains hide each other's latency.
+// The weight (row-major (K, cols)) streams through a ring of PJ_STAGES
+// stages of 32 rows x 64 columns, filled by 16-byte cp.async with
+// commit/wait groups (flash_prefill_core.cuh's fp_* helpers); rows past K
+// and columns past the weight's width arrive as zeros.
+//
+// The products are mma.sync in registers, each warp a 16 x 64 tile:
+//   bf16: m16n8k16 with fp32 accumulators; A by ldmatrix from the panel, B
+//     by ldmatrix.trans from the ring.
+//   int8: m16n8k32 s8 x s8 -> s32. ldmatrix.trans moves 16-bit elements,
+//     so it cannot hand a thread the four consecutive k of one int8
+//     column that the B fragment wants. Instead each thread takes
+//     ldmatrix.trans of four contiguous 8-row slices of the stage (k rows
+//     2t, 2t+1 of each, columns 2c and 2c+1) and byte-permutes them into B
+//     fragments of two columns; the k order this gives is the A panel's
+//     order too (pj_slot: the quantizer stores each row permuted), and the
+//     two columns become two "virtual" n8 blocks. An int32 sum is exact in
+//     any order, so the permutations change no bit. A thread then holds
+//     the columns 16g + 4t + {0, 1, 2, 3} of each 16-column group g.
+// The epilogue works on the registers: one warp holds a whole 64-column
+// head, so RoPE's partner of column c < 32 (c + 32) sits in the same
+// thread (n8 block j + 4 in bf16, group g + 2 in int8); q is rounded to
+// bf16 first, as the TPU kernels do. Stores go straight from registers (4
+// or 8 bytes a thread and row).
+//
+// Requirements (the wrappers check): hd = 64 (a column tile is a head), K
+// a multiple of 8 (bf16) or 16 (int8), the o-projection's N a multiple of
+// 8 (16), 16-byte aligned bases, and the shared memory of
+// proj_smem_bytes() at most PJ_MAX_DSMEM.
+
+#pragma once
+
+#include "flash_prefill_core.cuh"
+#include "func_attrs.cuh"
+
+namespace {
+
+constexpr int PJ_BN = 64;      // output columns a block: one head
+constexpr int PJ_BK = 32;      // weight rows a ring stage
+constexpr int PJ_STAGES = 4;
+constexpr int PJ_LDB16 = PJ_BN + 8;   // bf16 stage row: 144 bytes, ldmatrix conflict-free
+constexpr int PJ_LDB8 = PJ_BN + 16;   // int8 stage row: 80 bytes, conflict-free
+constexpr int PJ_MAX_DSMEM = 200 * 1024;
+
+struct ProjArgs {
+  const bf16* a;  // (M, K) bf16 rows: x (q/k/v launch) or o (bf16 o launch)
+  const signed char* a8;  // int8 o launch: o8 (M, K), per-row int8 of o
+  const float* a_scale;   // and its row scales (M)
+  const bf16* gamma;  // RMSNorm weight (K), q/k/v launch only
+  float eps;
+  const void* w[3];        // q/k/v: wq (K, Hq*64), wk, wv (K, Hkv*64); o: w[0] = wo (K, N)
+  const bf16* w_scale[3];  // int8: the per-column scales of w[i]
+  int heads_q, heads_kv;   // q/k/v: the grid's first heads_q tiles are q, then heads_kv of k, then v
+  const bf16* cos;  // (seq, 64) RoPE tables
+  const bf16* sin;
+  int seq;  // rows a batch: row m is position m % seq of batch m / seq
+  bf16* q;  // (M, heads_q * 64)
+  bf16* k;  // row s of batch b at b * kv_bstride + s * heads_kv * 64
+  bf16* v;
+  long long kv_bstride;
+  bf16* out;  // o launch: (M, N)
+  const bf16* resid;  // o launch: x, (M, N)
+  int N;
+  int M, K;
+};
+
+__host__ __device__ constexpr int pj_kpad(int K) { return (K + PJ_BK - 1) / PJ_BK * PJ_BK; }
+
+// A launch's dynamic shared memory: the bf16 rows (in int8, x staged for
+// the q/k/v launch's quantizer), the int8 panel, the weight ring.
+inline size_t proj_smem_bytes(int mw, int K, bool int8, bool qkv) {
+  const size_t kp = pj_kpad(K), rows = 16 * mw;
+  const size_t panel16 = rows * (kp + 8) * 2;
+  if (!int8) return panel16 + (size_t)PJ_STAGES * PJ_BK * PJ_LDB16 * 2;
+  return (qkv ? panel16 : 0) + rows * (kp + 16) + (size_t)PJ_STAGES * PJ_BK * PJ_LDB8;
+}
+
+// The panel position of column k of an int8 row: within each 16 columns,
+// k = 2t + i (i < 2) goes to 4t + i and k = 8 + 2t + i to 4t + 2 + i,
+// which is the k order of the B fragments the int8 mainloop assembles.
+__device__ __forceinline__ int pj_slot(int k) {
+  const int k16 = k & 15;
+  return (k & ~15) + 4 * ((k16 & 7) >> 1) + 2 * (k16 >> 3) + (k16 & 1);
+}
+
+// a / b rounded to nearest (a row's mean square), with 0 for a zero
+// numerator without dividing: fp32 division takes its slow path on a zero
+// numerator, which every row past M (zeros) would take. The same bits as
+// a / b (b is positive and finite).
+__device__ __forceinline__ float pj_div(float a, float b) { return a == 0.f ? 0.f : __fdiv_rn(a, b); }
+
+// clip(rint(h / sc), -127, 127), h / sc rounded to nearest as IEEE division
+// rounds it, without a division: inv = RN(1 / sc), q = h * inv, and two FMA
+// corrections q += (h - sc * q) * inv; the first makes q faithful, and with
+// a correctly rounded reciprocal and an exact remainder the second gives
+// RN(h / sc) (Markstein's theorem). Nothing can underflow where the
+// quotient is near an integer + 1/2 (|h| >= sc / 2 there). A division
+// (__fdiv_rn) brings a conditional call to its slow path into the loop,
+// which kept the compiler from overlapping the 16 rows.
+__device__ __forceinline__ int pj_quant(float h, float sc, float inv) {
+  float q = __fmul_rn(h, inv);
+  q = __fmaf_rn(__fmaf_rn(-sc, q, h), inv, q);
+  q = __fmaf_rn(__fmaf_rn(-sc, q, h), inv, q);
+  return min(max(__float2int_rn(q), -127), 127);
+}
+
+// gamma[k], gamma[k + 1]: the RMSNorm weight of two neighbouring columns.
+__device__ __forceinline__ float2 pj_gamma2(const bf16* gamma, int k) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gamma + k));
+}
+
+// Two neighbouring columns of rowquant's fp32 RMSNorm, (x * rs) * gamma,
+// not rounded.
+__device__ __forceinline__ float2 pj_h2(const bf16* x, float rs, float2 g) {
+  float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x));
+  h.x = __fmul_rn(__fmul_rn(h.x, rs), g.x);
+  h.y = __fmul_rn(__fmul_rn(h.y, rs), g.y);
+  return h;
+}
+
+// warp_sum (MAX = false) or warp_max (true) of 16 values at once: the same
+// butterfly for each, its rounds interleaved.
+template <bool MAX>
+__device__ __forceinline__ void pj_warp_reduce16(float (&v)[16]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const float u = __shfl_xor_sync(0xffffffffu, v[r], o);
+      v[r] = MAX ? fmaxf(v[r], u) : v[r] + u;
+    }
+}
+
+__device__ __forceinline__ void pj_mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// What a block's column tile is: its weight and its column in it, the
+// weight's row stride and width, and its epilogue.
+enum ProjTileKind { PJ_Q = 0, PJ_K = 1, PJ_V = 2, PJ_O = 3 };
+
+struct ProjTile {
+  int kind;
+  const void* w;
+  const bf16* w_scale;
+  int col0;  // first column of the tile in its weight and destination
+  int ldw;   // the weight's width (its row stride)
+};
+
+__device__ __forceinline__ ProjTile pj_tile(const ProjArgs& p, bool qkv) {
+  const int t = blockIdx.x;
+  if (!qkv) return {PJ_O, p.w[0], p.w_scale[0], t * PJ_BN, p.N};
+  const int wq = p.heads_q * PJ_BN, wkv = p.heads_kv * PJ_BN;
+  if (t < p.heads_q) return {PJ_Q, p.w[0], p.w_scale[0], t * PJ_BN, wq};
+  if (t < p.heads_q + p.heads_kv) return {PJ_K, p.w[1], p.w_scale[1], (t - p.heads_q) * PJ_BN, wkv};
+  return {PJ_V, p.w[2], p.w_scale[2], (t - p.heads_q - p.heads_kv) * PJ_BN, wkv};
+}
+
+// Ring stage kt: weight rows [32 kt, 32 kt + 32) x columns [col0, col0 +
+// 64), T = bf16 or signed char; zeros past K and past the weight's width
+// (whose multiple-of-16-bytes rows keep every chunk whole).
+template <typename T, int NT>
+__device__ __forceinline__ void pj_issue_stage(T* ring, const ProjTile& tl, int K, int kt, int tid) {
+  constexpr int EPC = 16 / sizeof(T);  // elements a 16-byte chunk
+  constexpr int CPR = PJ_BN / EPC;      // chunks a stage row
+  constexpr int LD = PJ_BN + EPC;
+  T* st = ring + (kt % PJ_STAGES) * PJ_BK * LD;
+  const T* w = static_cast<const T*>(tl.w);
+#pragma unroll
+  for (int e = tid; e < PJ_BK * CPR; e += NT) {
+    const int r = e / CPR, c = (e % CPR) * EPC;
+    const int gk = kt * PJ_BK + r, gn = tl.col0 + c;
+    const bool valid = gk < K && gn < tl.ldw;
+    fp_cp_async16(st + r * LD + c, w + (valid ? (size_t)gk * tl.ldw + gn : 0), valid);
+  }
+}
+
+// The warp's 16 rows of the (M, K) matrix a of T (bf16 or int8) into
+// `rows` (row stride ld elements), zero past M; K * sizeof(T) % 16 == 0.
+// The lanes take the rows' 16-byte chunks in turn.
+template <typename T>
+__device__ __forceinline__ void pj_issue_rows(T* rows, int ld, const T* a, int M, int K, int row0,
+                                              int lane) {
+  constexpr int EPC = 16 / sizeof(T);
+  const int cpr = K / EPC;
+  for (int e = lane; e < 16 * cpr; e += 32) {
+    const int r = e / cpr, c = (e % cpr) * EPC;
+    const bool valid = row0 + r < M;
+    fp_cp_async16(rows + r * ld + c, a + (valid ? (size_t)(row0 + r) * K + c : 0), valid);
+  }
+}
+
+// Row m's destination for the tile's columns.
+__device__ __forceinline__ bf16* pj_dst(const ProjArgs& p, const ProjTile& tl, int m) {
+  if (tl.kind == PJ_Q) return p.q + (size_t)m * (p.heads_q * PJ_BN) + tl.col0;
+  if (tl.kind == PJ_O) return p.out + (size_t)m * p.N + tl.col0;
+  bf16* base = tl.kind == PJ_K ? p.k : p.v;
+  return base + (size_t)(m / p.seq) * (size_t)p.kv_bstride +
+         (size_t)(m % p.seq) * (p.heads_kv * PJ_BN) + tl.col0;
+}
+
+// RoPE of one rounded value q at head column ch (< 64) of row m, partner
+// value `other` (column ch +- 32): q * cos + rotate_half(q) * sin.
+__device__ __forceinline__ float pj_rope(const ProjArgs& p, int m, int ch, float q, float other) {
+  const int pos = m % p.seq;
+  const float rot = ch < PJ_BN / 2 ? -other : other;
+  const float c = bf2f(p.cos[(size_t)pos * PJ_BN + ch]);
+  const float s = bf2f(p.sin[(size_t)pos * PJ_BN + ch]);
+  return q * c + rot * s;
+}
+
+// ---------------------------------------------------------------------------
+// bf16
+// ---------------------------------------------------------------------------
+
+template <int MW, bool QKV>
+__device__ __forceinline__ void pj_bf16_body(const ProjArgs& p) {
+  constexpr int NT = 32 * MW;
+  extern __shared__ __align__(128) unsigned char pj_smem[];
+  const int kp = pj_kpad(p.K);
+  const int lda = kp + 8;
+  bf16* panel = reinterpret_cast<bf16*>(pj_smem);
+  bf16* ring = panel + 16 * MW * lda;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int row0 = blockIdx.y * 16 * MW + warp * 16;  // the warp's first row
+  bf16* wrows = panel + warp * 16 * lda;
+  const ProjTile tl = pj_tile(p, QKV);
+  const int nk = kp / PJ_BK;
+
+  pj_issue_rows(wrows, lda, p.a, p.M, p.K, row0, lane);
+  for (int e = lane; e < 16 * (kp - p.K); e += 32)  // columns past K are zero
+    wrows[(e / (kp - p.K)) * lda + p.K + e % (kp - p.K)] = __float2bfloat16(0.f);
+  fp_cp_async_commit();
+  for (int s = 0; s < PJ_STAGES - 1; ++s) {
+    if (s < nk) pj_issue_stage<bf16, NT>(ring, tl, p.K, s, tid);
+    fp_cp_async_commit();
+  }
+
+  if (QKV) {
+    // The warp's rows have landed (groups complete in order): normalise
+    // them in place, h = bf16(x * rsqrt(mean(x^2) + eps) * gamma), all 16
+    // rows at once (16 independent chains; each row's order is the GEMM
+    // prologue's).
+    fp_cp_async_wait<PJ_STAGES - 1>();
+    __syncwarp();
+    float ss[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) ss[r] = 0.f;
+    for (int k = lane * 8; k < p.K; k += 256) {
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        float f[8];
+        unpack8(*reinterpret_cast<const uint4*>(wrows + r * lda + k), f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ss[r] += f[j] * f[j];
+      }
+    }
+    pj_warp_reduce16<false>(ss);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) ss[r] = rsqrtf(pj_div(ss[r], (float)p.K) + p.eps);
+    for (int k = lane * 8; k < p.K; k += 256) {
+      float g[8];
+      unpack8(ldg16(p.gamma + k), g);
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        bf16* h = wrows + r * lda + k;
+        float f[8];
+        unpack8(*reinterpret_cast<const uint4*>(h), f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) f[j] = f[j] * ss[r] * g[j];
+        *reinterpret_cast<uint4*>(h) = pack8(f);
+      }
+    }
+  }
+
+  float acc[PJ_BN / 8][4];
+#pragma unroll
+  for (int j = 0; j < PJ_BN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    fp_cp_async_wait<PJ_STAGES - 2>();
+    __syncthreads();
+    if (kt + PJ_STAGES - 1 < nk) pj_issue_stage<bf16, NT>(ring, tl, p.K, kt + PJ_STAGES - 1, tid);
+    fp_cp_async_commit();
+    const bf16* st = ring + (kt % PJ_STAGES) * PJ_BK * PJ_LDB16;
+#pragma unroll
+    for (int kk = 0; kk < PJ_BK / 16; ++kk) {
+      uint32_t a[4];
+      fp_ldmatrix_x4(a, wrows + (lane & 15) * lda + kt * PJ_BK + kk * 16 + 8 * (lane >> 4));
+      uint32_t b[PJ_BN / 16][4];
+#pragma unroll
+      for (int jj = 0; jj < PJ_BN / 16; ++jj)
+        fp_ldmatrix_x4_trans(b[jj], st + (kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * PJ_LDB16 +
+                                        16 * jj + 8 * (lane >> 4));
+#pragma unroll
+      for (int jj = 0; jj < PJ_BN / 16; ++jj) {
+        fp_mma(acc[2 * jj], a, b[jj][0], b[jj][1]);
+        fp_mma(acc[2 * jj + 1], a, b[jj][2], b[jj][3]);
+      }
+    }
+  }
+  fp_cp_async_wait<0>();
+
+  // Epilogue. Thread (gid, tig) holds rows gid, gid + 8 and, in n8 block
+  // j, columns 8j + 2 tig + {0, 1}: acc[j][{0, 1}] and acc[j][{2, 3}].
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = row0 + gid + 8 * h;
+    if (m >= p.M) continue;
+    bf16* dst = pj_dst(p, tl, m);
+    float o[PJ_BN / 8][2];
+    if (tl.kind == PJ_Q || tl.kind == PJ_K) {
+      float q[PJ_BN / 8][2];
+#pragma unroll
+      for (int j = 0; j < PJ_BN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) q[j][c] = bf16_round(acc[j][2 * h + c]);
+#pragma unroll
+      for (int j = 0; j < PJ_BN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          o[j][c] = pj_rope(p, m, 8 * j + 2 * tig + c, q[j][c], q[(j + 4) % 8][c]);
+    } else if (tl.kind == PJ_V) {
+#pragma unroll
+      for (int j = 0; j < PJ_BN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) o[j][c] = acc[j][2 * h + c];
+    } else {
+      const bf16* res = p.resid + (size_t)m * p.N + tl.col0;
+#pragma unroll
+      for (int j = 0; j < PJ_BN / 8; ++j) {
+        if (tl.col0 + 8 * j >= p.N) continue;
+        const float2 r = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(res + 8 * j + 2 * tig));
+        o[j][0] = r.x + bf16_round(acc[j][2 * h]);
+        o[j][1] = r.y + bf16_round(acc[j][2 * h + 1]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < PJ_BN / 8; ++j)
+      if (tl.kind != PJ_O || tl.col0 + 8 * j < p.N)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * tig) = fp_pack(o[j][0], o[j][1]);
+  }
+}
+
+template <int MW>
+__global__ void __launch_bounds__(32 * MW) qkv_proj_bf16_kernel(ProjArgs p) {
+  pj_bf16_body<MW, true>(p);
+}
+
+template <int MW>
+__global__ void __launch_bounds__(32 * MW) o_proj_bf16_kernel(ProjArgs p) {
+  pj_bf16_body<MW, false>(p);
+}
+
+// ---------------------------------------------------------------------------
+// int8
+// ---------------------------------------------------------------------------
+
+// The q/k/v launch's int8 rows: the warp's 16 bf16 rows x (row stride lds)
+// -> the fp32 RMSNorm, not rounded -> per-row int8 into q8 (row stride ld8,
+// each row in pj_slot order, zero past K up to the padded width) and the
+// row scales, all 16 rows at once (16 independent chains); rows past M are
+// zeros and quantize to zeros. The sum of squares keeps rowquant_kernel's
+// order (lane l sums columns l, l + 32, ..., then warp_sum); the max and
+// the quantizer are order-free and take column pairs.
+__device__ __forceinline__ void pj_quantize_rows(const bf16* x, int lds, signed char* q8, int ld8,
+                                                 int K, const bf16* gamma, float eps, int lane,
+                                                 float* row_scale) {
+  float rs[16], sc[16], inv[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) rs[r] = 0.f;
+  for (int k = lane; k < K; k += 32) {
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const float v = bf2f(x[r * lds + k]);
+      rs[r] += v * v;
+    }
+  }
+  pj_warp_reduce16<false>(rs);
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    rs[r] = rsqrtf(pj_div(rs[r], (float)K) + eps);
+    sc[r] = 0.f;
+  }
+  for (int k = 2 * lane; k < K; k += 64) {
+    const float2 g = pj_gamma2(gamma, k);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const float2 h = pj_h2(x + r * lds + k, rs[r], g);
+      sc[r] = fmaxf(sc[r], fmaxf(fabsf(h.x), fabsf(h.y)));
+    }
+  }
+  pj_warp_reduce16<true>(sc);
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    sc[r] = __fmul_rn(fmaxf(sc[r], 1e-8f), 1.f / 127.f);
+    inv[r] = __frcp_rn(sc[r]);
+  }
+  for (int k = 2 * lane; k < K; k += 64) {
+    const int slot = pj_slot(k);  // columns k, k + 1 stay neighbours
+    const float2 g = pj_gamma2(gamma, k);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const float2 h = pj_h2(x + r * lds + k, rs[r], g);
+      const unsigned int q2 =
+          (pj_quant(h.x, sc[r], inv[r]) & 0xff) | (pj_quant(h.y, sc[r], inv[r]) & 0xff) << 8;
+      *reinterpret_cast<unsigned short*>(q8 + r * ld8 + slot) = (unsigned short)q2;
+    }
+  }
+  for (int k = K + 2 * lane; k < pj_kpad(K); k += 64)  // zeros up to the padded width
+#pragma unroll
+    for (int r = 0; r < 16; ++r) *reinterpret_cast<unsigned short*>(q8 + r * ld8 + pj_slot(k)) = 0;
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < 16; ++r) row_scale[r] = sc[r];
+  }
+}
+
+template <int MW, bool QKV>
+__device__ __forceinline__ void pj_int8_body(const ProjArgs& p) {
+  constexpr int NT = 32 * MW;
+  extern __shared__ __align__(128) unsigned char pj_smem[];
+  __shared__ float row_scale[16 * MW];
+  __shared__ __align__(16) bf16 col_scale[PJ_BN];
+  const int kp = pj_kpad(p.K);
+  const int lds = kp + 8;   // bf16 staging row (elements), q/k/v launch
+  const int ld8 = kp + 16;  // int8 panel row (bytes)
+  bf16* stage = reinterpret_cast<bf16*>(pj_smem);
+  signed char* panel = reinterpret_cast<signed char*>(QKV ? stage + 16 * MW * lds : stage);
+  signed char* ring = panel + 16 * MW * ld8;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int row0 = blockIdx.y * 16 * MW + warp * 16;
+  bf16* wstage = stage + warp * 16 * lds;
+  signed char* wpanel = panel + warp * 16 * ld8;
+  const ProjTile tl = pj_tile(p, QKV);
+  const int nk = kp / PJ_BK;
+
+  if (QKV) {
+    pj_issue_rows(wstage, lds, p.a, p.M, p.K, row0, lane);
+  } else {
+    // o8's rows as they are (K = H * 64, no padding), zero past M.
+    pj_issue_rows(wpanel, ld8, p.a8, p.M, p.K, row0, lane);
+  }
+  if (tid < PJ_BN / 8) {  // the tile's per-column weight scales, zero past its width
+    const bool valid = tl.col0 + 8 * tid < tl.ldw;
+    fp_cp_async16(col_scale + 8 * tid, tl.w_scale + (valid ? tl.col0 + 8 * tid : 0), valid);
+  }
+  fp_cp_async_commit();
+  for (int s = 0; s < PJ_STAGES - 1; ++s) {
+    if (s < nk) pj_issue_stage<signed char, NT>(ring, tl, p.K, s, tid);
+    fp_cp_async_commit();
+  }
+  if (!QKV && lane < 16) row_scale[warp * 16 + lane] = row0 + lane < p.M ? p.a_scale[row0 + lane] : 0.f;
+
+  fp_cp_async_wait<PJ_STAGES - 1>();
+  __syncwarp();
+  if (QKV) {
+    pj_quantize_rows(wstage, lds, wpanel, ld8, p.K, p.gamma, p.eps, lane, row_scale + warp * 16);
+  } else {
+    // Put each 16-byte chunk of o8 in the panel's k order (pj_slot): words
+    // {k0-3, k4-7, k8-11, k12-15} -> {k0 k1 k8 k9, k2 k3 k10 k11, k4 k5 k12
+    // k13, k6 k7 k14 k15}.
+    for (int e = lane; e < 16 * (p.K / 16); e += 32) {
+      uint4* c = reinterpret_cast<uint4*>(wpanel + (e / (p.K / 16)) * ld8 + (e % (p.K / 16)) * 16);
+      const uint4 u = *c;
+      *c = make_uint4(__byte_perm(u.x, u.z, 0x5410), __byte_perm(u.x, u.z, 0x7632),
+                      __byte_perm(u.y, u.w, 0x5410), __byte_perm(u.y, u.w, 0x7632));
+    }
+  }
+
+  int acc[PJ_BN / 16][2][4];  // [16-column group][virtual n8 block][fragment]
+#pragma unroll
+  for (int g = 0; g < PJ_BN / 16; ++g)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[g][e][i] = 0;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    fp_cp_async_wait<PJ_STAGES - 2>();
+    __syncthreads();
+    if (kt + PJ_STAGES - 1 < nk) pj_issue_stage<signed char, NT>(ring, tl, p.K, kt + PJ_STAGES - 1, tid);
+    fp_cp_async_commit();
+    const signed char* st = ring + (kt % PJ_STAGES) * PJ_BK * PJ_LDB8;
+    uint32_t a[4];  // rows gid (+8), panel slots 4 tig.. (+16)
+    fp_ldmatrix_x4(a, reinterpret_cast<const bf16*>(wpanel + (lane & 15) * ld8 + kt * PJ_BK +
+                                                     16 * (lane >> 4)));
+#pragma unroll
+    for (int g = 0; g < PJ_BN / 16; ++g) {
+      // r[i]: k rows 8i + 2 tig, 8i + 2 tig + 1 of columns 16g + 2 gid, + 1.
+      uint32_t r[4];
+      fp_ldmatrix_x4_trans(r, reinterpret_cast<const bf16*>(st + lane * PJ_LDB8 + 16 * g));
+      pj_mma_s8(acc[g][0], a, __byte_perm(r[0], r[1], 0x6420), __byte_perm(r[2], r[3], 0x6420));
+      pj_mma_s8(acc[g][1], a, __byte_perm(r[0], r[1], 0x7531), __byte_perm(r[2], r[3], 0x7531));
+    }
+  }
+  fp_cp_async_wait<0>();
+
+  // Epilogue: v = float(C) * row_scale * col_scale. Thread (gid, tig) holds
+  // rows gid, gid + 8 and, in group g, columns 16g + 4 tig + c for c = 0..3:
+  // acc[g][c & 1][(c >> 1) + 2h] for row gid + 8h.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = row0 + gid + 8 * h;
+    if (m >= p.M) continue;
+    bf16* dst = pj_dst(p, tl, m);
+    const float rsc = row_scale[warp * 16 + gid + 8 * h];
+    float v[PJ_BN / 16][4];
+#pragma unroll
+    for (int g = 0; g < PJ_BN / 16; ++g)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = tl.col0 + 16 * g + 4 * tig + c;
+        v[g][c] = tl.kind == PJ_O && col >= p.N
+                      ? 0.f
+                      : __fmul_rn(__fmul_rn((float)acc[g][c & 1][(c >> 1) + 2 * h], rsc),
+                                  bf2f(col_scale[16 * g + 4 * tig + c]));
+      }
+    float o[PJ_BN / 16][4];
+    if (tl.kind == PJ_Q || tl.kind == PJ_K) {
+#pragma unroll
+      for (int g = 0; g < PJ_BN / 16; ++g)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[g][c] = bf16_round(v[g][c]);
+#pragma unroll
+      for (int g = 0; g < PJ_BN / 16; ++g)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          o[g][c] = pj_rope(p, m, 16 * g + 4 * tig + c, v[g][c], v[(g + 2) % 4][c]);
+    } else if (tl.kind == PJ_V) {
+#pragma unroll
+      for (int g = 0; g < PJ_BN / 16; ++g)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[g][c] = v[g][c];
+    } else {
+      const bf16* res = p.resid + (size_t)m * p.N + tl.col0;
+#pragma unroll
+      for (int g = 0; g < PJ_BN / 16; ++g) {
+        if (tl.col0 + 16 * g >= p.N) continue;
+        const uint2 u = *reinterpret_cast<const uint2*>(res + 16 * g + 4 * tig);
+        const float2 r0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 r1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        o[g][0] = r0.x + bf16_round(v[g][0]);
+        o[g][1] = r0.y + bf16_round(v[g][1]);
+        o[g][2] = r1.x + bf16_round(v[g][2]);
+        o[g][3] = r1.y + bf16_round(v[g][3]);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < PJ_BN / 16; ++g)
+      if (tl.kind != PJ_O || tl.col0 + 16 * g < p.N)
+        *reinterpret_cast<uint2*>(dst + 16 * g + 4 * tig) =
+            make_uint2(fp_pack(o[g][0], o[g][1]), fp_pack(o[g][2], o[g][3]));
+  }
+}
+
+template <int MW>
+__global__ void __launch_bounds__(32 * MW) qkv_proj_int8_kernel(ProjArgs p) {
+  pj_int8_body<MW, true>(p);
+}
+
+template <int MW>
+__global__ void __launch_bounds__(32 * MW) o_proj_int8_kernel(ProjArgs p) {
+  pj_int8_body<MW, false>(p);
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+template <int MW, bool INT8, bool QKV>
+constexpr auto pj_kernel() {
+  if constexpr (INT8) {
+    if constexpr (QKV) return &qkv_proj_int8_kernel<MW>;
+    else return &o_proj_int8_kernel<MW>;
+  } else {
+    if constexpr (QKV) return &qkv_proj_bf16_kernel<MW>;
+    else return &o_proj_bf16_kernel<MW>;
+  }
+}
+
+template <int MW, bool INT8, bool QKV>
+int pj_launch_mw(const ProjArgs& p, int tiles, cudaStream_t stream) {
+  const size_t smem = proj_smem_bytes(MW, p.K, INT8, QKV);
+  if (smem > (size_t)PJ_MAX_DSMEM) return (int)cudaErrorInvalidValue;
+  constexpr auto kernel = pj_kernel<MW, INT8, QKV>();
+  static std::atomic<bool> attrs_set[MELLOW_MAX_DEVICES];
+  const cudaError_t err = set_func_attrs_once(attrs_set, [&] {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PJ_MAX_DSMEM);
+  });
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(tiles, (p.M + 16 * MW - 1) / (16 * MW));
+  kernel<<<grid, 32 * MW, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// One projection launch: q/k/v (QKV, heads_q + 2 heads_kv column tiles) or
+// the o-projection (N / 64 tiles, rounded up). Rows a block, by device
+// time of the whole chain at v0 (S=389) on an NVIDIA H100 80GB HBM3 at
+// 700 W: bf16 64 (MW = 4): 0.0461 ms against 0.0466 for 32 rows at B=1,
+// 0.0806 against 0.0831 at B=4; int8 32 (MW = 2): 0.1049 against 0.1192
+// at B=4 (its q/k/v blocks stage x as well, so 64-row blocks fit one an
+// SM), 0.0630 against 0.0627 at B=1.
+template <bool INT8, bool QKV>
+int launch_proj(const ProjArgs& p, cudaStream_t stream) {
+  const int tiles = QKV ? p.heads_q + 2 * p.heads_kv : (p.N + PJ_BN - 1) / PJ_BN;
+  return pj_launch_mw<INT8 ? 2 : 4, INT8, QKV>(p, tiles, stream);
+}
+
+}  // namespace

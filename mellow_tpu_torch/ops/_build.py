@@ -42,7 +42,7 @@ SIGNATURES = {
     "mellow_mlp_block": [_P] * 7 + [_I, _I, _I, _F, _P],
     "mellow_swin_block": [_P] * 20 + [_I, _I, _I, _I, _F, _F, _P],
     "mellow_decode_attention_int8": [_P] * 8 + [_I] * 6 + [_L, _I, _L, _L, _I, _P],
-    "mellow_attn_block_w8a8": [_P] * 17 + [_L] + [_P] * 6 + [_L, _P, _P, _L] + [_I] * 6 + [_F, _P],
+    "mellow_attn_block_w8a8": [_P] * 15 + [_L] + [_P] * 6 + [_L, _P, _P, _L] + [_I] * 6 + [_F, _P],
     "mellow_mlp_block_w8a8": [_P] * 14 + [_I, _I, _I, _F, _P],
     "mellow_flash_gqa_prefill": [_P] * 4 + [_L, _I, _L, _I] + [_I] * 5 + [_P],
     "mellow_window_attention": [_P] * 4 + [_I] * 4 + [_F, _P],

@@ -17,10 +17,12 @@ TPU kernel's ``kv_quant`` mode (an int8 cache, ``_emit_quantized_kv``) k and
 v come back quantized per position over all KV*hd lanes (``ops/int8.py``
 ``rowquant``): ``(out, k8, v8, k_scale, v_scale)``, the scales ``(B, S)``
 fp32. ``attn_block`` dispatches by device. ``LAUNCHES`` counts calls of the
-kernel chain, each ``KERNELS_PER_CALL`` launches (q, k, v projections,
-causal attention, o-projection); ``LAUNCHES_KV_QUANT`` counts the
-``kv_quant`` calls, each ``KERNELS_PER_CALL_KV_QUANT`` launches (the chain
-and the k/v quantizer).
+kernel chain, each ``KERNELS_PER_CALL`` launches (one q/k/v projection
+over the column tiles of all three weights, the causal attention, the
+o-projection); ``LAUNCHES_KV_QUANT`` counts the ``kv_quant`` calls, each
+``KERNELS_PER_CALL_KV_QUANT`` launches (the chain and the k/v quantizer).
+``check_geometry`` refuses what the kernels do not take;
+``ops/attn_block_w8a8.py`` shares it.
 """
 
 from __future__ import annotations
@@ -34,9 +36,42 @@ from mellow_tpu_torch.ops.int8 import rowquant
 from mellow_tpu_torch.ops.mlp_block import mm, rms_norm
 
 LAUNCHES = 0
-KERNELS_PER_CALL = 5
+KERNELS_PER_CALL = 3
 LAUNCHES_KV_QUANT = 0
-KERNELS_PER_CALL_KV_QUANT = 6
+KERNELS_PER_CALL_KV_QUANT = 4
+
+HEAD_DIM = 64  # a projection column tile is one head (csrc PJ_BN); the attention core's width
+MAX_S = 8192  # the attention core's cap (csrc FP_MAX_S)
+MAX_SHARED = 200 * 1024  # the projections' dynamic shared memory cap (csrc PJ_MAX_DSMEM)
+TILE_ROWS = {False: 64, True: 32}  # the projections' rows a block, bf16 and int8 (csrc launch_proj)
+RING_STAGES, RING_ROWS = 4, 32  # the weight ring (csrc PJ_STAGES, PJ_BK)
+
+
+def proj_shared_bytes(K: int, int8: bool, qkv: bool = True) -> int:
+    """A projection launch's dynamic shared memory (csrc
+    ``proj_smem_bytes``): the block's bf16 rows of the (M, K) operand (in
+    int8, x staged for the q/k/v launch's quantizer), the int8 panel, the
+    weight ring."""
+    rows = TILE_ROWS[int8]
+    kp = -(-K // RING_ROWS) * RING_ROWS
+    rows16 = rows * (kp + 8) * 2
+    if not int8:
+        return rows16 + RING_STAGES * RING_ROWS * (HEAD_DIM + 8) * 2
+    return (rows16 if qkv else 0) + rows * (kp + 16) + RING_STAGES * RING_ROWS * (HEAD_DIM + 16)
+
+
+def check_geometry(D: int, num_heads: int, num_kv_heads: int, head_dim: int, seq: int, int8: bool) -> None:
+    """Raises ValueError on a geometry the kernels do not take: hd other
+    than 64, H not a multiple of KV, D not a multiple of 8 (16 in int8), S
+    outside 1..``MAX_S``, or a projection's shared memory over
+    ``MAX_SHARED``."""
+    H, KV = num_heads, num_kv_heads
+    if head_dim != HEAD_DIM or KV < 1 or H % KV or D % (16 if int8 else 8) or not 1 <= seq <= MAX_S:
+        raise ValueError(f"unsupported geometry hd={head_dim}, H={H}, KV={KV}, D={D}, S={seq}")
+    need = max(proj_shared_bytes(D, int8), proj_shared_bytes(H * head_dim, int8, False))
+    if need > MAX_SHARED:
+        raise ValueError(f"D={D}, H*hd={H * head_dim} need {need} bytes of shared memory a projection "
+                         f"block of {TILE_ROWS[int8]} rows, over the kernels' {MAX_SHARED}")
 
 
 def rope_rounded(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
@@ -176,10 +211,7 @@ def attn_block_cuda(x, ln_w, wq, wk, wv, wo, cos, sin, *, num_heads: int, num_kv
             or wo.shape != (H * hd, D) or cos.shape != (S, hd) or sin.shape != (S, hd)
             or ln_w.shape != (D,)):
         raise ValueError("attn_block_cuda: weight shapes do not match x and the head geometry")
-    # The RoPE epilogue pairs columns within one 64-wide GEMM tile, and the
-    # attention kernel is built for hd = 64 only (every config's head size).
-    if hd != 64 or H % KV or D % 8 or not 1 <= S <= 1024:
-        raise ValueError(f"unsupported geometry hd={hd}, H={H}, KV={KV}, D={D}, S={S}")
+    check_geometry(D, H, KV, hd, S, False)
     dev = x.device
     k_rows, v_rows, k8, v8, ks, vs = kv_destinations(x, KV, hd, k_out, v_out, kv_quant,
                                                      k_scale_out, v_scale_out)

@@ -16,9 +16,9 @@ per-column scales, which the wrapper casts to the compute dtype (the kernels
 widen them to fp32). With ``kv_quant`` (an int8 cache) k and v come back
 quantized per position as in ``ops/attn_block.py``. ``attn_block_w8a8``
 dispatches by device; ``LAUNCHES`` counts calls of the kernel chain, each
-``KERNELS_PER_CALL`` launches in ``kv_quant`` mode (norm and quantize,
-three projections, causal attention, quantize, o-projection, the k/v
-quantizer), one fewer without it.
+``KERNELS_PER_CALL`` launches in ``kv_quant`` mode (one q/k/v projection
+that norms and quantizes its rows itself, causal attention, the quantizer
+of o, the o-projection, the k/v quantizer), one fewer without it.
 """
 
 from __future__ import annotations
@@ -29,11 +29,12 @@ import torch
 
 from mellow_tpu_torch.ops._build import check, load_library
 from mellow_tpu_torch.ops.attn_block import (
-    causal_gqa_plain, copy_kv, kv_destinations, kv_quant_plain, kv_results, quant_args, rope_rounded)
+    causal_gqa_plain, check_geometry, copy_kv, kv_destinations, kv_quant_plain, kv_results, quant_args,
+    rope_rounded)
 from mellow_tpu_torch.ops.int8 import mm8, rms_norm_f32, rowquant
 
 LAUNCHES = 0
-KERNELS_PER_CALL = 8
+KERNELS_PER_CALL = 5
 
 
 def attn_block_w8a8_plain(x, ln_w, wq_q, wq_s, wk_q, wk_s, wv_q, wv_s, wo_q, wo_s, cos, sin, *,
@@ -77,29 +78,24 @@ def attn_block_w8a8_cuda(x, ln_w, wq_q, wq_s, wk_q, wk_s, wv_q, wv_s, wo_q, wo_s
             or wv_s.shape != (KV * hd,) or wo_s.shape != (D,) or cos.shape != (S, hd)
             or sin.shape != (S, hd) or ln_w.shape != (D,)):
         raise ValueError("attn_block_w8a8_cuda: weight shapes do not match x and the head geometry")
-    # int8 rows load as 16-byte vectors: every contraction depth and width
-    # is a multiple of 16; the RoPE epilogue and attention core take hd = 64.
-    if hd != 64 or H % KV or D % 16 or not 1 <= S <= 1024:
-        raise ValueError(f"unsupported geometry hd={hd}, H={H}, KV={KV}, D={D}, S={S}")
+    # int8 rows load as 16-byte vectors: D is a multiple of 16.
+    check_geometry(D, H, KV, hd, S, True)
     dev = x.device
     k_rows, v_rows, k8, v8, ks, vs = kv_destinations(x, KV, hd, k_out, v_out, kv_quant,
                                                      k_scale_out, v_scale_out)
     lib = load_library()
-    M = B * S
-    h8 = torch.empty((M, D), dtype=torch.int8, device=dev)
-    hs = torch.empty((M,), dtype=torch.float32, device=dev)
     q_buf = torch.empty((B, S, H * hd), dtype=x.dtype, device=dev)
     o_buf = torch.empty_like(q_buf)
-    o8 = torch.empty((M, H * hd), dtype=torch.int8, device=dev)
-    os_ = torch.empty((M,), dtype=torch.float32, device=dev)
+    o8 = torch.empty((B * S, H * hd), dtype=torch.int8, device=dev)
+    os_ = torch.empty((B * S,), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         err = lib.mellow_attn_block_w8a8(
             x.data_ptr(), ln_w.data_ptr(), wq_q.data_ptr(), wq_s.data_ptr(), wk_q.data_ptr(),
             wk_s.data_ptr(), wv_q.data_ptr(), wv_s.data_ptr(), wo_q.data_ptr(), wo_s.data_ptr(),
-            cos.data_ptr(), sin.data_ptr(), h8.data_ptr(), hs.data_ptr(), q_buf.data_ptr(),
-            k_rows.data_ptr(), v_rows.data_ptr(), k_rows.stride(0), o_buf.data_ptr(),
-            o8.data_ptr(), os_.data_ptr(), out.data_ptr(), *quant_args(k8, v8, ks, vs),
+            cos.data_ptr(), sin.data_ptr(), q_buf.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(),
+            k_rows.stride(0), o_buf.data_ptr(), o8.data_ptr(), os_.data_ptr(), out.data_ptr(),
+            *quant_args(k8, v8, ks, vs),
             B, S, D, H, KV, hd, float(eps), torch.cuda.current_stream().cuda_stream,
         )
     check(err, "W8A8 attention block kernel")

@@ -72,3 +72,36 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     args = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in _inputs().items()}
     with pytest.raises(ValueError, match="CUDA"):
         ab.attn_block_cuda(*args.values(), **KW)
+
+
+def test_attn_block_geometry_and_shared_memory():
+    """The geometry #4's and #5's kernels take (``ab.check_geometry``),
+    without a card: four head geometries from one position to the
+    attention core's cap, the projections' shared memory at v0 against the
+    kernels' layout (csrc ``proj_smem_bytes``: 64-row blocks in bf16, 32 in
+    int8), and the refusals at every edge."""
+    for int8 in (False, True):
+        for S in (1, 389, ab.MAX_S):
+            for H, KV in ((9, 3), (12, 12), (8, 2), (12, 4)):
+                ab.check_geometry(576, H, KV, 64, S, int8)
+    # bf16: 64 rows of (576 + 8) bf16 and 4 stages of 32 x 72 bf16; the int8
+    # q/k/v launch stages 32 rows of x, its 32 rows of 576 + 16 int8 and the
+    # int8 ring's 4 x 32 x 80; the int8 o launch has no bf16 rows.
+    assert ab.proj_shared_bytes(576, False) == 64 * 584 * 2 + 4 * 32 * 72 * 2
+    assert ab.proj_shared_bytes(576, True) == 32 * 584 * 2 + 32 * 592 + 4 * 32 * 80
+    assert ab.proj_shared_bytes(560, False) == 64 * 584 * 2 + 4 * 32 * 72 * 2  # K padded to 576
+    assert ab.proj_shared_bytes(576, True, qkv=False) == 32 * 592 + 4 * 32 * 80  # o8 straight in
+    for bad in (dict(seq=0), dict(seq=ab.MAX_S + 1), dict(head_dim=32), dict(num_kv_heads=2), dict(D=580)):
+        args = dict(D=576, num_heads=9, num_kv_heads=3, head_dim=64, seq=389, int8=False)
+        with pytest.raises(ValueError, match="unsupported"):
+            ab.check_geometry(**{**args, **bad})
+    with pytest.raises(ValueError, match="unsupported"):
+        ab.check_geometry(584, 9, 3, 64, 389, True)  # int8 rows need D % 16 == 0
+    ab.check_geometry(584, 9, 3, 64, 389, False)
+    # 64 bf16 rows of K = 1536 overflow the projections' shared memory; 32
+    # int8 rows with x staged fit, and at K = 2048 they do not.
+    with pytest.raises(ValueError, match="shared memory"):
+        ab.check_geometry(1536, 24, 8, 64, 389, False)
+    ab.check_geometry(1536, 24, 8, 64, 389, True)
+    with pytest.raises(ValueError, match="shared memory"):
+        ab.check_geometry(2048, 32, 8, 64, 389, True)

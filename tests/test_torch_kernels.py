@@ -12,14 +12,18 @@ neighbouring bf16, or an int8 activation to the neighbouring level); int8
 k/v rows within one level of the plain version and their scales within
 2^-7 relative (one bf16 ulp of the row's max).
 
-The kernels this file's digests name (#3 with one extra row at a cluster
-of one block, #4 and #5, whose attention core ``attn_core.cuh`` is shared)
-must give, bit for bit, the outputs their previous versions gave on the
-same seeded inputs: the digests were recorded on an NVIDIA H100 from the
-kernels of the commit before the int8 flush window and the redesigns of
-#2 and #10. #3's other cluster sizes stay within one bf16 ulp of it."""
-
-import hashlib
+The kernels this file's digests name must give, bit for bit, the outputs
+recorded on an NVIDIA H100 from the same seeded inputs: #3 with one extra
+row at a cluster of one block (recorded from the kernel before the int8
+flush window and the redesigns of #2 and #10; #3's other cluster sizes
+stay within one bf16 ulp of it); #4 and #4 ``kv_quant`` as recorded from
+their redesign onto ``proj_mma_core.cuh`` and ``flash_prefill_core.cuh``
+(the fp32 order of their bf16 products moved); #5, whole and its int8 k/v
+rows and scales alone, as recorded from the chain before that redesign,
+which the redesign keeps bit for bit (exact int32 sums, the same
+quantizer order, the same attention arithmetic). The seeded inputs and the
+digest cases are in ``tests/torch_kernel_cases.py``, which
+``chip_smoke.py --ab`` runs too."""
 
 import numpy as np
 import pytest
@@ -27,7 +31,6 @@ import torch
 
 from mellow_tpu_torch.config import FrontendConfig
 from mellow_tpu_torch.ops import frontend as fe
-from mellow_tpu_torch.models.llama import quantize_kv, quantize_weight
 from mellow_tpu_torch.ops import attn_block as ab
 from mellow_tpu_torch.ops import attn_block_w8a8 as aw
 from mellow_tpu_torch.ops import decode_attention as da
@@ -38,6 +41,12 @@ from mellow_tpu_torch.ops import mlp_block as mb
 from mellow_tpu_torch.ops import mlp_block_w8a8 as mw
 from mellow_tpu_torch.ops import swin_block as sb
 from mellow_tpu_torch.ops import window_attention as wa
+from torch_kernel_cases import bf16 as _bf16
+from torch_kernel_cases import digest as _digest
+from torch_kernel_cases import digest_case as _digest_case
+from torch_kernel_cases import int8_decode_inputs as _int8_decode_inputs
+from torch_kernel_cases import int8_weight as _int8
+from torch_kernel_cases import rope as _rope
 
 pytestmark = pytest.mark.cuda
 
@@ -102,10 +111,6 @@ def test_log_mel_kernel_takes_other_lengths(device, seconds):
 
 
 BF16_TOL = 2e-2
-
-
-def _bf16(rng, *shape, scale=1.0, device="cuda"):
-    return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(device, torch.bfloat16)
 
 
 def _close_bf16(out, ref):
@@ -264,12 +269,6 @@ def test_decode_attention_kernel_at_every_head_dim(device, n, hd):
 # int8 kernels
 # ---------------------------------------------------------------------------
 
-def _int8(rng, *shape, scale=0.05):
-    """int8 (in, out) weight values and their bf16 per-column scales."""
-    q = quantize_weight(torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).cuda())
-    return q["q"], q["scale"].bfloat16()
-
-
 def _close_kv(got, want):
     """(k8, v8, k_scale, v_scale) against the plain version's."""
     for g, w in zip(got[:2], want[:2]):
@@ -277,19 +276,6 @@ def _close_kv(got, want):
         assert (g.int() - w.int()).abs().max().item() <= 1
     for g, w in zip(got[2:], want[2:]):
         torch.testing.assert_close(g, w, rtol=2.0 ** -7, atol=0)
-
-
-def _int8_decode_inputs(B, n, E, s_max=450):
-    """q, an int8 cache layer of s_max positions with its scales, and E bf16
-    extra rows as a slice of a flush window's (B, 8, KV, hd) buffer."""
-    rng = np.random.RandomState(n + 1)
-    H, KV, hd = 9, 3, 64
-    q = _bf16(rng, B, H, hd)
-    k8, ks = quantize_kv(_bf16(rng, B, s_max, KV * hd, scale=0.5))
-    v8, vs = quantize_kv(_bf16(rng, B, s_max, KV * hd))
-    k8, v8 = k8.reshape(B, s_max, KV, hd), v8.reshape(B, s_max, KV, hd)
-    extra = (_bf16(rng, B, 8, KV, hd, scale=0.5)[:, :E], _bf16(rng, B, 8, KV, hd)[:, :E])
-    return q, k8, v8, ks, vs, extra
 
 
 @pytest.mark.parametrize("B, n, E", [(1, 389, 1), (4, 420, 1), (2, 7, 1), (1, 389, 4), (4, 420, 8),
@@ -350,13 +336,6 @@ def test_int8_decode_attention_kernel_rejects_extra_counts(device, E):
         di.decode_attention_int8_cuda(q, k8, v8, ks, vs, 9, *extra)
 
 
-def _rope(S, hd):
-    t = torch.arange(S, dtype=torch.float32, device="cuda")[:, None]
-    inv = 1.0 / (100000.0 ** (torch.arange(0, hd, 2, device="cuda").float() / hd))
-    emb = torch.cat([t * inv, t * inv], dim=-1)
-    return emb.cos().bfloat16(), emb.sin().bfloat16()
-
-
 @pytest.mark.parametrize("B, S", [(1, 389), (2, 100)])
 def test_attn_block_kv_quant_kernel_matches_plain_version(device, B, S):
     rng = np.random.RandomState(S + 3)
@@ -399,6 +378,69 @@ def test_attn_block_w8a8_kernel_matches_plain_version(device, B, S, kv_quant):
     else:
         for got, want in zip(out[1:], ref[1:]):
             _close_bf16(got, want)
+
+
+BLOCK_SHAPES = [(B, S, H, KV) for H, KV in ((9, 3), (12, 12), (8, 2), (12, 4))
+                for S in (1, 17, 63, 64, 65, 389, 1024) for B in (1, 4)]
+# The attention core's upper edge, at B = 1: the plain version holds
+# (B, H, S, S) fp32 scores several times over.
+BLOCK_SHAPES += [(1, ab.MAX_S, H, KV) for H, KV in ((9, 3), (12, 12), (8, 2), (12, 4))]
+
+
+def _block_case(kind, B, S, H, KV):
+    """Seeded inputs of one attention-block call: (args, kwargs) of the
+    CUDA wrapper and of the plain version, k/v going into a strided cache
+    slice with 8 positions of room past S (int8 with its scales in
+    ``kv_quant`` mode)."""
+    rng = np.random.RandomState(S * 7 + B * 3 + H + KV)
+    D, hd = 576, 64
+    x = _bf16(rng, B, S, D, scale=0.5)
+    if kind == "w8a8":
+        ws = [_bf16(rng, D, scale=0.1) + 1] + [t for shape in ((D, H * hd), (D, KV * hd), (D, KV * hd),
+                                                               (H * hd, D)) for t in _int8(rng, *shape)]
+    else:
+        ws = [_bf16(rng, D, scale=0.1) + 1, _bf16(rng, D, H * hd, scale=0.05), _bf16(rng, D, KV * hd, scale=0.05),
+              _bf16(rng, D, KV * hd, scale=0.05), _bf16(rng, H * hd, D, scale=0.05)]
+    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd, eps=1e-5, kv_quant=kind != "bf16")
+    dt = torch.bfloat16 if kind == "bf16" else torch.int8
+    cache = torch.zeros((2, B, S + 8, KV, hd), dtype=dt, device="cuda")
+    dst = dict(k_out=cache[0, :, :S], v_out=cache[1, :, :S])
+    scales = torch.zeros((2, B, S + 8), dtype=torch.float32, device="cuda")
+    if kind != "bf16":
+        dst.update(k_scale_out=scales[0, :, :S], v_scale_out=scales[1, :, :S])
+    return (x, *ws, *_rope(S, hd)), kw, dst, cache, scales
+
+
+@pytest.mark.parametrize("kind", ["bf16", "kv_quant", "w8a8"])
+@pytest.mark.parametrize("B, S, H, KV", BLOCK_SHAPES)
+def test_attn_block_kernels_at_every_shape(device, kind, B, S, H, KV):
+    """#4, #4 kv_quant and #5 (kv_quant) against their plain versions from
+    one position to the attention core's cap, at four head geometries, k/v
+    written into a cache slice with room past S."""
+    args, kw, dst, cache, scales = _block_case(kind, B, S, H, KV)
+    cuda, plain = ((aw.attn_block_w8a8_cuda, aw.attn_block_w8a8_plain) if kind == "w8a8"
+                   else (ab.attn_block_cuda, ab.attn_block_plain))
+    out = cuda(*args, **kw, **dst)
+    torch.cuda.synchronize()
+    ref = plain(*args, **kw)
+    _close_bf16(out[0], ref[0])
+    if kind == "bf16":
+        for got, want in zip(out[1:], ref[1:]):
+            _close_bf16(got, want)
+    else:
+        _close_kv(out[1:], ref[1:])
+    assert cache[:, :, S:].abs().sum().item() == 0 and scales[:, :, S:].abs().sum().item() == 0
+
+
+@pytest.mark.parametrize("kind", ["bf16", "w8a8"])
+@pytest.mark.parametrize("S", [0, ab.MAX_S + 1])
+def test_attn_block_kernels_refuse_past_their_edges(device, kind, S):
+    args, kw, _, _, _ = _block_case(kind, 1, 1, 9, 3)
+    x = torch.zeros((1, S, 576), dtype=torch.bfloat16, device="cuda")
+    cos = torch.zeros((S, 64), dtype=torch.bfloat16, device="cuda")
+    cuda = aw.attn_block_w8a8_cuda if kind == "w8a8" else ab.attn_block_cuda
+    with pytest.raises(ValueError, match="unsupported geometry"):
+        cuda(x, *args[1:-2], cos, cos, **kw)
 
 
 @pytest.mark.parametrize("B, S", [(1, 389), (4, 389), (2, 13)])
@@ -546,46 +588,19 @@ def test_window_attention_kernel_rejects_what_it_does_not_take(device, what):
 # outputs kept bit for bit
 # ---------------------------------------------------------------------------
 
-def _digest(*tensors) -> str:
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
-def _previous_case(name):
-    """The outputs of one kernel call on seeded inputs."""
-    if name.startswith("int8_decode"):
-        # At a cluster of one block the kernel repeats the single-block
-        # kernel's arithmetic operation for operation.
-        B, n = (1, 389) if name.endswith("b1") else (4, 420)
-        q, k8, v8, ks, vs, extra = _int8_decode_inputs(B, n, 1)
-        return (di.decode_attention_int8_cuda(q, k8, v8, ks, vs, n, *extra, blocks=1),)
-    rng = np.random.RandomState(11)
-    D, H, KV, hd, S = 576, 9, 3, 64, 389
-    x = _bf16(rng, 1, S, D, scale=0.5)
-    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd, eps=1e-5, kv_quant=name != "attn_block")
-    if name == "attn_block_w8a8":
-        ln = _bf16(rng, D, scale=0.1) + 1
-        ws = [t for shape in ((D, H * hd), (D, KV * hd), (D, KV * hd), (H * hd, D)) for t in _int8(rng, *shape)]
-        return aw.attn_block_w8a8_cuda(x, ln, *ws, *_rope(S, hd), **kw)
-    ws = [_bf16(rng, D, scale=0.1) + 1, _bf16(rng, D, H * hd, scale=0.05), _bf16(rng, D, KV * hd, scale=0.05),
-          _bf16(rng, D, KV * hd, scale=0.05), _bf16(rng, H * hd, D, scale=0.05)]
-    return ab.attn_block_cuda(x, *ws, *_rope(S, hd), **kw)
-
-
 PREVIOUS_DIGESTS = {
     "int8_decode_e1_b1": "ba5ea95714dd421c",
     "int8_decode_e1_b4": "254b82997ed3bc13",
-    "attn_block": "b031f557c078b18c",
-    "attn_block_kv_quant": "da17b80f6a09dd88",
+    "attn_block": "eff42a2eef1565ae",
+    "attn_block_kv_quant": "0582beb5d9d8bbe6",
     "attn_block_w8a8": "072e3e92f10831c8",
+    "attn_block_w8a8_kv": "e7cbee64d643f5e7",
 }
 
 
 @pytest.mark.parametrize("name", list(PREVIOUS_DIGESTS))
 def test_kernels_keep_their_previous_output(device, name):
-    out = _previous_case(name)
+    out = _digest_case(name)
     torch.cuda.synchronize()
     got = _digest(*out)
     print(f"{name}: {got}")
