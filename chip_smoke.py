@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``mellow_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
-    python3 chip_smoke.py --ab TAG [--tree DIR] [--out OUT]   # #4/#5 readings of DIR's package
-    python3 chip_smoke.py --ab compare [--out OUT]            # their outputs, parent vs change
+    python3 chip_smoke.py --ab TAG [--tree DIR] [--out OUT]   # #4-#6, #8 readings of DIR's package
+    python3 chip_smoke.py --ab compare [--out OUT]            # outputs and targets, parent vs change
 
 Phases, in order; any failure raises, so the exit code is non-zero and no
 result line is printed:
@@ -30,11 +30,13 @@ result line is printed:
    timed device time); the int8 decode attention (#3) is also timed at a
    cluster of 1 block, and its outputs at clusters of 1, 8, 16 and the
    default size are held within one bf16 ulp of each other; the attention
-   blocks (#4, #4 ``kv_quant``, #5) print each launch's device time and
-   count (torch.profiler over 40 calls), and #4 is also timed in turns
-   against the same function composed of library calls (RMSNorm, one
-   matmul on the concatenated weights, RoPE, SDPA, matmul and residual),
-   a yardstick that is not the table's library call;
+   blocks (#4, #4 ``kv_quant``, #5), the MLP block (#6) and the Swin block
+   (#8, at every stage) print each launch's device time and count
+   (torch.profiler over 40 calls), and #4, #6 and #8 are also held against
+   and timed in turns beside the same function composed of library calls
+   (``composed_attn_block``, ``composed_mlp_block``,
+   ``composed_swin_block``), yardsticks that are not the table's library
+   call;
 4. fp32 path: ``MellowWrapper(config="v0", device="cuda")`` at full v0 width
    with random weights from a seed answers requests one at a time, as a
    batch, and through the port's ``BatchingEngine``; every ``generate``
@@ -76,12 +78,15 @@ result line is printed:
    prefill, decode step as the slope of two lengths, whole request), and
    torch.profiler over one warm B=1 request of each path (device time,
    kernel launches, the device's idle share, and the device time and
-   launches of the decode attention, of the prefill attention core, and
-   of #4/#5's projections and quantizers in the request).
+   launches of the decode attention, of the prefill attention core, of
+   #4/#5's projections and quantizers, and of #6's and #8's launches in
+   the request).
 
-``--ab TAG [--tree DIR]`` runs none of that: it reads #4, #4 ``kv_quant``
-and #5 of DIR's package (an earlier commit unpacked under ``build/``, or
-this checkout) for an A/B in one call (``ab_run``).
+``--ab TAG [--tree DIR]`` runs none of that: it reads #4, #4 ``kv_quant``,
+#5, #6 and #8 of DIR's package (an earlier commit unpacked under
+``build/``, or this checkout) for an A/B in one call (``ab_run``);
+``--ab compare`` prints the outputs' distance and each target of
+``AB_TARGETS`` as met or not (``ab_compare``).
 
 The launch counts are set to 0 just before each path is driven and read
 just after. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -342,7 +347,7 @@ def _host_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def stage_split(fn, calls: int = 40, tries: int = 5) -> dict:
+def stage_split(fn, calls: int = 40, tries: int = 8) -> dict:
     """The device time and launches of each CUDA kernel one call of ``fn``
     runs, from torch.profiler over ``calls`` warm calls: {kernel symbol:
     [launches a call, ms a call]}. The tracer drops kernels launched just
@@ -376,11 +381,30 @@ def stage_split(fn, calls: int = 40, tries: int = 5) -> dict:
     return {name: [n // calls, ms / calls] for name, (n, ms) in sorted(split.items(), key=lambda kv: -kv[1][1])}
 
 
+def split_or_none(fn):
+    """``stage_split``, or None where the tracer never saw whole launches a
+    call (a reading this run could not take, printed as such)."""
+    try:
+        return stage_split(fn)
+    except RuntimeError as e:
+        print(f"per-launch split not measured: {e}")
+        return None
+
+
 def _print_split(label, split) -> None:
+    if split is None:
+        return
     total = sum(ms for _, ms in split.values())
     print(f"{label}: {total:.4f} ms of kernels a call (torch.profiler over 40 calls)")
     for name, (n, ms) in split.items():
         print(f"  {label} {ms:.4f} ms {n:g} launches  {name[:100]}")
+
+
+def _rms_norm(x, ln, eps: float):
+    D = x.shape[-1]
+    if hasattr(F, "rms_norm"):
+        return F.rms_norm(x, (D,), ln, eps)
+    return (x.float() * torch.rsqrt(x.float().pow(2).mean(-1, keepdim=True) + eps) * ln.float()).to(x.dtype)
 
 
 def composed_attn_block(x, ln, wqkv, wo, cos, sin, H: int, KV: int, hd: int, eps: float):
@@ -389,11 +413,7 @@ def composed_attn_block(x, ln, wqkv, wo, cos, sin, H: int, KV: int, hd: int, eps
     ``enable_gqa``, a matmul and the residual. A yardstick timed beside
     the hand-written chain; the port never calls it."""
     B, S, D = x.shape
-    if hasattr(F, "rms_norm"):
-        h = F.rms_norm(x, (D,), ln, eps)
-    else:
-        h = (x.float() * torch.rsqrt(x.float().pow(2).mean(-1, keepdim=True) + eps) * ln.float()).to(x.dtype)
-    q, k, v = torch.matmul(h, wqkv).split((H * hd, KV * hd, KV * hd), dim=-1)
+    q, k, v = torch.matmul(_rms_norm(x, ln, eps), wqkv).split((H * hd, KV * hd, KV * hd), dim=-1)
     c, s_ = cos[None, None], sin[None, None]
 
     def rope(t):
@@ -403,6 +423,40 @@ def composed_attn_block(x, ln, wqkv, wo, cos, sin, H: int, KV: int, hd: int, eps
     q, k, v = (t.unflatten(-1, (-1, hd)).transpose(1, 2) for t in (q, k, v))
     o = F.scaled_dot_product_attention(rope(q), rope(k), v, is_causal=True, enable_gqa=True)
     return x + torch.matmul(o.transpose(1, 2).reshape(B, S, H * hd), wo)
+
+
+def composed_mlp_block(x, ln, wgu, w_down, eps: float):
+    """#6's function composed of library calls: RMSNorm, one matmul on the
+    concatenated [w_gate | w_up], silu times up, a matmul and the residual.
+    A yardstick timed beside the hand-written chain; the port never calls
+    it."""
+    g, u = torch.matmul(_rms_norm(x, ln, eps), wgu).chunk(2, dim=-1)
+    return x + torch.matmul(F.silu(g) * u, w_down)
+
+
+def composed_swin_block(x, p, bias, mask, H: int, eps: float = 1e-5):
+    """#8's function composed of library calls: LayerNorm, the qkv linear,
+    SDPA over the 8 x 8 windows with the bias (and the shift mask) as its
+    additive mask, the proj linear and the residual, LayerNorm, fc1,
+    tanh-GELU, fc2 and the residual. A yardstick timed beside the
+    hand-written chain; the port never calls it."""
+    B, R, _, C = x.shape
+    nWw, hd = R // 8, C // H
+
+    def lin(t, name):
+        return torch.addmm(p[name]["bias"], t.reshape(-1, t.shape[-1]), p[name]["kernel"])
+
+    def ln(t, name):
+        return F.layer_norm(t, (C,), p[name]["scale"], p[name]["bias"], eps)
+
+    qkv = lin(ln(x, "norm1"), "qkv").reshape(B, nWw, 8, nWw, 8, 3, H, hd)
+    q, k, v = qkv.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, B * nWw * nWw, H, 64, hd)
+    add = bias[None] if mask is None else bias[None] + mask.repeat(B, 1, 1)[:, None]
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=add.to(x.dtype))
+    o = o.reshape(B, nWw, nWw, H, 8, 8, hd).permute(0, 1, 4, 2, 5, 3, 6).reshape(B * R * R, C)
+    x1 = x.reshape(-1, C) + lin(o, "proj")
+    hid = F.gelu(lin(ln(x1, "norm2"), "fc1"), approximate="tanh")
+    return (x1 + lin(hid, "fc2")).reshape(B, R, R, C)
 
 
 def _write_wav(path: str, seconds: float, seed: int, sr: int = 44100) -> str:
@@ -469,6 +523,18 @@ def _case(name, shape, err, tol, ms, plain_ms, bound, library_ms=None, paired=No
                   f"ratio {k / lk:.3f}")
     return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **extra}
+
+
+def _composed(name, shape, out, composed, chain) -> dict:
+    """Not the table's library call (no one PyTorch call computes the
+    block): the same function composed of library calls, held against the
+    kernel's output within the kernel tolerance and timed beside the
+    hand-written chain in turns."""
+    _check_bf16(f"{name} vs the composed library chain", out, composed())
+    chain_ms, composed_ms = _alternate(composed, chain)
+    print(f"{name} {shape}: hand-written chain {chain_ms:.4f} ms, composed library chain "
+          f"{composed_ms:.4f} ms, ratio {chain_ms / composed_ms:.3f} (device time)")
+    return {"composed_library_ms": composed_ms, "chain_ms_beside_it": chain_ms}
 
 
 def _row(name, cases) -> dict:
@@ -566,20 +632,15 @@ def bench_attn_block(dec, S: int) -> dict:
         flops = (2 * M * D * (H + 2 * KV) * hd + 2 * M * H * hd * D
                  + 2 * 2 * batch * H * hd * (S * (S + 1) // 2))
         bound = _bound(_nbytes(x, *w, cos, sin, *got), flops, PEAK_BF16)
-        split = stage_split(lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
+        split = split_or_none(lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
         _print_split(f"attn_block B={batch} S={S} stages", split)
-        # Not the table's library call (no one PyTorch call computes the
-        # block): the same function composed of library calls, in turns.
         wqkv = torch.cat([lp["wq"], lp["wk"], lp["wv"]], dim=1)
         comp = lambda: composed_attn_block(x, lp["ln_attn"], wqkv, lp["wo"], cos, sin, H, KV, hd,  # noqa: E731
                                            dec.rms_norm_eps)
-        _check_bf16("attn_block vs the composed library chain", got[0], comp())
-        chain_ms, composed_ms = _alternate(comp, lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
-        print(f"attn_block B={batch} S={S}: hand-written chain {chain_ms:.4f} ms, composed library chain "
-              f"{composed_ms:.4f} ms, ratio {chain_ms / composed_ms:.3f} (device time)")
+        extra = _composed("attn_block", f"B={batch} S={S}", got[0], comp,
+                          lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
         cases.append({**_case("attn_block", f"B={batch} S={S}", err, f"{BF16_KERNEL_TOL} x max|plain|",
-                              ms, plain_ms, bound),
-                      "stages": split, "composed_library_ms": composed_ms, "chain_ms_beside_it": chain_ms})
+                              ms, plain_ms, bound), "stages": split, **extra})
     return _row("attn_block", cases)
 
 
@@ -598,8 +659,13 @@ def bench_mlp_block(dec, S: int) -> dict:
         ms, plain_ms = _alternate(lambda: mb.mlp_block_plain(x, *w, eps=eps),
                                   lambda: mb.mlp_block_cuda(x, *w, eps=eps))
         bound = _bound(_nbytes(x, *w, out), 2 * batch * S * D * I * 3, PEAK_BF16)
-        cases.append(_case("mlp_block", f"B={batch} S={S}", err, f"{BF16_KERNEL_TOL} x max|plain|",
-                           ms, plain_ms, bound))
+        split = split_or_none(lambda: mb.mlp_block_cuda(x, *w, eps=eps))
+        _print_split(f"mlp_block B={batch} S={S} stages", split)
+        wgu = torch.cat([lp["w_gate"], lp["w_up"]], dim=1)
+        comp = lambda: composed_mlp_block(x, lp["ln_mlp"], wgu, lp["w_down"], eps)  # noqa: E731
+        extra = _composed("mlp_block", f"B={batch} S={S}", out, comp, lambda: mb.mlp_block_cuda(x, *w, eps=eps))
+        cases.append({**_case("mlp_block", f"B={batch} S={S}", err, f"{BF16_KERNEL_TOL} x max|plain|",
+                              ms, plain_ms, bound), "stages": split, **extra})
     return _row("mlp_block", cases)
 
 
@@ -660,9 +726,13 @@ def bench_swin_block(encs) -> dict:
                 # qkv, proj, fc1, fc2 (12 C^2 per token) and the window QK^T and PV.
                 flops = 2 * M * C * 12 * C + 2 * 2 * M * N * C
                 bound = _bound(_nbytes(x, *weights, out), flops, PEAK_BF16)
-                cases.append(_case("swin_block", f"{label} stage {si + 1} B={batch} R={res} C={C} H={H} "
-                                   f"hd={C // H} SW-MSA", err, f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms,
-                                   bound))
+                shape = f"{label} stage {si + 1} B={batch} R={res} C={C} H={H} hd={C // H} SW-MSA"
+                split = split_or_none(lambda: sb.swin_block_cuda(x, p, bias, mask, **kw))
+                _print_split(f"swin_block {shape} stages", split)
+                extra = _composed("swin_block", shape, out, lambda: composed_swin_block(x, p, bias, mask, H),
+                                  lambda: sb.swin_block_cuda(x, p, bias, mask, **kw))
+                cases.append({**_case("swin_block", shape, err, f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms,
+                                      bound), "stages": split, **extra})
     return _row("swin_block", cases)
 
 
@@ -811,7 +881,7 @@ def bench_attn_block_kv_quant(dec, S: int) -> dict:
         ms, plain_ms = _alternate(lambda: ab.attn_block_plain(x, *w, cos, sin, **kw),
                                   lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
         bound = _bound(_nbytes(x, *w, cos, sin, *got), sum(_attn_flops(batch, S, D, H, KV, hd)), PEAK_BF16)
-        split = stage_split(lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
+        split = split_or_none(lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
         _print_split(f"attn_block_kv_quant B={batch} S={S} stages", split)
         cases.append({**_case("attn_block_kv_quant", f"B={batch} S={S}", err,
                               f"{BF16_KERNEL_TOL} x max|plain|; int8 k/v {INT8_LEVELS} level, "
@@ -841,7 +911,7 @@ def bench_attn_block_w8a8(dec, S: int) -> dict:
         proj, attn = _attn_flops(batch, S, D, H, KV, hd)
         t_ops = proj / PEAK_INT8 + attn / PEAK_BF16
         bound = _bound(_nbytes(x, ln, *w, cos, sin, *got), t_ops * PEAK_BF16, PEAK_BF16)
-        split = stage_split(lambda: aw.attn_block_w8a8_cuda(x, ln, *w, cos, sin, **kw))
+        split = split_or_none(lambda: aw.attn_block_w8a8_cuda(x, ln, *w, cos, sin, **kw))
         _print_split(f"attn_block_w8a8 B={batch} S={S} stages", split)
         cases.append({**_case("attn_block_w8a8", f"B={batch} S={S} kv_quant", err,
                               f"{BF16_KERNEL_TOL} x max|plain|; int8 k/v {INT8_LEVELS} level, "
@@ -1287,10 +1357,13 @@ def slice_phase() -> dict:
 # substring of the CUDA symbol. The prefill attention core's symbol is #10
 # on the GPT-2 paths and #4/#5's attention stage on the llama paths (the
 # only callers of each); rowquant_kernel is #4/#5's kv_quant launch, and on
-# the int8 path also #7's two quantizers.
+# the int8 path also #7's two quantizers. #6's launches are mlp_*, #8's
+# swin_*; before both moved off it, gemm_bf16_kernel was their shared
+# GEMM (an A/B's parent reads #6 and #8 as bf16_gemm plus swin_block).
 PROFILED_KERNELS = {"decode_attention": "decode_gqa_kernel", "decode_attention_int8": "decode_gqa_int8_kernel",
                     "prefill_attention_core": "flash_prefill_kernel", "attn_qkv_projection": "qkv_proj_",
-                    "attn_o_projection": "o_proj_", "rowquant": "rowquant_kernel"}
+                    "attn_o_projection": "o_proj_", "rowquant": "rowquant_kernel", "mlp_block": "mlp_",
+                    "swin_block": "swin_", "bf16_gemm": "gemm_bf16_kernel"}
 
 
 def profile_request(wrapper, request, path: str) -> dict:
@@ -1329,25 +1402,53 @@ def profile_request(wrapper, request, path: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# A/B mode: #4 and #5 of one tree (this checkout's or --tree's package)
+# A/B mode: #4, #5, #6 and #8 of one tree (this checkout's or --tree's package)
 # ---------------------------------------------------------------------------
 
-AB_DIGEST_CASES = ("attn_block", "attn_block_kv_quant", "attn_block_w8a8")
+AB_DIGEST_CASES = ("attn_block", "attn_block_kv_quant", "attn_block_w8a8", "mlp_block", "swin_block_s1",
+                   "swin_block_s2", "swin_block_s3", "window_attention", "window_attention_hd24")
+# The targets ``ab_compare`` reports: key -> (limit in ms, or None for half
+# the parent's time).
+AB_TARGETS = {"mlp_block B=1": 0.060, "mlp_block B=4": 0.100,
+              **{f"swin_block {stage} B={b} {msa}": limit if b == 1 else None
+                 for stage, limit in (("v0 stage 1", 0.050), ("v0 stage 2", 0.050), ("v0 stage 3", 0.070),
+                                      ("HTSAT-large stage 1", 0.110))
+                 for b in (1, 4) for msa in ("W-MSA", "SW-MSA")}}
+# One bf16 v0 request's device time in #6's 30 calls and #8's 20 (profile).
+AB_PROFILE_TARGETS = {"mlp_block": 1.8, "swin_block": 1.3}
+
+
+def _ab_time(res, tag, key, call) -> None:
+    """Three device-time medians of 20 calls and the per-launch split."""
+    call()
+    times = [_median_ms(call) for _ in range(3)]
+    res[key] = {"ms": statistics.median(times), "ms_all": times, "stages": split_or_none(call)}
+    _print_split(f"{tag} {key}", res[key]["stages"])
+    print(f"{tag} {key}: {statistics.median(times):.4f} ms ({min(times):.4f}-{max(times):.4f})")
+
+
+def _ab_composed(res, tag, key, composed) -> None:
+    res[key] = statistics.median(_median_ms(composed) for _ in range(3))
+    print(f"{tag} {key}: {res[key]:.4f} ms")
 
 
 def ab_run(tag: str, out_dir: str) -> dict:
-    """One tree's readings of #4, #4 kv_quant and #5 at v0 (B=1, B=4):
-    device-time medians (3 medians of 20 each), the per-stage split, the
-    composed library chain, the outputs of the digest cases of
-    ``tests/torch_kernel_cases.py`` (this checkout's file, on the imported
-    package; saved for ``ab_compare``), and the profile of one warm B=1
-    bf16 and int8 request. Writes ``ab_<tag>_<time>.json`` to ``out_dir``."""
+    """One tree's readings of #4, #4 kv_quant and #5 at v0 (B=1, B=4), of #6
+    at v0 (B=1, B=4), of #8 at v0's stages 1-3 and HTSAT-large's stage 1
+    and of #9 at HTSAT-large's stage 2 (B=1, B=4, W-MSA and SW-MSA):
+    device-time medians (3 medians of 20
+    each), the per-launch split, the composed library chains, the outputs of
+    the digest cases of ``tests/torch_kernel_cases.py`` (this checkout's
+    file, on the imported package; saved for ``ab_compare``), and the
+    profile of one warm B=1 bf16 and int8 request. Writes
+    ``ab_<tag>_<time>.json`` to ``out_dir``."""
     sys.path.append(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     import torch_kernel_cases as kc
 
     cfg = get_config("v0")
     dec, S = cfg.decoder, cfg.prefix_length
     D, H, KV, hd = dec.hidden_size, dec.num_heads, dec.num_kv_heads, dec.head_dim
+    eps = dec.rms_norm_eps
     res = {"tree": tag, "t": time.time(), "device": torch.cuda.get_device_name(0)}
     outs = {name: [t.cpu() for t in kc.digest_case(name)] for name in AB_DIGEST_CASES}
     res["digests"] = {name: kc.digest(*o) for name, o in outs.items()}
@@ -1360,25 +1461,40 @@ def ab_run(tag: str, out_dir: str) -> dict:
     w16 = [lp[k] for k in ("ln_attn", "wq", "wk", "wv", "wo")]
     w8 = [lp["ln_attn"]] + [t for shape in ((D, H * hd), (D, KV * hd), (D, KV * hd), (H * hd, D))
                             for t in _int8_weight(rng, *shape)]
+    w6 = [lp[k] for k in ("ln_mlp", "w_gate", "w_up", "w_down")]
     cos, sin = llama.rope_device_tables(dec, S, torch.bfloat16, "cuda")
-    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd, eps=dec.rms_norm_eps)
+    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd, eps=eps)
     wqkv = torch.cat([lp["wq"], lp["wk"], lp["wv"]], dim=1)
+    wgu = torch.cat([lp["w_gate"], lp["w_up"]], dim=1)
     for batch in (1, 4):
         x = _bf16(rng, batch, S, D, scale=0.5)
         calls = {"attn_block": lambda: ab.attn_block_cuda(x, *w16, cos, sin, **kw),
                  "attn_block_kv_quant": lambda: ab.attn_block_cuda(x, *w16, cos, sin, **kw, kv_quant=True),
-                 "attn_block_w8a8": lambda: aw.attn_block_w8a8_cuda(x, *w8, cos, sin, **kw, kv_quant=True)}
+                 "attn_block_w8a8": lambda: aw.attn_block_w8a8_cuda(x, *w8, cos, sin, **kw, kv_quant=True),
+                 "mlp_block": lambda: mb.mlp_block_cuda(x, *w6, eps=eps)}
         for name, call in calls.items():
-            key = f"{name} B={batch}"
-            call()
-            times = [_median_ms(call) for _ in range(3)]
-            res[key] = {"ms": statistics.median(times), "ms_all": times, "stages": stage_split(call)}
-            _print_split(f"{tag} {key}", res[key]["stages"])
-            print(f"{tag} {key}: {statistics.median(times):.4f} ms ({min(times):.4f}-{max(times):.4f})")
-        comp = lambda: composed_attn_block(x, lp["ln_attn"], wqkv, lp["wo"], cos, sin, H, KV, hd,  # noqa: E731
-                                           dec.rms_norm_eps)
-        res[f"composed_library B={batch}"] = statistics.median(_median_ms(comp) for _ in range(3))
-        print(f"{tag} composed library chain B={batch}: {res[f'composed_library B={batch}']:.4f} ms")
+            _ab_time(res, tag, f"{name} B={batch}", call)
+        _ab_composed(res, tag, f"composed_library B={batch}",
+                     lambda: composed_attn_block(x, lp["ln_attn"], wqkv, lp["wo"], cos, sin, H, KV, hd, eps))
+        _ab_composed(res, tag, f"composed_mlp_block B={batch}",
+                     lambda: composed_mlp_block(x, lp["ln_mlp"], wgu, lp["w_down"], eps))
+    srng = np.random.RandomState(SEED + 4)
+    for label, enc in (("v0", cfg.encoder), ("HTSAT-large", htsat_large_config().encoder)):
+        for si, R, C, Hs in _stages(enc, "swin_block"):
+            for batch in (1, 4):
+                for shifted in (False, True):
+                    x, p, bias, mask = kc.swin_inputs(srng, batch, R, C, Hs, shifted)
+                    key = f"swin_block {label} stage {si + 1} B={batch} {'SW-MSA' if shifted else 'W-MSA'}"
+                    _ab_time(res, tag, key, lambda: sb.swin_block_cuda(x, p, bias, mask, num_heads=Hs, window_size=8))
+                    _ab_composed(res, tag, "composed_" + key, lambda: composed_swin_block(x, p, bias, mask, Hs))
+    # #9 shares #8's attention core: HTSAT-large's stage 2 (R=32, C=512, H=8).
+    for batch in (1, 4):
+        for shifted in (False, True):
+            qkv = kc.bf16(srng, batch * 16, 64, 3 * 512, scale=0.5)
+            bias = kc.bf16(srng, 8, 64, 64, scale=0.5).float()
+            mask = torch.from_numpy(shifted_window_mask(32, 8, 4)).cuda() if shifted else None
+            _ab_time(res, tag, f"window_attention B={batch} {'SW-MSA' if shifted else 'W-MSA'}",
+                     lambda: wa.window_attention_cuda(qkv, bias, mask, num_heads=8))
     params = init_params(cfg, SEED)
     with tempfile.TemporaryDirectory() as tmp:
         req = [_write_wav(os.path.join(tmp, "a.wav"), 7.0, 1), _write_wav(os.path.join(tmp, "b.wav"), 9.5, 2),
@@ -1399,7 +1515,9 @@ def ab_run(tag: str, out_dir: str) -> dict:
 def ab_compare(out_dir: str) -> dict:
     """The largest bf16 ulp distance between the parent's and the change's
     outputs on the digest tests' inputs (int8 rows: the largest level
-    difference; fp32 scales: whether they are equal)."""
+    difference; fp32 scales: whether they are equal), and each target of
+    ``AB_TARGETS`` and ``AB_PROFILE_TARGETS`` as met or not, with the
+    readings of every parent and change run in ``out_dir``."""
     a, b = (torch.load(os.path.join(out_dir, f"ab_{t}_outputs.pt")) for t in ("parent", "change"))
     diff = {}
     for name in a:
@@ -1411,6 +1529,32 @@ def ab_compare(out_dir: str) -> dict:
             else:
                 diff[f"{name}[{i}] equal"] = bool(torch.equal(x, y))
     print(json.dumps({"ab_compare": diff}))
+    runs = {"parent": [], "change": []}
+    for fname in sorted(os.listdir(out_dir)):
+        tag = fname.split("_")[1] if fname.startswith("ab_") and fname.endswith(".json") else None
+        if tag in runs:
+            with open(os.path.join(out_dir, fname)) as f:
+                runs[tag].append(json.load(f))
+    if not (runs["parent"] and runs["change"]):
+        return diff
+    targets = {}
+    for key, limit in AB_TARGETS.items():
+        par = [r[key]["ms"] for r in runs["parent"] if key in r]
+        chg = [r[key]["ms"] for r in runs["change"] if key in r]
+        if not (par and chg):
+            continue
+        lim = limit if limit is not None else 0.5 * min(par)
+        targets[key] = {"parent_ms": par, "change_ms": chg, "limit_ms": lim, "met": max(chg) <= lim}
+    for name, limit in AB_PROFILE_TARGETS.items():
+        chg = [r["profile_bf16"].get(f"{name}_ms") for r in runs["change"]]
+        par = [r["profile_bf16"].get(f"{name}_ms") for r in runs["parent"]]
+        if None not in chg:
+            targets[f"profile bf16 {name}"] = {"parent_ms": par, "change_ms": chg, "limit_ms": limit,
+                                               "met": max(chg) <= limit}
+    for key, t in targets.items():
+        print(f"target {key}: parent {t['parent_ms']}, change {t['change_ms']}, limit {t['limit_ms']:.4f} ms: "
+              f"{'met' if t['met'] else 'NOT MET'}")
+    print(json.dumps({"ab_targets": targets}))
     return diff
 
 

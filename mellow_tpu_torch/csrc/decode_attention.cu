@@ -51,7 +51,7 @@
 #include <cooperative_groups.h>
 
 #include "func_attrs.cuh"
-#include "gemm_bf16.cuh"
+#include "bf16_util.cuh"
 
 namespace {
 

@@ -58,7 +58,7 @@
 #pragma once
 
 #include "func_attrs.cuh"
-#include "gemm_bf16.cuh"
+#include "bf16_util.cuh"
 
 namespace {
 

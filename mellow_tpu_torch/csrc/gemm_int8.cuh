@@ -34,9 +34,13 @@
 
 #pragma once
 
-#include "gemm_bf16.cuh"
+#include <mma.h>
+
+#include "bf16_util.cuh"
 
 namespace {
+
+namespace wmma = nvcuda::wmma;
 
 enum Epi8Kind { E8_STORE = 0, E8_ROPE = 1, E8_RESID = 2, E8_SILU_MUL = 3 };
 

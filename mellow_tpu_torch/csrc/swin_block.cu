@@ -11,53 +11,83 @@
 // b_fc1; w_fc2 (4C, C) + b_fc2; bias (H, 64, 64) fp32 relative-position
 // bias per head; mask (nW, 64, 64) fp32 or null; scratch qkv (M, 3C),
 // o (M, C), x1 (M, C), hid (M, 4C) with M = B*R*R; out (M, C). The window
-// is 8 x 8 (N = 64 tokens); hd = C / H <= 64; C a multiple of 8.
+// is 8 x 8 (N = 64 tokens); hd = C / H <= 64; C a multiple of 8; the LN
+// launches' shared memory (dense_panel_smem_bytes(C, 1)) at most
+// PJ_MAX_DSMEM.
 //
 // What bounds it: at stage 1 of v0 (B=1, R=64, C=96, H=4) the block moves
 // ~6 MB (x, the qkv, hidden and output activations, weights) and does
 // ~0.5 GFLOP; bf16 tensor cores would finish the operations in ~0.5 us,
 // so it is bound by bytes (~2 us at 3.35 TB/s) and, at this size, by the
-// latency of its five launches.
+// latency of its five dependent launches; at stage 3 (M = 256 rows) by the
+// chain of K steps of the narrowest products.
 //
-// What the design does about it: the shared tiled GEMM (gemm_bf16.cuh)
-// with the LayerNorm as a prologue and bias / residual / GELU as
-// epilogues, so neither LayerNorm output reaches device memory:
-//   1. qkv = bf16(LN1(x) @ w_qkv + b_qkv)
-//   2. o = window attention (the kernel below), windows read in place from
-//      the (B, R, R, 3C) qkv by index arithmetic (no partition copy)
-//   3. x1 = x + bf16(o @ w_proj + b_proj)
-//   4. hid = bf16(gelu_tanh(bf16(LN2(x1) @ w_fc1 + b_fc1)))
-//   5. out = x1 + bf16(hid @ w_fc2 + b_fc2)
-//
-// The attention kernel: one block per (window, head, batch row), the
-// window read in place from the (B, R, R, 3C) qkv; the core is
-// window_core.cuh's, shared with TPU kernel #9 (window_attention.cu), with
-// its head dimension padded to 32 (hd <= 32, every v0 stage) or 64 (hd 33
-// to 64: HTSAT-large's stage 1 has hd = 64). Rounding follows the TPU
-// kernel: q = bf16(q * bf16(hd^-0.5)); s = (q . k) + bias + mask in fp32;
-// p = bf16(exp(s - max) / sum) (the softmax is normalised BEFORE the PV
-// product here, unlike the decoder's attention); o = bf16(p @ v) with fp32
-// accumulation.
+// What the design does about it: the four products are proj_mma_core.cuh's
+// dense products (mma.sync in registers, the weights through the cp.async
+// ring), the attention is window_mma_core.cuh's register-resident core,
+// shared with TPU kernel #9:
+//   1. qkv = bf16(LN1(x) @ w_qkv + b_qkv): a block's 64 rows normalised
+//      once into a whole-row panel (LN1(x) never reaches device memory);
+//      the 288 columns of v0's qkv end in a half tile, zero-filled;
+//   2. o = window attention, one block per (window, head, batch row), the
+//      window's rows read in place from the (B, R, R, 3C) qkv (no partition
+//      copy); q = bf16(q * bf16(hd^-0.5)) in registers before Q K^T; s =
+//      (q . k) + bias + mask in fp32; p = bf16(exp(s - max) / sum), the
+//      softmax normalised BEFORE the PV product; o = bf16(p @ v);
+//   3. x1 = bf16(x + bf16(o @ w_proj + b_proj)): the o rows stream through
+//      the ring beside the weight's, the K tiles split over a cluster;
+//   4. hid = bf16(gelu_tanh(bf16(LN2(x1) @ w_fc1 + b_fc1))), as 1;
+//   5. out = bf16(x1 + bf16(hid @ w_fc2 + b_fc2)), as 3 (K = 4C: 1,536 at
+//      stage 3).
 
-#include "window_core.cuh"
+#include "proj_mma_core.cuh"
+#include "window_mma_core.cuh"
 
 namespace {
 
+__global__ void __launch_bounds__(128) swin_qkv_kernel(DenseArgs p) {
+  pj_dense_panel_body<PJN_LN, PJE_BIAS>(p);
+}
+
+__global__ void __launch_bounds__(128) swin_fc1_kernel(DenseArgs p) {
+  pj_dense_panel_body<PJN_LN, PJE_GELU>(p);
+}
+
+template <int KS>
+__global__ void __launch_bounds__(128) swin_proj_kernel(DenseArgs p) {
+  pj_dense_stream_body<KS>(p);
+}
+
+template <int KS>
+__global__ void __launch_bounds__(128) swin_fc2_kernel(DenseArgs p) {
+  pj_dense_stream_body<KS>(p);
+}
+
+template <int KS>
+struct SwinProj {
+  static constexpr auto value = &swin_proj_kernel<KS>;
+};
+
+template <int KS>
+struct SwinFc2 {
+  static constexpr auto value = &swin_fc2_kernel<KS>;
+};
+
+// At most 128 registers a thread, so that four blocks fit an SM (as #9's).
 template <int HDP>
-__global__ void __launch_bounds__(WIN_THREADS)
-swin_window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
-                        const float* __restrict__ mask, bf16* __restrict__ o, int R, int C, int H,
-                        int hd, float scale) {
-  __shared__ __align__(128) unsigned char smem[WindowSmem<HDP>::BYTES];
+__global__ void __launch_bounds__(WM_THREADS, 4)
+swin_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+                 const float* __restrict__ mask, bf16* __restrict__ o, int R, int C, int hd,
+                 float scale, bool vec) {
+  __shared__ __align__(128) unsigned char smem[WindowMmaSmem<HDP>::BYTES];
   const int w = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int nWw = R / WIN_WS;
-  const size_t row0 = ((size_t)b * R + (w / nWw) * WIN_WS) * R + (w % nWw) * WIN_WS;
-  window_attention_core<HDP, false>(qkv, o, row0, R, C, h, hd, scale,
-                                    bias + (size_t)h * WIN_N * WIN_N,
-                                    mask != nullptr ? mask + (size_t)w * WIN_N * WIN_N : nullptr,
-                                    smem);
+  const int nWw = R / 8;
+  const size_t row0 = ((size_t)b * R + (w / nWw) * 8) * R + (w % nWw) * 8;
+  window_mma_core<HDP, true>(qkv, o, row0, R, h, C, hd, scale, bias + (size_t)h * WM_N * WM_N,
+                             mask != nullptr ? mask + (size_t)w * WM_N * WM_N : nullptr, vec,
+                             reinterpret_cast<bf16*>(smem));
 }
 
 }  // namespace
@@ -75,46 +105,65 @@ extern "C" int mellow_swin_block(const void* x, const void* ln1_s, const void* l
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * R * R;
-  const int hd = C / H;
-  if (R % WIN_WS != 0 || hd > 64 || hd * H != C) return (int)cudaErrorInvalidValue;
+  const int hd = H > 0 ? C / H : 0;
+  if (B < 1 || R < 8 || R % 8 != 0 || hd < 1 || hd > 64 || hd * H != C || C % 8 != 0 ||
+      dense_panel_smem_bytes(C, 1) > (size_t)PJ_MAX_DSMEM)
+    return (int)cudaErrorInvalidValue;
   int err;
 
-  GemmArgs g = gemm_args(x, C, w_qkv, qkv_buf, M, 3 * C, C);
+  DenseArgs g = {};
+  g.a = static_cast<const bf16*>(x);
   g.gamma = static_cast<const bf16*>(ln1_s);
   g.beta = static_cast<const bf16*>(ln1_b);
-  g.bias = static_cast<const bf16*>(b_qkv);
   g.eps = eps;
-  if ((err = launch_gemm<NORM_LN, EPI_STORE>(g, st))) return err;
+  g.w = static_cast<const bf16*>(w_qkv);
+  g.bias = static_cast<const bf16*>(b_qkv);
+  g.out = static_cast<bf16*>(qkv_buf);
+  g.M = M;
+  g.N = 3 * C;
+  g.K = C;
+  if ((err = launch_dense_panel<&swin_qkv_kernel>(g, 1, st))) return err;
 
-  const int nW = (R / WIN_WS) * (R / WIN_WS);
-  const dim3 grid(nW, H, B);
+  const dim3 grid((R / 8) * (R / 8), H, B);
   const bf16* qkv_in = static_cast<const bf16*>(qkv_buf);
   const float* bias_in = static_cast<const float*>(bias);
   const float* mask_in = static_cast<const float*>(mask);
+  bf16* o = static_cast<bf16*>(o_buf);
+  // 16-byte copies need 8-element head slices (C % 8 == 0 keeps the rows
+  // aligned).
+  const bool vec = hd % 8 == 0;
   if (hd <= 32)
-    swin_window_attn_kernel<32><<<grid, WIN_THREADS, 0, st>>>(
-        qkv_in, bias_in, mask_in, static_cast<bf16*>(o_buf), R, C, H, hd, scale);
+    swin_attn_kernel<32><<<grid, WM_THREADS, 0, st>>>(qkv_in, bias_in, mask_in, o, R, C, hd, scale, vec);
   else
-    swin_window_attn_kernel<64><<<grid, WIN_THREADS, 0, st>>>(
-        qkv_in, bias_in, mask_in, static_cast<bf16*>(o_buf), R, C, H, hd, scale);
+    swin_attn_kernel<64><<<grid, WM_THREADS, 0, st>>>(qkv_in, bias_in, mask_in, o, R, C, hd, scale, vec);
   if ((err = (int)cudaGetLastError())) return err;
 
-  GemmArgs gp = gemm_args(o_buf, C, w_proj, x1_buf, M, C, C);
-  gp.bias = static_cast<const bf16*>(b_proj);
-  gp.resid = static_cast<const bf16*>(x);
-  gp.ld_resid = C;
-  if ((err = launch_gemm<NORM_NONE, EPI_RESID>(gp, st))) return err;
+  DenseArgs d = {};
+  d.a = o;
+  d.w = static_cast<const bf16*>(w_proj);
+  d.bias = static_cast<const bf16*>(b_proj);
+  d.resid = static_cast<const bf16*>(x);
+  d.out = static_cast<bf16*>(x1_buf);
+  d.M = M;
+  d.N = C;
+  d.K = C;
+  if ((err = launch_dense_stream<SwinProj>(d, st))) return err;
 
-  GemmArgs g1 = gemm_args(x1_buf, C, w_fc1, hid_buf, M, 4 * C, C);
+  DenseArgs g1 = g;
+  g1.a = static_cast<const bf16*>(x1_buf);
   g1.gamma = static_cast<const bf16*>(ln2_s);
   g1.beta = static_cast<const bf16*>(ln2_b);
+  g1.w = static_cast<const bf16*>(w_fc1);
   g1.bias = static_cast<const bf16*>(b_fc1);
-  g1.eps = eps;
-  if ((err = launch_gemm<NORM_LN, EPI_GELU>(g1, st))) return err;
+  g1.out = static_cast<bf16*>(hid_buf);
+  g1.N = 4 * C;
+  if ((err = launch_dense_panel<&swin_fc1_kernel>(g1, 1, st))) return err;
 
-  GemmArgs g2 = gemm_args(hid_buf, 4 * C, w_fc2, out, M, C, 4 * C);
-  g2.bias = static_cast<const bf16*>(b_fc2);
-  g2.resid = static_cast<const bf16*>(x1_buf);
-  g2.ld_resid = C;
-  return launch_gemm<NORM_NONE, EPI_RESID>(g2, st);
+  d.a = static_cast<const bf16*>(hid_buf);
+  d.w = static_cast<const bf16*>(w_fc2);
+  d.bias = static_cast<const bf16*>(b_fc2);
+  d.resid = static_cast<const bf16*>(x1_buf);
+  d.out = static_cast<bf16*>(out);
+  d.K = 4 * C;
+  return launch_dense_stream<SwinFc2>(d, st);
 }

@@ -29,7 +29,7 @@
 // of each thread's score fragment into registers) is issued at once before
 // the block's one barrier, both products run on mma.sync with the scores and
 // probabilities in registers, and the output leaves in 16-byte stores.
-// (#8, swin_block.cu, keeps window_core.cuh.)
+// #8 (swin_block.cu) runs the same core on windows read in place.
 
 #include "window_mma_core.cuh"
 
@@ -45,9 +45,9 @@ window_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
   __shared__ __align__(128) unsigned char smem[WindowMmaSmem<HDP>::BYTES];
   const int w = blockIdx.x;
   const int h = blockIdx.y;
-  window_mma_core<HDP>(qkv, o, w, h, C, hd, scale, bias + (size_t)h * WM_N * WM_N,
-                       mask != nullptr ? mask + (size_t)(w % n_mask) * WM_N * WM_N : nullptr, vec,
-                       reinterpret_cast<bf16*>(smem));
+  window_mma_core<HDP, false>(qkv, o, (size_t)w * WM_N, 8, h, C, hd, scale, bias + (size_t)h * WM_N * WM_N,
+                              mask != nullptr ? mask + (size_t)(w % n_mask) * WM_N * WM_N : nullptr, vec,
+                              reinterpret_cast<bf16*>(smem));
 }
 
 }  // namespace

@@ -1,12 +1,18 @@
 // The register-resident Swin window-attention core of TPU kernel #9
-// (pallas_window_attention.window_attention_fused) for Hopper (sm_90a).
+// (pallas_window_attention.window_attention_fused) and of the attention
+// inside TPU kernel #8 (pallas_swin_block.swin_block_fused) for Hopper
+// (sm_90a).
 //
 // One block of four warps per (window, head); warp w owns query rows
-// [16 w, 16 w + 16) of the 8 x 8 window. The function, with the TPU kernel's
-// rounding points:
-//   s = (Q K^T) * scale in fp32 (the exact bf16 products summed in fp32, then
-//       times the fp32 hd^-0.5: q is never rounded after the scale),
-//   s = s + bias + mask[w % n_mask], each add rounded in fp32,
+// [16 w, 16 w + 16) of the 8 x 8 window. The function, with the TPU kernels'
+// rounding points; where the scale applies is SCALE_Q:
+//   false (#9): s = (Q K^T) * scale in fp32 (the exact bf16 products summed
+//       in fp32, then times the fp32 hd^-0.5: q is never rounded after the
+//       scale; JAX promotes bf16 q times an np.float32 scale to fp32);
+//   true (#8): q = bf16(q * scale), scale = bf16(hd^-0.5), on the Q
+//       fragments in registers, then s = Q K^T in fp32 (pallas_swin_block
+//       rounds q to the compute dtype);
+//   s = s + bias + mask, each add rounded in fp32,
 //   p = bf16(exp(s - max) / sum), normalised before PV (0 where
 //       exp(s - max) < 2^-100: see wm_prob),
 //   o = bf16(p @ v), accumulated in fp32.
@@ -27,9 +33,11 @@
 // A head width that is not a multiple of 8 (no 16-byte copies) falls back
 // to element copies into the same layout.
 //
-// Token n (row-major in the 8 x 8 window) of window w is row w * 64 + n of
-// qkv (row length 3C: q | k | v, head h at column h * hd of each) and of the
-// output (row length C).
+// Token n (row-major in the 8 x 8 window) is row row0 + (n / 8) * row_step +
+// n % 8 of qkv (row length 3C: q | k | v, head h at column h * hd of each)
+// and of the output (row length C): row_step 8 for #9's packed (Bn, 64, 3C)
+// windows (row0 = w * 64), R for a window read in place from #8's
+// (B, R, R, 3C) grid.
 
 #pragma once
 
@@ -63,10 +71,22 @@ struct WindowMmaSmem {
   static_assert(BYTES <= 48 * 1024, "static shared memory");
 };
 
-template <int HDP>
+// Row of token n (row-major in the 8 x 8 window) in the qkv and output
+// matrices, counted from the window's first row: (n / 8) * row_step + n % 8.
+__device__ __forceinline__ int wm_row(int row_step, int n) { return (n >> 3) * row_step + (n & 7); }
+
+// q * scale rounded to bf16, for the two bf16 values of one fragment
+// register.
+__device__ __forceinline__ uint32_t wm_scale2(uint32_t q2, float scale) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q2));
+  return fp_pack(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
+}
+
+template <int HDP, bool SCALE_Q>
 __device__ __forceinline__ void window_mma_core(const bf16* __restrict__ qkv,
-                                                bf16* __restrict__ o, int w, int h, int C, int hd,
-                                                float scale, const float* __restrict__ bias_h,
+                                                bf16* __restrict__ o, size_t row0, int row_step,
+                                                int h, int C, int hd, float scale,
+                                                const float* __restrict__ bias_h,
                                                 const float* __restrict__ mask_w, bool vec,
                                                 bf16* smem) {
   using L = WindowMmaSmem<HDP>;
@@ -78,7 +98,6 @@ __device__ __forceinline__ void window_mma_core(const bf16* __restrict__ qkv,
   const int lane = tid % 32;
   const int gid = lane >> 2;  // fragment rows gid and gid + 8
   const int tig = lane & 3;   // fragment column pair
-  const size_t row0 = (size_t)w * WM_N;
   const bf16* src = qkv + row0 * 3 * C + (size_t)h * hd;
 
   // 1. Every load at once. q, k, v: 8-element chunks of each row (chunks
@@ -91,7 +110,7 @@ __device__ __forceinline__ void window_mma_core(const bf16* __restrict__ qkv,
       const int c = (e % CH) * 8;
       const bool valid = c < hd;
       fp_cp_async16(smem + which * L::TILE + n * L::LD + c,
-                    src + (size_t)n * 3 * C + which * C + (valid ? c : 0), valid);
+                    src + (size_t)wm_row(row_step, n) * 3 * C + which * C + (valid ? c : 0), valid);
     }
     fp_cp_async_commit();
   } else {
@@ -100,7 +119,7 @@ __device__ __forceinline__ void window_mma_core(const bf16* __restrict__ qkv,
       const int n = (e / HDP) % WM_N;
       const int d = e % HDP;
       smem[which * L::TILE + n * L::LD + d] =
-          d < hd ? src[(size_t)n * 3 * C + which * C + d] : __float2bfloat16(0.f);
+          d < hd ? src[(size_t)wm_row(row_step, n) * 3 * C + which * C + d] : __float2bfloat16(0.f);
     }
   }
   // The bias and mask at this thread's score fragment: rows r0, r0 + 8,
@@ -136,6 +155,10 @@ __device__ __forceinline__ void window_mma_core(const bf16* __restrict__ qkv,
       const int m = lane >> 3;
       fp_ldmatrix_x4(qa[t], Qs + (warp * 16 + (lane & 7) + 8 * (m & 1)) * L::LD + 16 * (kk + t) +
                                 8 * (m >> 1));
+      if (SCALE_Q) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[t][i] = wm_scale2(qa[t][i], scale);
+      }
     }
     uint32_t kf[WM_N / 8][4];  // K rows 8 j.., dims 16 kk + {0, 8, 16, 24}
 #pragma unroll
@@ -154,7 +177,8 @@ __device__ __forceinline__ void window_mma_core(const bf16* __restrict__ qkv,
     const float b[4] = {bm[j][0].x, bm[j][0].y, bm[j][1].x, bm[j][1].y};
     const float mk[4] = {mm[j][0].x, mm[j][0].y, mm[j][1].x, mm[j][1].y};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s[j][i] = __fadd_rn(__fadd_rn(__fmul_rn(s[j][i], scale), b[i]), mk[i]);
+    for (int i = 0; i < 4; ++i)
+      s[j][i] = __fadd_rn(__fadd_rn(SCALE_Q ? s[j][i] : __fmul_rn(s[j][i], scale), b[i]), mk[i]);
   }
   float mx[2] = {s[0][0], s[0][2]};
 #pragma unroll
@@ -218,20 +242,20 @@ __device__ __forceinline__ void window_mma_core(const bf16* __restrict__ qkv,
         fp_pack(oacc[j][2], oacc[j][3]);
   }
   __syncwarp();
-  bf16* dst = o + (row0 + warp * 16) * C + (size_t)h * hd;
+  bf16* dst = o + row0 * C + (size_t)h * hd;
   if (vec) {
     const int ch = hd / 8;
     for (int e = lane; e < 16 * ch; e += 32) {
       const int r = e / ch;
       const int c = (e % ch) * 8;
-      *reinterpret_cast<uint4*>(dst + (size_t)r * C + c) =
+      *reinterpret_cast<uint4*>(dst + (size_t)wm_row(row_step, warp * 16 + r) * C + c) =
           *reinterpret_cast<const uint4*>(os + r * L::LD + c);
     }
   } else {
     for (int e = lane; e < 16 * hd; e += 32) {
       const int r = e / hd;
       const int c = e % hd;
-      dst[(size_t)r * C + c] = os[r * L::LD + c];
+      dst[(size_t)wm_row(row_step, warp * 16 + r) * C + c] = os[r * L::LD + c];
     }
   }
 }

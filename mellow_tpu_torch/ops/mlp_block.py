@@ -11,6 +11,9 @@ Port of the TPU kernel ``mellow_tpu/ops/pallas_mlp_block.py``
 ``mlp_block`` dispatches by device: the kernel for a CUDA tensor, the plain
 version for a CPU one. ``LAUNCHES`` counts calls of the kernel chain;
 each call launches ``KERNELS_PER_CALL`` kernels (gate/up, then down).
+``check_geometry`` refuses what the kernels do not take; the shared-memory
+sizes of ``csrc/proj_mma_core.cuh``'s dense products are here too, for
+``ops/swin_block.py`` as well.
 """
 
 from __future__ import annotations
@@ -22,6 +25,39 @@ from mellow_tpu_torch.ops._build import check, load_library
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 2
+
+# csrc/proj_mma_core.cuh's dense products: 64-row blocks (launch_dense_*),
+# a ring of 4 stages of 32 weight rows x 64 columns (PJ_STAGES, PJ_BK,
+# PJ_BN; rows padded to 72 bf16), streamed A stages of 32 columns (rows
+# padded to 40), and the dynamic shared-memory cap (PJ_MAX_DSMEM).
+TILE_ROWS, RING_STAGES, RING_ROWS, TILE_COLS = 64, 4, 32, 64
+MAX_SHARED = 200 * 1024
+
+
+def panel_shared_bytes(K: int, weights: int) -> int:
+    """A panel launch's dynamic shared memory (csrc
+    ``dense_panel_smem_bytes``): the block's whole-row panel of K columns,
+    padded to a multiple of 32, and a weight ring for each weight."""
+    kp = -(-K // RING_ROWS) * RING_ROWS
+    return TILE_ROWS * (kp + 8) * 2 + weights * RING_STAGES * RING_ROWS * (TILE_COLS + 8) * 2
+
+
+# A stream launch's (csrc ``dense_stream_smem_bytes``): the A ring beside
+# the weight ring, whatever K is.
+STREAM_SHARED_BYTES = RING_STAGES * (TILE_ROWS * (RING_ROWS + 8) + RING_ROWS * (TILE_COLS + 8)) * 2
+
+
+def check_geometry(rows: int, D: int, I: int) -> None:
+    """Raises ValueError on what the kernels do not take: no rows, D or I
+    not a multiple of 8, or a gate/up launch (a panel of D columns and two
+    weight rings) over ``MAX_SHARED`` (D > 1280). The down launch streams
+    its K = I columns and takes any I."""
+    if rows < 1 or D % 8 or I % 8 or D < 8 or I < 8:
+        raise ValueError(f"unsupported MLP geometry: {rows} rows, D={D}, I={I}")
+    need = panel_shared_bytes(D, 2)
+    if need > MAX_SHARED:
+        raise ValueError(f"D={D} needs {need} bytes of shared memory a gate/up block, over the kernels' "
+                         f"{MAX_SHARED}")
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -60,10 +96,10 @@ def mlp_block_cuda(x, ln_w, w_gate, w_up, w_down, *, eps: float) -> torch.Tensor
         raise ValueError("mlp_block_cuda needs contiguous tensors")
     D = x.shape[-1]
     I = w_gate.shape[1]
-    if (w_gate.shape != (D, I) or w_up.shape != (D, I) or w_down.shape != (I, D)
-            or ln_w.shape != (D,) or D % 8 or I % 8):
+    if w_gate.shape != (D, I) or w_up.shape != (D, I) or w_down.shape != (I, D) or ln_w.shape != (D,):
         raise ValueError(f"unsupported shapes x {tuple(x.shape)}, w_gate {tuple(w_gate.shape)}")
     M = x.numel() // D
+    check_geometry(M, D, I)
     lib = load_library()
     act = torch.empty((M, I), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)

@@ -16,7 +16,8 @@ stay with the caller, as in the JAX package. ``bias`` is the (H, N, N)
 relative-position bias, ``mask`` the (nW, N, N) shifted-window mask or
 None. ``swin_block`` dispatches by device; ``LAUNCHES`` counts calls of
 the kernel chain; each call launches ``KERNELS_PER_CALL`` kernels (qkv,
-window attention, proj, fc1, fc2).
+window attention, proj, fc1, fc2). ``check_geometry`` refuses what the
+kernels do not take.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Optional
 import torch
 
 from mellow_tpu_torch.ops._build import check, load_library
-from mellow_tpu_torch.ops.mlp_block import mm
+from mellow_tpu_torch.ops.mlp_block import MAX_SHARED, mm, panel_shared_bytes
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 5
@@ -90,6 +91,23 @@ def swin_block_plain(x: torch.Tensor, p: dict, bias: torch.Tensor, mask: Optiona
     return (x1.float() + _linear(hid, p["fc2"]).float()).to(dt)
 
 
+def check_geometry(batch: int, R: int, C: int, num_heads: int, window_size: int) -> None:
+    """Raises ValueError on what the kernels do not take: a window other
+    than 8 x 8, R not a positive multiple of 8, C not a multiple of 8 or of
+    the heads, hd = C / H over 64 (the attention pads hd to 32 or 64), no
+    batch row, or a LayerNorm launch (a panel of C columns and the weight
+    ring) over ``MAX_SHARED`` (C > 1440). The proj and fc2 launches stream
+    their K columns and take any width."""
+    H = num_heads
+    if (window_size != 8 or batch < 1 or R < 8 or R % 8 or C < 8 or C % 8 or H < 1 or C % H
+            or C // H > 64):
+        raise ValueError(f"unsupported block: B={batch}, R={R}, C={C}, H={H}, ws={window_size}")
+    need = panel_shared_bytes(C, 1)
+    if need > MAX_SHARED:
+        raise ValueError(f"C={C} needs {need} bytes of shared memory a LayerNorm block, over the kernels' "
+                         f"{MAX_SHARED}")
+
+
 # The block's weights in the order the C entry point takes them.
 WEIGHT_KEYS = (("norm1", "scale"), ("norm1", "bias"), ("qkv", "kernel"), ("qkv", "bias"),
                ("proj", "kernel"), ("proj", "bias"), ("norm2", "scale"), ("norm2", "bias"),
@@ -100,8 +118,8 @@ def swin_block_cuda(x: torch.Tensor, p: dict, bias: torch.Tensor, mask: Optional
                     num_heads: int, window_size: int, eps: float = 1e-5) -> torch.Tensor:
     """The kernel chain on the current stream. x (B, R, R, C) contiguous
     bf16 CUDA; the block's weights bf16; bias (H, 64, 64) and mask
-    (nW, 64, 64) float32 on the same device; hd = C / H <= 64 and C a
-    multiple of 8."""
+    (nW, 64, 64) float32 on the same device; the geometry
+    ``check_geometry`` takes."""
     global LAUNCHES
     B, R, R2, C = x.shape
     H = num_heads
@@ -112,8 +130,9 @@ def swin_block_cuda(x: torch.Tensor, p: dict, bias: torch.Tensor, mask: Optional
         raise ValueError("swin_block_cuda needs bfloat16 activations and weights")
     if not (x.is_contiguous() and all(w.is_contiguous() for w in weights)):
         raise ValueError("swin_block_cuda needs contiguous tensors")
-    if window_size != 8 or R != R2 or R % 8 or C % H or C // H > 64 or C % 8:
-        raise ValueError(f"unsupported block: R={R}, C={C}, H={H}, ws={window_size}")
+    if R != R2:
+        raise ValueError(f"unsupported block: a {R} x {R2} grid")
+    check_geometry(B, R, C, H, window_size)
     nW = (R // 8) ** 2
     bias = bias.float().contiguous()
     if bias.shape != (H, 64, 64):

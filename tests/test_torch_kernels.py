@@ -21,9 +21,14 @@ their redesign onto ``proj_mma_core.cuh`` and ``flash_prefill_core.cuh``
 (the fp32 order of their bf16 products moved); #5, whole and its int8 k/v
 rows and scales alone, as recorded from the chain before that redesign,
 which the redesign keeps bit for bit (exact int32 sums, the same
-quantizer order, the same attention arithmetic). The seeded inputs and the
-digest cases are in ``tests/torch_kernel_cases.py``, which
-``chip_smoke.py --ab`` runs too."""
+quantizer order, the same attention arithmetic); #6 and #8 at v0's stages
+1-3 as recorded from their redesign onto ``proj_mma_core.cuh``'s dense
+products and ``window_mma_core.cuh`` (the K split of the residual
+products and the softmax's sum order moved a few bits; their digests from
+the kernels before it are in the history of this file); #9 at hd 64 and
+24 as recorded from the kernel before that redesign, which keeps its
+arithmetic. The seeded inputs and the digest cases are in
+``tests/torch_kernel_cases.py``, which ``chip_smoke.py --ab`` runs too."""
 
 import numpy as np
 import pytest
@@ -168,6 +173,39 @@ def test_mlp_block_kernel_matches_plain_version(device, B, S):
     torch.cuda.synchronize()
     assert mb.LAUNCHES == before + 1
     _close_bf16(out, mb.mlp_block_plain(*args, eps=1e-5))
+
+
+# v0's widths from one row to S = 1024; then D = 64 (two K tiles, one
+# column tile of the down product) with I = 128, and D = 768 with I = 2048.
+MLP_SHAPES = ([(S, B, 576, 1536) for S in (1, 13, 64, 389, 1024) for B in (1, 4)]
+              + [(S, B, D, I) for D, I in ((64, 128), (768, 2048)) for S in (13, 389) for B in (1, 4)])
+
+
+@pytest.mark.parametrize("S, B, D, I", MLP_SHAPES)
+def test_mlp_block_kernel_at_every_shape(device, S, B, D, I):
+    """#6 at the main path's shapes and at other widths and row counts, down
+    to one row (a row tile of 64 with 63 rows past M)."""
+    rng = np.random.RandomState(S + 7 * B + D)
+    args = [_bf16(rng, B, S, D, scale=0.5), _bf16(rng, D, scale=0.1) + 1,
+            _bf16(rng, D, I, scale=0.05), _bf16(rng, D, I, scale=0.05), _bf16(rng, I, D, scale=0.05)]
+    out = mb.mlp_block_cuda(*args, eps=1e-5)
+    torch.cuda.synchronize()
+    _close_bf16(out, mb.mlp_block_plain(*args, eps=1e-5))
+
+
+@pytest.mark.parametrize("B", [1, 2, 4])
+@pytest.mark.parametrize("shifted", [False, True], ids=["W-MSA", "SW-MSA"])
+@pytest.mark.parametrize("R, C, H", [(64, 96, 4), (32, 192, 8), (16, 384, 16), (64, 256, 4)],
+                         ids=["v0-stage1", "v0-stage2", "v0-stage3", "large-stage1"])
+def test_swin_block_kernel_at_every_stage(device, R, C, H, shifted, B):
+    """#8 at every stage that takes it on the main path (v0's 1-3, hd = 24;
+    HTSAT-large's 1, hd = 64), with and without the shift mask."""
+    from torch_kernel_cases import swin_inputs
+
+    x, p, bias, mask = swin_inputs(np.random.RandomState(R + C + B), B, R, C, H, shifted)
+    out = sb.swin_block_cuda(x, p, bias, mask, num_heads=H, window_size=8)
+    torch.cuda.synchronize()
+    _close_bf16(out, sb.swin_block_plain(x, p, bias, mask, num_heads=H, window_size=8))
 
 
 @pytest.mark.parametrize("B, R, C, H, shift", [(1, 64, 96, 4, 4), (2, 32, 192, 8, 0), (1, 16, 384, 16, 4),
@@ -595,6 +633,12 @@ PREVIOUS_DIGESTS = {
     "attn_block_kv_quant": "0582beb5d9d8bbe6",
     "attn_block_w8a8": "072e3e92f10831c8",
     "attn_block_w8a8_kv": "e7cbee64d643f5e7",
+    "mlp_block": "df660ccdbb6b308b",
+    "swin_block_s1": "f69ae46ef28529ee",
+    "swin_block_s2": "df76477670e8ffca",
+    "swin_block_s3": "387c4639b892177a",
+    "window_attention": "f29505f902725520",
+    "window_attention_hd24": "4cf044a161ad50b2",
 }
 
 

@@ -54,3 +54,25 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     args = [torch.from_numpy(a).to(torch.bfloat16) for a in _inputs()]
     with pytest.raises(ValueError, match="CUDA"):
         mb.mlp_block_cuda(*args, eps=1e-5)
+
+
+def test_mlp_block_geometry_and_shared_memory():
+    """The geometry #6's kernels take (``mb.check_geometry``), without a card:
+    the gate/up launch's shared memory against the kernels' layout (csrc
+    ``dense_panel_smem_bytes``: a 64-row panel of D columns padded to a
+    multiple of 32, plus 8, and a ring of 4 stages of 32 x 72 bf16 for each
+    of the two weights), the down launch's
+    (``dense_stream_smem_bytes``: 4 stages of 64 x 40 A and 32 x 72 weight
+    values, whatever I is), and the refusals at every edge."""
+    assert mb.panel_shared_bytes(576, 2) == 64 * 584 * 2 + 2 * 4 * 32 * 72 * 2
+    assert mb.panel_shared_bytes(560, 2) == mb.panel_shared_bytes(576, 2)  # D padded to 576
+    assert mb.panel_shared_bytes(64, 2) == 64 * 72 * 2 + 2 * 4 * 32 * 72 * 2
+    assert mb.STREAM_SHARED_BYTES == 4 * (64 * 40 + 32 * 72) * 2
+    for rows, D_, I_ in ((389, 576, 1536), (1556, 576, 1536), (1, 64, 128), (100, 768, 2048), (1, 1280, 8)):
+        mb.check_geometry(rows, D_, I_)
+    for rows, D_, I_ in ((0, 576, 1536), (389, 580, 1536), (389, 576, 1540), (389, 0, 1536), (389, 576, 0)):
+        with pytest.raises(ValueError, match="unsupported"):
+            mb.check_geometry(rows, D_, I_)
+    # The last D whose panel fits 200 KB is 1280; 1288 pads to 1312.
+    with pytest.raises(ValueError, match="shared memory"):
+        mb.check_geometry(389, 1288, 1536)

@@ -107,3 +107,33 @@ def test_gate_matches_jax_package():
     # v0: stages 1-3 take the kernel, stage 4 does not.
     assert [sb.fused_block_vmem_bytes(c, h, 8, r) <= sb.FUSED_BLOCK_BUDGET
             for c, h, r in [(96, 4, 64), (192, 8, 32), (384, 16, 16), (768, 32, 8)]] == [True, True, True, False]
+
+
+def test_swin_block_geometry_and_shared_memory():
+    """The geometry #8's kernels take (``sb.check_geometry``), without a card:
+    every stage that takes the kernel at v0 and at HTSAT-large's widths, the
+    LayerNorm launches' shared memory against the kernels' layout (csrc
+    ``dense_panel_smem_bytes``: a 64-row panel of C columns padded to a
+    multiple of 32, plus 8, and one ring of 4 stages of 32 x 72 bf16), and
+    the refusals at every edge."""
+    from mellow_tpu_torch.config import get_config
+
+    enc = get_config("v0").encoder
+    res, C_ = enc.grid_size, enc.embed_dim
+    for H_ in enc.num_heads:
+        if thtsat.kernel_route(C_, H_, 8, res) == "swin_block":
+            for batch in (1, 4):
+                sb.check_geometry(batch, res, C_, H_, 8)
+        res, C_ = res // 2, C_ * 2
+    sb.check_geometry(4, 64, 256, 4, 8)  # HTSAT-large stage 1, hd = 64
+    sb.check_geometry(1, 8, 1440, 24, 8)  # the widest panel that fits
+    assert sb.panel_shared_bytes(96, 1) == 64 * 104 * 2 + 4 * 32 * 72 * 2
+    assert sb.panel_shared_bytes(384, 1) == 64 * 392 * 2 + 4 * 32 * 72 * 2
+    assert sb.panel_shared_bytes(60, 1) == 64 * 72 * 2 + 4 * 32 * 72 * 2  # C padded to 64
+    for bad in (dict(window_size=7), dict(batch=0), dict(R=0), dict(R=12), dict(C=100, num_heads=4),
+                dict(C=96, num_heads=5), dict(C=520, num_heads=8)):
+        args = {**dict(batch=1, R=64, C=96, num_heads=4, window_size=8), **bad}
+        with pytest.raises(ValueError, match="unsupported"):
+            sb.check_geometry(**args)
+    with pytest.raises(ValueError, match="shared memory"):
+        sb.check_geometry(1, 8, 1472, 23, 8)

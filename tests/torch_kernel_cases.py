@@ -14,6 +14,9 @@ from mellow_tpu_torch.models.llama import quantize_kv, quantize_weight
 from mellow_tpu_torch.ops import attn_block as ab
 from mellow_tpu_torch.ops import attn_block_w8a8 as aw
 from mellow_tpu_torch.ops import decode_attention_int8 as di
+from mellow_tpu_torch.ops import mlp_block as mb
+from mellow_tpu_torch.ops import swin_block as sb
+from mellow_tpu_torch.ops import window_attention as wa
 
 
 def bf16(rng, *shape, scale=1.0, device="cuda"):
@@ -53,9 +56,55 @@ def digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
+# The digest cases of #8: v0's stages 1-3 at B=1 (R, C, H, shifted).
+SWIN_STAGES = {"swin_block_s1": (64, 96, 4, True), "swin_block_s2": (32, 192, 8, False),
+               "swin_block_s3": (16, 384, 16, True)}
+
+
+def swin_inputs(rng, B, R, C, H, shifted):
+    """x (B, R, R, C), the block's weights, the (H, 64, 64) bias and the
+    grid's shifted-window mask (or None)."""
+    from mellow_tpu_torch.models.htsat import shifted_window_mask
+
+    def lin(i, o):
+        return {"kernel": bf16(rng, i, o, scale=0.05), "bias": bf16(rng, o, scale=0.02)}
+
+    def ln():
+        return {"scale": bf16(rng, C, scale=0.1) + 1, "bias": bf16(rng, C, scale=0.02)}
+
+    p = {"norm1": ln(), "qkv": lin(C, 3 * C), "proj": lin(C, C), "norm2": ln(),
+         "fc1": lin(C, 4 * C), "fc2": lin(4 * C, C)}
+    x = bf16(rng, B, R, R, C, scale=0.5)
+    bias = bf16(rng, H, 64, 64, scale=0.5).float()
+    mask = torch.from_numpy(shifted_window_mask(R, 8, 4)).cuda() if shifted else None
+    return x, p, bias, mask
+
+
 def digest_case(name):
     """The outputs of one kernel call on seeded inputs (``attn_block_w8a8_kv``:
     #5's int8 k/v rows and scales alone)."""
+    if name == "mlp_block":
+        rng = np.random.RandomState(6)
+        D, I = 576, 1536
+        x = bf16(rng, 1, 389, D, scale=0.5)
+        ws = [bf16(rng, D, scale=0.1) + 1, bf16(rng, D, I, scale=0.05), bf16(rng, D, I, scale=0.05),
+              bf16(rng, I, D, scale=0.05)]
+        return (mb.mlp_block_cuda(x, *ws, eps=1e-5),)
+    if name in SWIN_STAGES:
+        R, C, H, shifted = SWIN_STAGES[name]
+        x, p, bias, mask = swin_inputs(np.random.RandomState(8), 1, R, C, H, shifted)
+        return (sb.swin_block_cuda(x, p, bias, mask, num_heads=H, window_size=8),)
+    if name.startswith("window_attention"):
+        # SW-MSA at B=1: HTSAT-large's stage 2 (R=32, C=512, H=8; hd = 64)
+        # or v0's stage 1 widths (R=64, C=96, H=4; hd = 24).
+        from mellow_tpu_torch.models.htsat import shifted_window_mask
+
+        R, C, H = (64, 96, 4) if name.endswith("hd24") else (32, 512, 8)
+        rng = np.random.RandomState(9)
+        qkv = bf16(rng, (R // 8) ** 2, 64, 3 * C, scale=0.5)
+        bias = bf16(rng, H, 64, 64, scale=0.5).float()
+        mask = torch.from_numpy(shifted_window_mask(R, 8, 4)).cuda()
+        return (wa.window_attention_cuda(qkv, bias, mask, num_heads=H),)
     if name.startswith("int8_decode"):
         # At a cluster of one block the kernel repeats the single-block
         # kernel's arithmetic operation for operation.
