@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``mellow_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
-    python3 chip_smoke.py --ab TAG [--tree DIR] [--out OUT]   # #4-#6, #8 readings of DIR's package
+    python3 chip_smoke.py --ab TAG [--tree DIR] [--out OUT]   # #1, #4-#9 readings of DIR's package
     python3 chip_smoke.py --ab compare [--out OUT]            # outputs and targets, parent vs change
 
 Phases, in order; any failure raises, so the exit code is non-zero and no
@@ -30,11 +30,12 @@ result line is printed:
    timed device time); the int8 decode attention (#3) is also timed at a
    cluster of 1 block, and its outputs at clusters of 1, 8, 16 and the
    default size are held within one bf16 ulp of each other; the attention
-   blocks (#4, #4 ``kv_quant``, #5), the MLP block (#6) and the Swin block
-   (#8, at every stage) print each launch's device time and count
-   (torch.profiler over 40 calls), and #4, #6 and #8 are also held against
-   and timed in turns beside the same function composed of library calls
-   (``composed_attn_block``, ``composed_mlp_block``,
+   blocks (#4, #4 ``kv_quant``, #5), the MLP blocks (#6, #7) and the Swin
+   block (#8, at every stage) print each launch's device time and count
+   (torch.profiler over 40 calls), and #1, #4, #6, #7 and #8 are also held
+   against and timed in turns beside the same function composed of library
+   calls (``composed_log_mel``, ``composed_attn_block``,
+   ``composed_mlp_block``, ``composed_mlp_block_w8a8``,
    ``composed_swin_block``), yardsticks that are not the table's library
    call;
 4. fp32 path: ``MellowWrapper(config="v0", device="cuda")`` at full v0 width
@@ -78,15 +79,15 @@ result line is printed:
    prefill, decode step as the slope of two lengths, whole request), and
    torch.profiler over one warm B=1 request of each path (device time,
    kernel launches, the device's idle share, and the device time and
-   launches of the decode attention, of the prefill attention core, of
-   #4/#5's projections and quantizers, and of #6's and #8's launches in
-   the request).
+   launches of the log-mel, the decode attention, the prefill attention
+   core, #4/#5's projections and quantizers, and #6's, #7's and #8's
+   launches in the request).
 
-``--ab TAG [--tree DIR]`` runs none of that: it reads #4, #4 ``kv_quant``,
-#5, #6 and #8 of DIR's package (an earlier commit unpacked under
+``--ab TAG [--tree DIR]`` runs none of that: it reads #1, #4, #4
+``kv_quant``, #5, #6, #7, #8 and #9 of DIR's package (an earlier commit unpacked under
 ``build/``, or this checkout) for an A/B in one call (``ab_run``);
 ``--ab compare`` prints the outputs' distance and each target of
-``AB_TARGETS`` as met or not (``ab_compare``).
+``AB_TARGETS`` and ``AB_PROFILE_TARGETS`` as met or not (``ab_compare``).
 
 The launch counts are set to 0 just before each path is driven and read
 just after. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -134,6 +135,7 @@ from mellow_tpu_torch.ops import mlp_block as mb
 from mellow_tpu_torch.ops import mlp_block_w8a8 as mw
 from mellow_tpu_torch.ops import swin_block as sb
 from mellow_tpu_torch.ops import window_attention as wa
+from mellow_tpu_torch.ops.int8 import rms_norm_f32, rowquant
 from mellow_tpu_torch.serving import BatchingEngine
 from mellow_tpu_torch.utils.metrics import GLOBAL as metrics
 
@@ -434,6 +436,31 @@ def composed_mlp_block(x, ln, wgu, w_down, eps: float):
     return x + torch.matmul(F.silu(g) * u, w_down)
 
 
+def composed_mlp_block_w8a8(x, ln, wg, sg, wu, su, wd, sd, eps: float):
+    """#7's function composed of library calls: the plain quantizers
+    (``ops/int8.py``) around three ``torch._int_mm`` products (exact int32
+    sums), the scales, silu and the residual. A yardstick timed beside the
+    hand-written kernels; the port never calls it."""
+    h8, hs = rowquant(rms_norm_f32(x, ln, eps))
+    h8, hs = h8.reshape(-1, x.shape[-1]), hs.reshape(-1, 1)
+    gate = F.silu(torch._int_mm(h8, wg).float() * hs * sg.float())
+    up = torch._int_mm(h8, wu).float() * hs * su.float()
+    p8, ps = rowquant(gate * up)
+    y = (torch._int_mm(p8, wd).float() * ps * sd.float()).reshape(x.shape)
+    return (x.float() + y.to(x.dtype).float()).to(x.dtype)
+
+
+def composed_log_mel(wave, cfg, window, fb):
+    """#1's function composed of library calls: ``torch.stft`` (centred,
+    reflect padding, the periodic Hann window, onesided), the power, the
+    mel projection, the clamp and the log. A yardstick timed beside the
+    hand-written kernel; the port never calls it."""
+    spec = torch.stft(wave, cfg.n_fft, cfg.hop_length, window=window, center=True, pad_mode="reflect",
+                      onesided=True, return_complex=True)
+    power = spec.real.square() + spec.imag.square()
+    return 10.0 * torch.log10(torch.clamp(power.transpose(1, 2) @ fb, min=cfg.amin)) - fe.ref_db(cfg)
+
+
 def composed_swin_block(x, p, bias, mask, H: int, eps: float = 1e-5):
     """#8's function composed of library calls: LayerNorm, the qkv linear,
     SDPA over the 8 x 8 windows with the bias (and the shift mask) as its
@@ -525,12 +552,12 @@ def _case(name, shape, err, tol, ms, plain_ms, bound, library_ms=None, paired=No
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **extra}
 
 
-def _composed(name, shape, out, composed, chain) -> dict:
+def _composed(name, shape, out, composed, chain, check=None) -> dict:
     """Not the table's library call (no one PyTorch call computes the
     block): the same function composed of library calls, held against the
-    kernel's output within the kernel tolerance and timed beside the
-    hand-written chain in turns."""
-    _check_bf16(f"{name} vs the composed library chain", out, composed())
+    kernel's output within the kernel tolerance (``check``; the bf16 one by
+    default) and timed beside the hand-written chain in turns."""
+    (check or _check_bf16)(f"{name} vs the composed library chain", out, composed())
     chain_ms, composed_ms = _alternate(composed, chain)
     print(f"{name} {shape}: hand-written chain {chain_ms:.4f} ms, composed library chain "
           f"{composed_ms:.4f} ms, ratio {chain_ms / composed_ms:.3f} (device time)")
@@ -569,8 +596,13 @@ def bench_log_mel(cfg) -> dict:
         flops = batch * cfg.num_frames * (cfg.n_fft + 2.5 * cfg.n_fft * np.log2(cfg.n_fft) + 3 * n_bins
                                           + 2 * n_bins * cfg.n_mels + cfg.n_mels)
         bound = _bound(_nbytes(wave_, out), flops, PEAK_FP32)
-        cases.append(_case("log_mel", f"B={batch}", (out - ref).abs().max().item(),
-                           f"atol {KERNEL_TOL['atol']}, rtol {KERNEL_TOL['rtol']}", ms, plain_ms, bound))
+        window = torch.from_numpy(fe.hann_window(cfg.n_fft).astype(np.float32)).cuda()
+        fb = fe.device_tables(cfg, wave_.device)[1]
+        extra = _composed("log_mel", f"B={batch}", out, lambda: composed_log_mel(wave_, cfg, window, fb),
+                          lambda: melspec.log_mel_cuda(wave_, cfg),
+                          check=lambda label, got, want: torch.testing.assert_close(got, want, **KERNEL_TOL))
+        cases.append({**_case("log_mel", f"B={batch}", (out - ref).abs().max().item(),
+                              f"atol {KERNEL_TOL['atol']}, rtol {KERNEL_TOL['rtol']}", ms, plain_ms, bound), **extra})
     return _row("log_mel", cases)
 
 
@@ -934,8 +966,13 @@ def bench_mlp_block_w8a8(dec, S: int) -> dict:
         ms, plain_ms = _alternate(lambda: mw.mlp_block_w8a8_plain(x, ln, *w, eps=eps),
                                   lambda: mw.mlp_block_w8a8_cuda(x, ln, *w, eps=eps))
         bound = _bound(_nbytes(x, ln, *w, out), 2 * batch * S * D * I * 3, PEAK_INT8)
-        cases.append(_case("mlp_block_w8a8", f"B={batch} S={S}", err, f"{BF16_KERNEL_TOL} x max|plain|",
-                           ms, plain_ms, bound))
+        split = split_or_none(lambda: mw.mlp_block_w8a8_cuda(x, ln, *w, eps=eps))
+        _print_split(f"mlp_block_w8a8 B={batch} S={S} stages", split)
+        extra = _composed("mlp_block_w8a8", f"B={batch} S={S}", out,
+                          lambda: composed_mlp_block_w8a8(x, ln, *w, eps=eps),
+                          lambda: mw.mlp_block_w8a8_cuda(x, ln, *w, eps=eps))
+        cases.append({**_case("mlp_block_w8a8", f"B={batch} S={S}", err, f"{BF16_KERNEL_TOL} x max|plain|",
+                              ms, plain_ms, bound), "stages": split, **extra})
     return _row("mlp_block_w8a8", cases)
 
 
@@ -1353,17 +1390,21 @@ def slice_phase() -> dict:
     return {"launches": launches, "calls": calls, "entries": entries, "timings": timings}
 
 
-# Kernels whose device time per request the profile reports: name -> a
-# substring of the CUDA symbol. The prefill attention core's symbol is #10
-# on the GPT-2 paths and #4/#5's attention stage on the llama paths (the
-# only callers of each); rowquant_kernel is #4/#5's kv_quant launch, and on
-# the int8 path also #7's two quantizers. #6's launches are mlp_*, #8's
-# swin_*; before both moved off it, gemm_bf16_kernel was their shared
-# GEMM (an A/B's parent reads #6 and #8 as bf16_gemm plus swin_block).
-PROFILED_KERNELS = {"decode_attention": "decode_gqa_kernel", "decode_attention_int8": "decode_gqa_int8_kernel",
-                    "prefill_attention_core": "flash_prefill_kernel", "attn_qkv_projection": "qkv_proj_",
-                    "attn_o_projection": "o_proj_", "rowquant": "rowquant_kernel", "mlp_block": "mlp_",
-                    "swin_block": "swin_", "bf16_gemm": "gemm_bf16_kernel"}
+# Kernels whose device time per request the profile reports: name -> the
+# substrings of their CUDA symbols. The prefill attention core's symbol is
+# #10 on the GPT-2 paths and #4/#5's attention stage on the llama paths
+# (the only callers of each); rowquant_kernel is #4/#5's kv_quant launch and
+# #5's o quantizer. #6's launches are mlp_gate_up/mlp_down, #7's mlp_w8a8_*,
+# #8's swin_*; the log-mel's is log_mel_*. Before #7 moved onto
+# proj_mma_core.cuh it was two gemm_int8_kernel launches (int8_gemm) between
+# a bf16 rowquant_kernel (counted under rowquant) and a fp32 one
+# (rowquant_float), as an A/B's parent reads it.
+PROFILED_KERNELS = {"log_mel": ("log_mel",), "decode_attention": ("decode_gqa_kernel",),
+                    "decode_attention_int8": ("decode_gqa_int8_kernel",),
+                    "prefill_attention_core": ("flash_prefill_kernel",), "attn_qkv_projection": ("qkv_proj_",),
+                    "attn_o_projection": ("o_proj_",), "rowquant": ("rowquant_kernel",),
+                    "rowquant_float": ("rowquant_kernel<float>",), "mlp_block": ("mlp_gate_up", "mlp_down"),
+                    "mlp_block_w8a8": ("mlp_w8a8_",), "int8_gemm": ("gemm_int8_kernel",), "swin_block": ("swin_",)}
 
 
 def profile_request(wrapper, request, path: str) -> dict:
@@ -1388,8 +1429,8 @@ def profile_request(wrapper, request, path: str) -> dict:
     out = {"wall_ms": wall_ms, "profiled_wall_ms": profiled_ms, "device_ms": device_ms,
            "kernel_launches": len(kernels), "idle_share": 1 - device_ms / wall_ms,
            "idle_share_profiled": 1 - device_ms / profiled_ms}
-    for label, sym in PROFILED_KERNELS.items():
-        hits = [(n, t) for name, (n, t) in by_name.items() if sym in name]
+    for label, syms in PROFILED_KERNELS.items():
+        hits = [(n, t) for name, (n, t) in by_name.items() if any(sym in name for sym in syms)]
         if hits:
             out[f"{label}_ms"] = sum(t for _, t in hits)
             out[f"{label}_launches"] = sum(n for n, _ in hits)
@@ -1402,20 +1443,28 @@ def profile_request(wrapper, request, path: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# A/B mode: #4, #5, #6 and #8 of one tree (this checkout's or --tree's package)
+# A/B mode: #1, #4-#9 of one tree (this checkout's or --tree's package)
 # ---------------------------------------------------------------------------
 
-AB_DIGEST_CASES = ("attn_block", "attn_block_kv_quant", "attn_block_w8a8", "mlp_block", "swin_block_s1",
-                   "swin_block_s2", "swin_block_s3", "window_attention", "window_attention_hd24")
-# The targets ``ab_compare`` reports: key -> (limit in ms, or None for half
-# the parent's time).
+AB_DIGEST_CASES = ("attn_block", "attn_block_kv_quant", "attn_block_w8a8", "mlp_block", "mlp_block_w8a8_b1",
+                   "mlp_block_w8a8_b4", "swin_block_s1", "swin_block_s2", "swin_block_s3", "window_attention",
+                   "window_attention_hd24")
+# The targets ``ab_compare`` reports: key -> limit in ms, or None for half
+# the parent's time (#6 and #8: PR 9's; #7 and #1: PR 10's).
 AB_TARGETS = {"mlp_block B=1": 0.060, "mlp_block B=4": 0.100,
+              "mlp_block_w8a8 B=1": 0.050, "mlp_block_w8a8 B=4": 0.090, "log_mel B=1": 0.030, "log_mel B=4": 0.060,
               **{f"swin_block {stage} B={b} {msa}": limit if b == 1 else None
                  for stage, limit in (("v0 stage 1", 0.050), ("v0 stage 2", 0.050), ("v0 stage 3", 0.070),
                                       ("HTSAT-large stage 1", 0.110))
                  for b in (1, 4) for msa in ("W-MSA", "SW-MSA")}}
-# One bf16 v0 request's device time in #6's 30 calls and #8's 20 (profile).
-AB_PROFILE_TARGETS = {"mlp_block": 1.8, "swin_block": 1.3}
+# A B=1 v0 request's device time (profile) in a kernel's calls: name ->
+# (path, limit in ms): #6's 30 calls and #8's 20 in bf16, #7's 30 in int8.
+AB_PROFILE_TARGETS = {"mlp_block": ("bf16", 1.8), "swin_block": ("bf16", 1.3), "mlp_block_w8a8": ("int8", 1.6)}
+# Where a parent's profile lacks a target's symbol: the profile entries that
+# held the same work before (#7: its GEMMs and its fp32 quantizer; its 30
+# bf16 quantizers share rowquant_kernel's symbol with #5's and are left
+# out, so the parent's number is a lower bound).
+AB_PROFILE_PARENT = {"mlp_block_w8a8": ("int8_gemm", "rowquant_float")}
 
 
 def _ab_time(res, tag, key, call) -> None:
@@ -1434,7 +1483,8 @@ def _ab_composed(res, tag, key, composed) -> None:
 
 def ab_run(tag: str, out_dir: str) -> dict:
     """One tree's readings of #4, #4 kv_quant and #5 at v0 (B=1, B=4), of #6
-    at v0 (B=1, B=4), of #8 at v0's stages 1-3 and HTSAT-large's stage 1
+    and #7 at v0 (B=1, B=4), of #1 on 10 s clips (B=1, B=4; with its plain
+    version), of #8 at v0's stages 1-3 and HTSAT-large's stage 1
     and of #9 at HTSAT-large's stage 2 (B=1, B=4, W-MSA and SW-MSA):
     device-time medians (3 medians of 20
     each), the per-launch split, the composed library chains, the outputs of
@@ -1447,7 +1497,7 @@ def ab_run(tag: str, out_dir: str) -> dict:
 
     cfg = get_config("v0")
     dec, S = cfg.decoder, cfg.prefix_length
-    D, H, KV, hd = dec.hidden_size, dec.num_heads, dec.num_kv_heads, dec.head_dim
+    D, H, KV, hd, I = dec.hidden_size, dec.num_heads, dec.num_kv_heads, dec.head_dim, dec.intermediate_size
     eps = dec.rms_norm_eps
     res = {"tree": tag, "t": time.time(), "device": torch.cuda.get_device_name(0)}
     outs = {name: [t.cpu() for t in kc.digest_case(name)] for name in AB_DIGEST_CASES}
@@ -1466,18 +1516,30 @@ def ab_run(tag: str, out_dir: str) -> dict:
     kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd, eps=eps)
     wqkv = torch.cat([lp["wq"], lp["wk"], lp["wv"]], dim=1)
     wgu = torch.cat([lp["w_gate"], lp["w_up"]], dim=1)
+    w7 = [1 + _bf16(rng, D, scale=0.1)] + [t for shape in ((D, I), (D, I), (I, D)) for t in _int8_weight(rng, *shape)]
     for batch in (1, 4):
         x = _bf16(rng, batch, S, D, scale=0.5)
         calls = {"attn_block": lambda: ab.attn_block_cuda(x, *w16, cos, sin, **kw),
                  "attn_block_kv_quant": lambda: ab.attn_block_cuda(x, *w16, cos, sin, **kw, kv_quant=True),
                  "attn_block_w8a8": lambda: aw.attn_block_w8a8_cuda(x, *w8, cos, sin, **kw, kv_quant=True),
-                 "mlp_block": lambda: mb.mlp_block_cuda(x, *w6, eps=eps)}
+                 "mlp_block": lambda: mb.mlp_block_cuda(x, *w6, eps=eps),
+                 "mlp_block_w8a8": lambda: mw.mlp_block_w8a8_cuda(x, *w7, eps=eps)}
         for name, call in calls.items():
             _ab_time(res, tag, f"{name} B={batch}", call)
         _ab_composed(res, tag, f"composed_library B={batch}",
                      lambda: composed_attn_block(x, lp["ln_attn"], wqkv, lp["wo"], cos, sin, H, KV, hd, eps))
         _ab_composed(res, tag, f"composed_mlp_block B={batch}",
                      lambda: composed_mlp_block(x, lp["ln_mlp"], wgu, lp["w_down"], eps))
+        _ab_composed(res, tag, f"composed_mlp_block_w8a8 B={batch}",
+                     lambda: composed_mlp_block_w8a8(x, *w7, eps=eps))
+    fcfg = cfg.frontend
+    window = torch.from_numpy(fe.hann_window(fcfg.n_fft).astype(np.float32)).cuda()
+    fb = fe.device_tables(fcfg, torch.device("cuda"))[1]
+    for batch in (1, 4):
+        wave_ = torch.from_numpy((rng.standard_normal((batch, fcfg.num_samples)) * 0.1).astype(np.float32)).cuda()
+        _ab_time(res, tag, f"log_mel B={batch}", lambda: melspec.log_mel_cuda(wave_, fcfg))
+        _ab_composed(res, tag, f"plain_log_mel B={batch}", lambda: fe.log_mel_spectrogram(wave_, fcfg))
+        _ab_composed(res, tag, f"composed_log_mel B={batch}", lambda: composed_log_mel(wave_, fcfg, window, fb))
     srng = np.random.RandomState(SEED + 4)
     for label, enc in (("v0", cfg.encoder), ("HTSAT-large", htsat_large_config().encoder)):
         for si, R, C, Hs in _stages(enc, "swin_block"):
@@ -1545,15 +1607,29 @@ def ab_compare(out_dir: str) -> dict:
             continue
         lim = limit if limit is not None else 0.5 * min(par)
         targets[key] = {"parent_ms": par, "change_ms": chg, "limit_ms": lim, "met": max(chg) <= lim}
-    for name, limit in AB_PROFILE_TARGETS.items():
-        chg = [r["profile_bf16"].get(f"{name}_ms") for r in runs["change"]]
-        par = [r["profile_bf16"].get(f"{name}_ms") for r in runs["parent"]]
+    for name, (path, limit) in AB_PROFILE_TARGETS.items():
+        chg = [r[f"profile_{path}"].get(f"{name}_ms") for r in runs["change"]]
+        par = [r[f"profile_{path}"].get(f"{name}_ms",
+                                         sum(r[f"profile_{path}"].get(f"{k}_ms", 0.0)
+                                             for k in AB_PROFILE_PARENT.get(name, ())) or None)
+               for r in runs["parent"]]
         if None not in chg:
-            targets[f"profile bf16 {name}"] = {"parent_ms": par, "change_ms": chg, "limit_ms": limit,
-                                               "met": max(chg) <= limit}
+            targets[f"profile {path} {name}"] = {"parent_ms": par, "change_ms": chg, "limit_ms": limit,
+                                                 "met": max(chg) <= limit}
     for key, t in targets.items():
         print(f"target {key}: parent {t['parent_ms']}, change {t['change_ms']}, limit {t['limit_ms']:.4f} ms: "
               f"{'met' if t['met'] else 'NOT MET'}")
+    # #1 against its plain version and the torch.stft chain, #7 against its
+    # composed chain, in each change run.
+    for batch in (1, 4):
+        for kernel, others in ((f"log_mel B={batch}", (f"plain_log_mel B={batch}", f"composed_log_mel B={batch}")),
+                               (f"mlp_block_w8a8 B={batch}", (f"composed_mlp_block_w8a8 B={batch}",))):
+            for r in runs["change"]:
+                if kernel in r and all(o in r for o in others):
+                    faster = all(r[kernel]["ms"] < r[o] for o in others)
+                    print(f"{kernel}: kernel {r[kernel]['ms']:.4f} ms, "
+                          + ", ".join(f"{o.rsplit(' ', 1)[0]} {r[o]:.4f}" for o in others)
+                          + f": kernel {'faster than all' if faster else 'NOT faster than all'}")
     print(json.dumps({"ab_targets": targets}))
     return diff
 

@@ -42,10 +42,10 @@
 //      against 0.1049;
 //   3. out = x + bf16(o @ wo)                proj_mma_core.cuh
 //   4. (kv_quant) k, v -> int8 rows + scales, one warp per row
-//      (gemm_int8.cuh); the amax spans all KV heads of a position, so the
+//      (rowquant.cuh); the amax spans all KV heads of a position, so the
 //      quantizer runs after the k/v tiles rather than in them.
 
-#include "gemm_int8.cuh"
+#include "rowquant.cuh"
 #include "proj_mma_core.cuh"
 
 // Launches the chain on `stream`; returns the first cudaError_t, 0 on

@@ -33,7 +33,7 @@
 //      into an int8 panel in shared memory, so h8 never reaches device
 //      memory; then rope(bf16(h8 @ w * hs * sw)) for q and k, a store for v;
 //   2. o = causal GQA(q, k, v)                bf16, launched as in attn_block.cu
-//   3. o8, os = rowquant(o)                   one warp per row (gemm_int8.cuh)
+//   3. o8, os = rowquant(o)                   one warp per row (rowquant.cuh)
 //   4. out = x + bf16(o8 @ wo * os * so): o8 goes into the panel by cp.async;
 //   5. (kv_quant) k, v -> int8 rows + per-position scales.
 // o's quantizer stays a launch of its own: in the o-projection's prologue
@@ -43,7 +43,7 @@
 // the separate quantizers' bits, and k, v and out (exact int32 sums) those
 // of the chain this replaced.
 
-#include "gemm_int8.cuh"
+#include "rowquant.cuh"
 #include "proj_mma_core.cuh"
 
 // Launches the chain on `stream`; returns the first cudaError_t, 0 on

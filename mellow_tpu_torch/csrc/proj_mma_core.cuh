@@ -1,7 +1,9 @@
 // The projection GEMMs of the prefill attention blocks (#4 fused_attn_block,
 // #5 fused_attn_block_w8a8) for Hopper (sm_90a), and the dense products of
 // the prefill MLP block (#6 fused_mlp_block) and the Swin block (#8
-// swin_block_fused) on the same mainloop (their section below). In the
+// swin_block_fused) on the same mainloop (their section below); the W8A8
+// MLP block (#7, mlp_block_w8a8.cu) builds its two launches from the int8
+// pieces (pj_quantize_rows, pj_mma_s8_stage, pj_quant, dense_split). In the
 // projections a block owns 16 * MW rows (MW warps, 16 rows each) and one
 // 64-column tile of the output, which is one head of q, k or v, or 64
 // columns of the o-projection.
@@ -171,6 +173,30 @@ __device__ __forceinline__ void pj_mma_s8(int (&d)[4], const uint32_t (&a)[4], u
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One int8 ring stage (32 k rows x 64 columns, row stride PJ_LDB8) into a
+// warp's 16 x 64 int32 tile: acc[g][e] is 16-column group g's virtual n8
+// block e; a holds the warp's A fragment of the stage (16 rows, 32 panel
+// slots). r[i]: k rows 8i + 2 tig, 8i + 2 tig + 1 of columns 16g + 2 gid, + 1,
+// byte-permuted into the B fragments of the two virtual blocks.
+__device__ __forceinline__ void pj_mma_s8_stage(int (&acc)[4][2][4], const uint32_t (&a)[4],
+                                                const signed char* st, int lane) {
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    uint32_t r[4];
+    fp_ldmatrix_x4_trans(r, reinterpret_cast<const bf16*>(st + lane * PJ_LDB8 + 16 * g));
+    pj_mma_s8(acc[g][0], a, __byte_perm(r[0], r[1], 0x6420), __byte_perm(r[2], r[3], 0x6420));
+    pj_mma_s8(acc[g][1], a, __byte_perm(r[0], r[1], 0x7531), __byte_perm(r[2], r[3], 0x7531));
+  }
+}
+
+// 16 int8 values of a row in column order (words k0-3, k4-7, k8-11, k12-15)
+// put in the panel's k order (pj_slot): {k0 k1 k8 k9, k2 k3 k10 k11, k4 k5
+// k12 k13, k6 k7 k14 k15}.
+__device__ __forceinline__ uint4 pj_slot_order16(uint4 u) {
+  return make_uint4(__byte_perm(u.x, u.z, 0x5410), __byte_perm(u.x, u.z, 0x7632),
+                    __byte_perm(u.y, u.w, 0x5410), __byte_perm(u.y, u.w, 0x7632));
 }
 
 // What a block's column tile is: its weight and its column in it, the
@@ -766,7 +792,8 @@ int launch_dense_panel(const DenseArgs& p, int nb, cudaStream_t stream) {
   return pj_launch<KERNEL>(p, grid, 32 * PJ_DENSE_MW, dense_panel_smem_bytes(p.K, nb), 1, stream);
 }
 
-// The K split of a stream launch: the largest of 1, 2, 4 and 8 that keeps
+// The K split of a stream launch (#7's int8 down product takes it too):
+// the largest of 1, 2, 4 and 8 that keeps
 // the grid within 528 blocks (4 an SM on an H100's 132) and gives each
 // block at least 3 K tiles. KS = 1 is the A rows streamed beside the weight
 // alone; a larger KS adds the split over a cluster. Device time a launch
@@ -779,8 +806,8 @@ int launch_dense_panel(const DenseArgs& p, int nb, cudaStream_t stream) {
 // 0.0408. The rule picks the fastest in each of these, and in 16 of the 18
 // stream launches of that sweep (v0 stages 1-3 and HTSAT-large stage 1 at
 // B=1 and 4); the other two (fc2 at stages 1 and 2, B=1) lose 0.0009-0.0010.
-inline int dense_split(const DenseArgs& p) {
-  const int tiles = (p.N + PJ_BN - 1) / PJ_BN * ((p.M + 63) / 64), nkt = pj_kpad(p.K) / PJ_BK;
+inline int dense_split(int M, int N, int K) {
+  const int tiles = (N + PJ_BN - 1) / PJ_BN * ((M + 63) / 64), nkt = pj_kpad(K) / PJ_BK;
   int ks = 8;
   while (ks > 1 && (tiles * ks > 528 || nkt < 3 * ks)) ks /= 2;
   return ks;
@@ -790,7 +817,7 @@ inline int dense_split(const DenseArgs& p) {
 // that runs pj_dense_stream_body<KS>.
 template <template <int> class KERNEL_OF>
 int launch_dense_stream(const DenseArgs& p, cudaStream_t stream) {
-  const int ks = dense_split(p);
+  const int ks = dense_split(p.M, p.N, p.K);
   const dim3 grid((p.N + PJ_BN - 1) / PJ_BN * ks, (p.M + 63) / 64);
   const int nt = 32 * PJ_DENSE_MW;
   const size_t smem = dense_stream_smem_bytes();
@@ -806,43 +833,44 @@ int launch_dense_stream(const DenseArgs& p, cudaStream_t stream) {
 // int8
 // ---------------------------------------------------------------------------
 
-// The q/k/v launch's int8 rows: the warp's 16 bf16 rows x (row stride lds)
+// The q/k/v launch's int8 rows (and #7's): NR bf16 rows x (row stride lds)
 // -> the fp32 RMSNorm, not rounded -> per-row int8 into q8 (row stride ld8,
 // each row in pj_slot order, zero past K up to the padded width) and the
-// row scales, all 16 rows at once (16 independent chains); rows past M are
-// zeros and quantize to zeros. The sum of squares keeps rowquant_kernel's
+// row scales, a warp's NR rows at once (NR independent chains); rows past M
+// are zeros and quantize to zeros. The sum of squares keeps rowquant_kernel's
 // order (lane l sums columns l, l + 32, ..., then warp_sum); the max and
 // the quantizer are order-free and take column pairs.
+template <int NR = 16>
 __device__ __forceinline__ void pj_quantize_rows(const bf16* x, int lds, signed char* q8, int ld8,
                                                  int K, const bf16* gamma, float eps, int lane,
                                                  float* row_scale) {
-  float rs[16], sc[16], inv[16];
+  float rs[NR], sc[NR], inv[NR];
 #pragma unroll
-  for (int r = 0; r < 16; ++r) rs[r] = 0.f;
+  for (int r = 0; r < NR; ++r) rs[r] = 0.f;
   for (int k = lane; k < K; k += 32) {
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
+    for (int r = 0; r < NR; ++r) {
       const float v = bf2f(x[r * lds + k]);
       rs[r] += v * v;
     }
   }
-  pj_warp_reduce<false, 16, 32>(rs);
+  pj_warp_reduce<false, NR, 32>(rs);
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
+  for (int r = 0; r < NR; ++r) {
     rs[r] = rsqrtf(pj_div(rs[r], (float)K) + eps);
     sc[r] = 0.f;
   }
   for (int k = 2 * lane; k < K; k += 64) {
     const float2 g = pj_gamma2(gamma, k);
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
+    for (int r = 0; r < NR; ++r) {
       const float2 h = pj_h2(x + r * lds + k, rs[r], g);
       sc[r] = fmaxf(sc[r], fmaxf(fabsf(h.x), fabsf(h.y)));
     }
   }
-  pj_warp_reduce<true, 16, 32>(sc);
+  pj_warp_reduce<true, NR, 32>(sc);
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
+  for (int r = 0; r < NR; ++r) {
     sc[r] = __fmul_rn(fmaxf(sc[r], 1e-8f), 1.f / 127.f);
     inv[r] = __frcp_rn(sc[r]);
   }
@@ -850,7 +878,7 @@ __device__ __forceinline__ void pj_quantize_rows(const bf16* x, int lds, signed 
     const int slot = pj_slot(k);  // columns k, k + 1 stay neighbours
     const float2 g = pj_gamma2(gamma, k);
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
+    for (int r = 0; r < NR; ++r) {
       const float2 h = pj_h2(x + r * lds + k, rs[r], g);
       const unsigned int q2 =
           (pj_quant(h.x, sc[r], inv[r]) & 0xff) | (pj_quant(h.y, sc[r], inv[r]) & 0xff) << 8;
@@ -859,10 +887,10 @@ __device__ __forceinline__ void pj_quantize_rows(const bf16* x, int lds, signed 
   }
   for (int k = K + 2 * lane; k < pj_kpad(K); k += 64)  // zeros up to the padded width
 #pragma unroll
-    for (int r = 0; r < 16; ++r) *reinterpret_cast<unsigned short*>(q8 + r * ld8 + pj_slot(k)) = 0;
+    for (int r = 0; r < NR; ++r) *reinterpret_cast<unsigned short*>(q8 + r * ld8 + pj_slot(k)) = 0;
   if (lane == 0) {
 #pragma unroll
-    for (int r = 0; r < 16; ++r) row_scale[r] = sc[r];
+    for (int r = 0; r < NR; ++r) row_scale[r] = sc[r];
   }
 }
 
@@ -909,14 +937,10 @@ __device__ __forceinline__ void pj_int8_body(const ProjArgs& p) {
   if (QKV) {
     pj_quantize_rows(wstage, lds, wpanel, ld8, p.K, p.gamma, p.eps, lane, row_scale + warp * 16);
   } else {
-    // Put each 16-byte chunk of o8 in the panel's k order (pj_slot): words
-    // {k0-3, k4-7, k8-11, k12-15} -> {k0 k1 k8 k9, k2 k3 k10 k11, k4 k5 k12
-    // k13, k6 k7 k14 k15}.
+    // Put each 16-byte chunk of o8 in the panel's k order.
     for (int e = lane; e < 16 * (p.K / 16); e += 32) {
       uint4* c = reinterpret_cast<uint4*>(wpanel + (e / (p.K / 16)) * ld8 + (e % (p.K / 16)) * 16);
-      const uint4 u = *c;
-      *c = make_uint4(__byte_perm(u.x, u.z, 0x5410), __byte_perm(u.x, u.z, 0x7632),
-                      __byte_perm(u.y, u.w, 0x5410), __byte_perm(u.y, u.w, 0x7632));
+      *c = pj_slot_order16(*c);
     }
   }
 
@@ -937,14 +961,7 @@ __device__ __forceinline__ void pj_int8_body(const ProjArgs& p) {
     uint32_t a[4];  // rows gid (+8), panel slots 4 tig.. (+16)
     fp_ldmatrix_x4(a, reinterpret_cast<const bf16*>(wpanel + (lane & 15) * ld8 + kt * PJ_BK +
                                                      16 * (lane >> 4)));
-#pragma unroll
-    for (int g = 0; g < PJ_BN / 16; ++g) {
-      // r[i]: k rows 8i + 2 tig, 8i + 2 tig + 1 of columns 16g + 2 gid, + 1.
-      uint32_t r[4];
-      fp_ldmatrix_x4_trans(r, reinterpret_cast<const bf16*>(st + lane * PJ_LDB8 + 16 * g));
-      pj_mma_s8(acc[g][0], a, __byte_perm(r[0], r[1], 0x6420), __byte_perm(r[2], r[3], 0x6420));
-      pj_mma_s8(acc[g][1], a, __byte_perm(r[0], r[1], 0x7531), __byte_perm(r[2], r[3], 0x7531));
-    }
+    pj_mma_s8_stage(acc, a, st, lane);
   }
   fp_cp_async_wait<0>();
 

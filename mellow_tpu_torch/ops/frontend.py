@@ -142,15 +142,47 @@ def ref_db(cfg: FrontendConfig) -> float:
 
 @functools.lru_cache(maxsize=8)
 def device_tables(cfg: FrontendConfig, device: torch.device):
-    """The windowed DFT basis (n_fft, 2*n_bins) and the mel filterbank
-    (n_bins, n_mels) as row-major float32 tensors on ``device``, made once
-    per config and device. (``mel_filterbank`` returns a transposed,
-    column-major array; the CUDA kernel indexes both row-major.)"""
+    """The plain version's windowed DFT basis (n_fft, 2*n_bins) and mel
+    filterbank (n_bins, n_mels) as float32 tensors on ``device``, made once
+    per config and device."""
     basis = torch.from_numpy(dft_basis(cfg.n_fft)).to(device).contiguous()
     fb = torch.from_numpy(
         mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
     ).to(device).contiguous()
     return basis, fb
+
+
+def mel_bands(fb: np.ndarray):
+    """Each mel filter's support in a (n_bins, n_mels) filterbank: (n_mels,
+    2) int32 first and last nonzero bin (0, -1 for a filter with none), and
+    (n_mels, width) float32 weights of bins first..last, zero-padded to the
+    widest filter's width."""
+    n_mels = fb.shape[1]
+    bands = np.zeros((n_mels, 2), dtype=np.int32)
+    bands[:, 1] = -1
+    for m in range(n_mels):
+        nz = np.flatnonzero(fb[:, m])
+        if nz.size:
+            bands[m] = nz[0], nz[-1]
+    width = max(1, int((bands[:, 1] - bands[:, 0]).max()) + 1)
+    weights = np.zeros((n_mels, width), dtype=np.float32)
+    for m, (lo, hi) in enumerate(bands):
+        weights[m, : hi - lo + 1] = fb[lo : hi + 1, m]
+    return bands, weights
+
+
+@functools.lru_cache(maxsize=8)
+def fft_tables(cfg: FrontendConfig, device: torch.device):
+    """The log-mel kernel's tables on ``device``, made once per config and
+    device: the periodic Hann window (n_fft,), the twiddles
+    exp(-2 pi i k / n_fft) for k < n_fft as (n_fft, 2) [re, im] (float64
+    math, rounded to float32), and ``mel_bands`` of the filterbank."""
+    n = cfg.n_fft
+    ang = 2.0 * np.pi * np.arange(n) / n
+    twiddles = np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+    bands, weights = mel_bands(mel_filterbank(cfg.sample_rate, n, cfg.n_mels, cfg.fmin, cfg.fmax))
+    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                 for t in (hann_window(n).astype(np.float32), twiddles, bands, weights))
 
 
 # ---------------------------------------------------------------------------

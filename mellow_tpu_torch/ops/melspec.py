@@ -27,7 +27,7 @@ N_MELS = 64
 def log_mel_cuda(wave: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     """(B, T) float32 contiguous CUDA tensor -> (B, 1 + T // 320, 64)
     log-mel (T = 320,000 gives the 1001 frames of a 10 s clip), one launch
-    of the fused kernel on the current stream. T is any length of at least
+    of the fused FFT kernel on the current stream. T is any length of at least
     n_fft // 2 + 1 samples, what the reflect padding needs. Raises on any
     input the kernel does not take, and on a failed launch."""
     global LAUNCHES
@@ -48,14 +48,15 @@ def log_mel_cuda(wave: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
         raise ValueError("log_mel_cuda needs a contiguous wave")
 
     lib = load_library()
-    basis, fb = fe.device_tables(cfg, wave.device)
+    window, twiddles, bands, band_w = fe.fft_tables(cfg, wave.device)
     B, T = wave.shape
     out = torch.empty((B, 1 + T // HOP, N_MELS), dtype=torch.float32, device=wave.device)
     with torch.cuda.device(wave.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mellow_log_mel(
-            wave.data_ptr(), basis.data_ptr(), fb.data_ptr(), out.data_ptr(),
-            B, T, float(cfg.amin), fe.ref_db(cfg), stream,
+            wave.data_ptr(), window.data_ptr(), twiddles.data_ptr(), bands.data_ptr(),
+            band_w.data_ptr(), band_w.shape[1], out.data_ptr(), B, T, float(cfg.amin),
+            fe.ref_db(cfg), stream,
         )
     check(err, "log-mel kernel")
     LAUNCHES += 1

@@ -123,3 +123,29 @@ def test_log_mel_auto_uses_plain_version_on_cpu():
 def test_log_mel_cuda_rejects_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA tensor"):
         melspec.log_mel_cuda(torch.zeros(1, CFG.num_samples), CFG)
+
+
+@pytest.mark.parametrize("name", ["v0", "test_torch_tiny"])
+def test_fft_tables_cover_the_filterbank(name):
+    """The log-mel kernel's mel bands (``frontend.fft_tables``) at a
+    registered configuration's front-end: every nonzero of
+    ``mel_filterbank`` lies in its filter's (first, last) bins, and the band
+    weights rebuild the filterbank exactly; the window and twiddles are the
+    float64 tables rounded once."""
+    import tests.torch_port_common  # noqa: F401  (registers the tiny config in the port's registry)
+    from mellow_tpu_torch.config import get_config
+
+    cfg = get_config(name).frontend
+    fb = tfe.mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
+    window, twiddles, bands, weights = (t.numpy() for t in tfe.fft_tables(cfg, torch.device("cpu")))
+    rebuilt = np.zeros_like(fb)
+    for m, (lo, hi) in enumerate(bands):
+        nz = np.flatnonzero(fb[:, m])
+        assert nz.size and lo == nz[0] and hi == nz[-1]
+        rebuilt[lo : hi + 1, m] = weights[m, : hi - lo + 1]
+        assert not weights[m, hi - lo + 1 :].any()
+    np.testing.assert_array_equal(rebuilt, fb)
+    np.testing.assert_array_equal(window, tfe.hann_window(cfg.n_fft).astype(np.float32))
+    k = np.arange(cfg.n_fft)
+    np.testing.assert_array_equal(twiddles[:, 0] + 1j * twiddles[:, 1],
+                                  np.exp(-2j * np.pi * k / cfg.n_fft).astype(np.complex64))

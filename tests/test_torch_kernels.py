@@ -27,7 +27,11 @@ products and ``window_mma_core.cuh`` (the K split of the residual
 products and the softmax's sum order moved a few bits; their digests from
 the kernels before it are in the history of this file); #9 at hd 64 and
 24 as recorded from the kernel before that redesign, which keeps its
-arithmetic. The seeded inputs and the digest cases are in
+arithmetic; #7 at v0's prefill, B=1 and B=4, as recorded from the
+four-launch chain (two row quantizers around two wmma GEMMs) before its
+redesign onto ``proj_mma_core.cuh``'s int8 path, which keeps them bit for
+bit (exact int32 sums, rowquant's arithmetic in both fused quantizers, the
+same silu). The seeded inputs and the digest cases are in
 ``tests/torch_kernel_cases.py``, which ``chip_smoke.py --ab`` runs too."""
 
 import numpy as np
@@ -72,7 +76,7 @@ def _wave(b, seed, device):
     return torch.from_numpy((rng.randn(b, CFG.num_samples) * 0.1).astype(np.float32)).to(device)
 
 
-@pytest.mark.parametrize("batch", [1, 2, 3])
+@pytest.mark.parametrize("batch", [1, 2, 3, 4])
 def test_log_mel_kernel_matches_plain_version(device, batch):
     wave = _wave(batch, batch, device)
     out = melspec.log_mel_cuda(wave, CFG)
@@ -102,6 +106,19 @@ def test_log_mel_auto_launches_the_kernel_on_cuda(device):
 def test_log_mel_kernel_rejects_what_it_does_not_take(device, make):
     with pytest.raises(ValueError):
         melspec.log_mel_cuda(make(_wave(1, 8, device)), CFG)
+
+
+@pytest.mark.parametrize("B, T", [(2, 513), (1, 160007)])
+def test_log_mel_kernel_at_odd_lengths(device, B, T):
+    """The shortest wave the reflect padding takes and an odd length: the
+    FFT kernel within the TPU kernel's tolerance of the plain version's
+    dense DFT."""
+    rng = np.random.RandomState(T + B)
+    wave = torch.from_numpy((rng.randn(B, T) * 0.1).astype(np.float32)).to(device)
+    out = melspec.log_mel_cuda(wave, CFG)
+    torch.cuda.synchronize()
+    assert out.shape == (B, 1 + T // 320, 64)
+    torch.testing.assert_close(out, fe.log_mel_spectrogram(wave, CFG), atol=5e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("seconds", [3, 15])
@@ -495,6 +512,22 @@ def test_mlp_block_w8a8_kernel_matches_plain_version(device, B, S):
     _close_bf16(out, mw.mlp_block_w8a8_plain(x, ln, *ws, eps=1e-5))
 
 
+@pytest.mark.parametrize("D, I", [(576, 1536), (64, 128), (768, 2048)])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("S", [1, 13, 389])
+def test_mlp_block_w8a8_kernel_at_every_shape(device, S, B, D, I):
+    """Row blocks past M, fewer column tiles than the gate/up cluster has
+    blocks (I = 128), more than 3 a block (I = 2048), and every K split of
+    the down launch."""
+    rng = np.random.RandomState(S * B + D)
+    x = _bf16(rng, B, S, D, scale=0.5)
+    ln = _bf16(rng, D, scale=0.1) + 1
+    ws = [t for shape in ((D, I), (D, I), (I, D)) for t in _int8(rng, *shape)]
+    out = mw.mlp_block_w8a8_cuda(x, ln, *ws, eps=1e-5)
+    torch.cuda.synchronize()
+    _close_bf16(out, mw.mlp_block_w8a8_plain(x, ln, *ws, eps=1e-5))
+
+
 # ---------------------------------------------------------------------------
 # prefill attention (#10)
 # ---------------------------------------------------------------------------
@@ -634,6 +667,8 @@ PREVIOUS_DIGESTS = {
     "attn_block_w8a8": "072e3e92f10831c8",
     "attn_block_w8a8_kv": "e7cbee64d643f5e7",
     "mlp_block": "df660ccdbb6b308b",
+    "mlp_block_w8a8_b1": "31cf8d1bf8aaf371",
+    "mlp_block_w8a8_b4": "5e13ba6b5d25d04c",
     "swin_block_s1": "f69ae46ef28529ee",
     "swin_block_s2": "df76477670e8ffca",
     "swin_block_s3": "387c4639b892177a",

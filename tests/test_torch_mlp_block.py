@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from mellow_tpu.ops.pallas_mlp_block import fused_mlp_block
 from mellow_tpu_torch.ops import mlp_block as mb
+from mellow_tpu_torch.ops import mlp_block_w8a8 as mw
 
 B, S, D, I = 2, 13, 64, 128
 
@@ -76,3 +77,33 @@ def test_mlp_block_geometry_and_shared_memory():
     # The last D whose panel fits 200 KB is 1280; 1288 pads to 1312.
     with pytest.raises(ValueError, match="shared memory"):
         mb.check_geometry(389, 1288, 1536)
+
+
+def test_mlp_block_w8a8_geometry_and_shared_memory():
+    """The geometry #7's kernels take (``mw.check_geometry``), without a card:
+    the gate/up launch's shared memory against the kernel's layout (csrc
+    ``w8_gate_up_smem_bytes``: the fp32 product of a block's
+    ceil(I / 512) column tiles over 32 rows, row stride 64 per tile plus 16;
+    the 4 rows of x the block quantizes for its cluster, D padded to a
+    multiple of 32, plus 8, in bf16; the 32-row int8 panel, plus 16; gate's
+    and up's rings of 4 stages of 32 x 80 bytes for each of up to 4 tiles at
+    once; the tiles' bf16 gate and up scales), and the refusals at every
+    edge."""
+    def layout(D, I):
+        kp, t = -(-D // 32) * 32, -(-I // 512)
+        return (32 * (64 * t + 16) * 4 + 4 * (kp + 8) * 2 + 32 * (kp + 16) + 2 * min(t, 4) * 4 * 32 * 80
+                + 2 * t * 64 * 2)
+
+    assert mw.gate_up_shared_bytes(576, 1536) == layout(576, 1536) == 112448
+    for D, I in ((64, 128), (768, 2048), (560, 1536), (576, 2560), (2880, 1536)):
+        assert mw.gate_up_shared_bytes(D, I) == layout(D, I)
+    for rows, D, I in ((389, 576, 1536), (1556, 576, 1536), (1, 16, 16), (100, 768, 2048), (1, 576, 5632),
+                       (1, 2880, 1536)):
+        mw.check_geometry(rows, D, I)
+    for rows, D, I in ((0, 576, 1536), (389, 584, 1536), (389, 576, 1544), (389, 0, 1536), (389, 576, 0)):
+        with pytest.raises(ValueError, match="unsupported"):
+            mw.check_geometry(rows, D, I)
+    # The last I at D = 576 and the last D at I = 1536 whose gate/up block fits 200 KB.
+    for D, I in ((576, 5648), (2896, 1536)):
+        with pytest.raises(ValueError, match="shared memory"):
+            mw.check_geometry(389, D, I)

@@ -15,6 +15,7 @@ from mellow_tpu_torch.ops import attn_block as ab
 from mellow_tpu_torch.ops import attn_block_w8a8 as aw
 from mellow_tpu_torch.ops import decode_attention_int8 as di
 from mellow_tpu_torch.ops import mlp_block as mb
+from mellow_tpu_torch.ops import mlp_block_w8a8 as mw
 from mellow_tpu_torch.ops import swin_block as sb
 from mellow_tpu_torch.ops import window_attention as wa
 
@@ -90,6 +91,14 @@ def digest_case(name):
         ws = [bf16(rng, D, scale=0.1) + 1, bf16(rng, D, I, scale=0.05), bf16(rng, D, I, scale=0.05),
               bf16(rng, I, D, scale=0.05)]
         return (mb.mlp_block_cuda(x, *ws, eps=1e-5),)
+    if name.startswith("mlp_block_w8a8"):
+        # v0's prefill at B=1 or B=4, int8 weights as the wrapper makes them.
+        rng = np.random.RandomState(7)
+        B, D, I = (1 if name.endswith("b1") else 4), 576, 1536
+        x = bf16(rng, B, 389, D, scale=0.5)
+        ln = bf16(rng, D, scale=0.1) + 1
+        ws = [t for shape in ((D, I), (D, I), (I, D)) for t in int8_weight(rng, *shape)]
+        return (mw.mlp_block_w8a8_cuda(x, ln, *ws, eps=1e-5),)
     if name in SWIN_STAGES:
         R, C, H, shifted = SWIN_STAGES[name]
         x, p, bias, mask = swin_inputs(np.random.RandomState(8), 1, R, C, H, shifted)
