@@ -75,7 +75,24 @@ result line is printed:
    bf16 call each of ``htsat_embedding_long`` (15 s), the infer mode (3 s)
    and the full ``htsat_embedding`` (10 s), launches checked and the
    embedding held against the fp32 call;
-9. timings of the paths by stage (host preprocessing, log-mel, encoder,
+9. decoding (``decoding_phase``): ``sample=True`` on the bf16 and int8
+   paths at a batch of 2, with ``top_k=1`` (every draw at its row's largest
+   logit; the answers greedy's but where a tie at the largest logit
+   explains the first difference) and at top_p 0.8 (every draw in its
+   step's kept set; one seed repeats its answers); greedy with
+   ``repetition_penalty=1.3`` in fp32, whose logits and seen masks at three
+   steps give the same kept set on the card as on the CPU; the sampler in
+   each mode and one whole flush window of sampled, penalised decoding
+   under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+   ``generate_stream`` on the bf16 and int8 paths (its last yield
+   ``generate``'s); ``generate_tokens_dynamic`` at B=4, ``min_batch=1``,
+   on the fp32, bf16, int8 and GPT-2 bf16 paths with a stop token that
+   compacts the batch after the first window (the rows before it equal to
+   the static path's, the agreement after it and the compactions printed);
+   every call's launches checked; each decode-step product at M = 4 against
+   M = 2 (``products_by_batch``); the sampler's device time a step at B=1
+   and B=4, and a sampled B=1 request's latency against a greedy one;
+10. timings of the paths by stage (host preprocessing, log-mel, encoder,
    prefill, decode step as the slope of two lengths, whole request), and
    torch.profiler over one warm B=1 request of each path (device time,
    kernel launches, the device's idle share, and the device time and
@@ -122,6 +139,7 @@ from mellow_tpu_torch.io.tokenizer import ByteTokenizer
 from mellow_tpu_torch.models import generate as gen
 from mellow_tpu_torch.models import gpt2, htsat, llama
 from mellow_tpu_torch.models.htsat import relative_position_index, shifted_window_mask
+from mellow_tpu_torch.models import mellow as mellow_model
 from mellow_tpu_torch.models.mellow import encode_and_prefix, init_params
 from mellow_tpu_torch.models.params import params_from_jax
 from mellow_tpu_torch.ops import _build, melspec
@@ -1078,14 +1096,23 @@ def encoder_launches(enc, clip_batches: int) -> dict:
     return want
 
 
-def expected_launches(cfg, steps: int, path: str) -> dict:
-    """What one generate call of ``path`` (``cfg`` its config) must launch:
-    log-mel once per clip batch; beyond fp32 also, per clip batch, the
-    kernel of each Swin block's route (v0: the Swin block kernel in stages
-    1-3; HTSAT-large: it in stage 1 and the window-attention kernel in
-    stage 2) and, for llama, each prefill block once per layer and a decode
-    attention once per layer per decode step (the last token is chosen
-    without a step): the bf16 kernels on the bf16 paths; the W8A8 blocks
+def decode_steps(steps: int, max_len: int = MAX_LEN) -> int:
+    """The decode steps of a generate call whose ``num_steps`` is
+    ``steps``: one per token of its flush windows, but none after the token
+    at ``max_len - 1`` (``models/generate.py``: the loop ends with the
+    window where every row is done, ``num_steps`` a multiple of W, or at
+    ``max_len``). A cascade compaction adds none."""
+    return steps - 1 if steps == max_len else steps
+
+
+def expected_launches(cfg, steps: int, path: str, max_len: int = MAX_LEN) -> dict:
+    """What one generate call of ``path`` (``cfg`` its config) that ran
+    ``steps`` steps of ``max_len`` must launch: log-mel once per clip batch;
+    beyond fp32 also, per clip batch, the kernel of each Swin block's route
+    (v0: the Swin block kernel in stages 1-3; HTSAT-large: it in stage 1 and
+    the window-attention kernel in stage 2) and, for llama, each prefill
+    block once per layer and a decode attention once per layer per decode
+    step (``decode_steps``): the bf16 kernels on the bf16 paths; the W8A8 blocks
     and the int8 decode attention on the int8 path; the bf16 blocks in
     their kv_quant mode (attention) and as they are (MLP) with the int8
     decode attention on the int8-weights path. GPT-2 in bf16 (int8 weights
@@ -1103,8 +1130,18 @@ def expected_launches(cfg, steps: int, path: str) -> dict:
                          "int8": ("attn_block_w8a8", "mlp_block_w8a8", "decode_attention_int8"),
                          "int8_weights": ("attn_block_kv_quant", "mlp_block", "decode_attention_int8")}[mode]
     want[attn] = want[mlp] = L
-    want[decode] = L * (steps - 1)
+    want[decode] = L * decode_steps(steps, max_len)
     return want
+
+
+def check_calls(path: str, cfg, calls) -> None:
+    """Each recorded generate call launched what ``expected_launches`` says
+    for its steps."""
+    for i, call in enumerate(calls):
+        want = expected_launches(cfg, call["steps"], path)
+        if call["launches"] != want:
+            raise RuntimeError(f"{path}: call {i} ({call['rows']} rows, {call['steps']} steps) "
+                               f"launched {call['launches']}, expected {want}")
 
 
 # What drive() sends on a path: the first request alone; the three singles
@@ -1155,11 +1192,7 @@ def drive(wrapper, cfg, requests, path: str, calls: str = "all") -> tuple:
     rows = sum(c["rows"] for c in rec.calls)
     if rows < CALLS_ROWS[calls]:
         raise RuntimeError(f"{path}: only {rows} rows answered")
-    for i, call in enumerate(rec.calls):
-        want = expected_launches(cfg, call["steps"], path)
-        if call["launches"] != want:
-            raise RuntimeError(f"{path}: call {i} ({call['rows']} rows, {call['steps']} steps) "
-                               f"launched {call['launches']}, expected {want}")
+    check_calls(path, cfg, rec.calls)
     missing = [k for k, n in expected_launches(cfg, 2, path).items() if n and not launches[k]]
     if missing:
         raise RuntimeError(f"{path}: kernels never launched on the path: {missing}")
@@ -1331,6 +1364,358 @@ def hold_encoder_entries(cfg, params16, params32) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# decoding phase: sampling, repetition penalty, streaming, cascade
+# ---------------------------------------------------------------------------
+
+# The sampled requests' knobs (the wrapper's defaults), the penalty, and the
+# knobs the card's kept set is held to the CPU's on.
+SAMPLE_KNOBS = {"top_p": 0.8, "temperature": 1.0}
+PENALTY = 1.3
+WARP_CASES = ({"top_p": 0.8, "top_k": 50, "temperature": 0.7, "repetition_penalty": PENALTY},
+              {"top_p": 0.95, "top_k": 0, "temperature": 1.0, "repetition_penalty": PENALTY})
+
+
+class StepRecorder:
+    """Keeps each decode sub-step's logits (fp32), chosen tokens and seen
+    mask by wrapping ``generate._sample_token``, which the window body looks
+    up at every sub-step."""
+
+    def __enter__(self):
+        self.steps, self._sample = [], gen._sample_token
+
+        def record(logits, **kw):
+            tok = self._sample(logits, **kw)
+            seen = kw.get("seen")
+            self.steps.append((logits.float(), tok, None if seen is None else seen.clone()))
+            return tok
+
+        gen._sample_token = record
+        return self
+
+    def __exit__(self, *exc):
+        gen._sample_token = self._sample
+
+
+class CompactionRecorder:
+    """(t, batch before, batch after) of each cascade compaction, by
+    wrapping ``generate._compact_state``."""
+
+    def __enter__(self):
+        self.seen, self.perms, self._compact = [], [], gen._compact_state
+
+        def record(state, perm):
+            self.seen.append((state.t, state.tokens.shape[0], len(perm)))
+            self.perms.append(perm.cpu())
+            return self._compact(state, perm)
+
+        gen._compact_state = record
+        return self
+
+    def __exit__(self, *exc):
+        gen._compact_state = self._compact
+
+
+def _first_difference(a: str, b: str):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def hold_sampling(path, wrapper, cfg, examples, greedy) -> dict:
+    """``sample=True`` on one path: with ``top_k=1`` every draw is a token
+    at its row's largest logit, and the answers are greedy's, except where a
+    row's largest logit is tied (the kept set keeps every tied token: the
+    first difference must sit at such a tie); at top_p 0.8 every draw lies
+    in the kept set of its step's logits and one seed repeats its answers."""
+    kw = PATHS[path][2]
+    with StepRecorder() as rec:
+        top1 = wrapper.generate(examples, max_len=MAX_LEN, sample=True, top_k=1, seed=0, **kw)
+    for logits, tok, _ in rec.steps:
+        if not torch.equal(logits.gather(1, tok[:, None])[:, 0], logits.amax(-1)):
+            raise RuntimeError(f"{path}: a top_k=1 draw is not at its row's largest logit")
+    ties = []
+    for r, (a, b) in enumerate(zip(top1, greedy)):
+        if a != b:
+            j = _first_difference(a, b)
+            row = rec.steps[j][0][r]
+            ties.append({"row": r, "step": j, "tied_at_max": int((row == row.max()).sum())})
+            if ties[-1]["tied_at_max"] < 2:
+                raise RuntimeError(f"{path}: top_k=1 left greedy at row {r} step {j} with no tie")
+    with StepRecorder() as rec:
+        s0 = wrapper.generate(examples, max_len=MAX_LEN, sample=True, seed=0, **SAMPLE_KNOBS, **kw)
+    for logits, tok, _ in rec.steps:
+        kept = gen.warp_logits(logits, **SAMPLE_KNOBS)
+        if not torch.isfinite(kept.gather(1, tok[:, None])).all():
+            raise RuntimeError(f"{path}: a top_p=0.8 draw lies outside its kept set")
+    again = wrapper.generate(examples, max_len=MAX_LEN, sample=True, seed=0, **SAMPLE_KNOBS, **kw)
+    other = wrapper.generate(examples, max_len=MAX_LEN, sample=True, seed=1, **SAMPLE_KNOBS, **kw)
+    if again != s0:
+        raise RuntimeError(f"{path}: one seed gave two sampled answers")
+    same = sum(x == y for a, b in zip(s0, greedy) for x, y in zip(a, b))
+    out = {"path": path, "top_k1_equals_greedy": top1 == greedy, "top_k1_ties": ties,
+           "top_p_draws_checked": len(rec.steps) * len(examples), "seed_repeats": True,
+           "seed_1_differs": other != s0, "top_p_tokens_equal_to_greedy": same,
+           "tokens": sum(len(a) for a in greedy)}
+    print(json.dumps({"sampling": out}))
+    return out
+
+
+def hold_penalty(wrapper, cfg, examples, greedy) -> dict:
+    """Greedy with ``repetition_penalty`` in fp32; at three of its steps the
+    sampler's kept set on the card's own logits and seen mask, copied to the
+    CPU, equals the CPU's (the same -inf mask, values within 2 fp32 ulps of
+    the largest kept logit)."""
+    with StepRecorder() as rec:
+        pen = wrapper.generate(examples, max_len=MAX_LEN, repetition_penalty=PENALTY)
+    worst = 0.0
+    for k in (0, len(rec.steps) // 2, len(rec.steps) - 1):
+        logits, _, seen = rec.steps[k]
+        for knobs in WARP_CASES:
+            card = gen.warp_logits(logits, seen=seen, **knobs).cpu()
+            cpu = gen.warp_logits(logits.cpu(), seen=seen.cpu(), **knobs)
+            kept = torch.isfinite(cpu)
+            if not torch.equal(torch.isfinite(card), kept):
+                raise RuntimeError(f"penalty step {k} {knobs}: the card's kept set differs from the CPU's")
+            err = (card[kept] - cpu[kept]).abs().max().item()
+            limit = 2 * torch.finfo(torch.float32).eps * cpu[kept].abs().max().item()
+            if err > limit:
+                raise RuntimeError(f"penalty step {k} {knobs}: kept logits {err:.3e} apart, limit {limit:.3e}")
+            worst = max(worst, err)
+    same = sum(x == y for a, b in zip(pen, greedy) for x, y in zip(a, b))
+    out = {"path": "fp32", "repetition_penalty": PENALTY, "tokens_equal_to_greedy": same,
+           "tokens": sum(len(a) for a in greedy), "kept_sets_equal": 3 * len(WARP_CASES),
+           "kept_logits_max_abs_err": worst}
+    print(json.dumps({"penalty": out}))
+    return out
+
+
+def hold_no_sync(wrapper, cfg, request) -> dict:
+    """With ``torch.cuda.set_sync_debug_mode("error")``, which raises at any
+    operation that waits for the card: the sampler in each of its modes,
+    and one whole flush window of sampled, penalised decoding."""
+    path = "int8" if wrapper._w8a8 else "bf16"
+    a1 = wrapper.preprocess_audio([request[0]], True, 0)
+    a2 = wrapper.preprocess_audio([request[1]], True, 0)
+    w1, w2, ids = wrapper._device_inputs(a1, a2, wrapper.preprocess_text([request[2]]))
+    p, dec = wrapper.params, cfg.decoder
+    prefix = encode_and_prefix(p, cfg, w1, w2, ids)
+    rng = torch.Generator(device=wrapper.device)
+    rng.manual_seed(SEED)
+    W = gen.effective_window(None, MAX_LEN, 1)
+    state = gen._init_state(p["decoder"], dec, prefix, max_len=MAX_LEN, family="llama", W=W, rng=rng,
+                            kv_cache_dtype=PATHS[path][2].get("kv_cache_dtype"), initial_done=None,
+                            repetition_penalty=PENALTY, prompt_tokens=ids, prompt_mask=ids != cfg.pad_token_id,
+                            w8a8=wrapper._w8a8)
+    body = gen._window_body(p["decoder"], dec, state, family="llama", max_len=MAX_LEN, stop_token_id=-1,
+                            greedy=False, top_k=50, repetition_penalty=PENALTY, W=W, **SAMPLE_KNOBS)
+    logits = llama.logits_from_hidden(p["decoder"], dec, state.last_hidden)
+    modes = {"greedy": {"greedy": True}, "greedy_penalty": {"greedy": True, "repetition_penalty": PENALTY},
+             "sampled": {"greedy": False}, "sampled_top_k_penalty": {"greedy": False, "top_k": 50,
+                                                                    "repetition_penalty": PENALTY}}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for m in modes.values():
+            gen._sample_token(logits, rng=rng, seen=state.seen, **{**SAMPLE_KNOBS, **m})
+        state = body(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out = {"path": path, "sampler_modes": list(modes), "window_steps": state.t}
+    print(json.dumps({"no_host_sync": out}))
+    return out
+
+
+def hold_stream(path, wrapper, cfg, examples) -> dict:
+    """``generate_stream``'s yields: one a window, each a prefix of the next,
+    the last one ``generate``'s answers; its launches checked."""
+    kw = PATHS[path][2]
+    zero_counts()
+    t = time.perf_counter()
+    yields = list(wrapper.generate_stream(examples, max_len=MAX_LEN, **kw))
+    stream_s = time.perf_counter() - t
+    launches = read_counts()
+    whole = wrapper.generate(examples, max_len=MAX_LEN, **kw)
+    if yields[-1] != whole:
+        raise RuntimeError(f"{path}: the stream's last yield differs from generate")
+    if not all(a == b[: len(a)] for y, z in zip(yields, yields[1:]) for a, b in zip(y, z)):
+        raise RuntimeError(f"{path}: a stream yield is not a prefix of the next")
+    W = gen.effective_window(None, MAX_LEN, len(examples))
+    want = expected_launches(cfg, min(len(yields) * W, MAX_LEN), path)
+    if launches != want:
+        raise RuntimeError(f"{path}: the stream launched {launches}, expected {want}")
+    out = {"path": path, "yields": len(yields), "window": W, "latency_s": stream_s,
+           "last_equals_generate": True, "launches": launches}
+    print(json.dumps({"stream": out}))
+    return out
+
+
+def hold_cascade(path, wrapper, cfg, requests) -> dict:
+    """``generate_tokens_dynamic`` at B=4 with ``min_batch=1`` against the
+    static ``generate_tokens`` on the same rows. The rows are [ra, rb, rc,
+    ra] for the three requests, where request a emits in its first window a
+    token that b and c do not emit before the second: with that token as
+    the stop, rows 0 and 3 finish in the first window and the batch compacts
+    to 2 rows after it. (With random weights a row may repeat one token;
+    where no request has such a token, rows 1 and 3 start done instead, and
+    the batch compacts before the first window.) Before the first compaction
+    every row must equal the static path's; after it the live rows' token
+    agreement is printed (the products choose their algorithm by M, so the
+    bits may move). Every call's launches checked."""
+    kw = dict(max_len=MAX_LEN, kv_cache_dtype=PATHS[path][2].get("kv_cache_dtype"), w8a8=wrapper._w8a8)
+    W = gen.effective_window(None, MAX_LEN, 4)
+    calls = []
+
+    def static(rows):
+        examples = [requests[r] for r in rows]
+        a1 = wrapper.preprocess_audio([e[0] for e in examples], True, 0)
+        a2 = wrapper.preprocess_audio([e[1] for e in examples], True, 0)
+        inputs = wrapper._device_inputs(a1, a2, wrapper.preprocess_text([e[2] for e in examples]))
+        zero_counts()
+        with StepRecorder() as rec:
+            res = mellow_model.generate_tokens(wrapper.params, cfg, *inputs, stop_token_id=-1, **kw)
+        calls.append({"rows": 4, "steps": res.num_steps, "launches": read_counts()})
+        return inputs, res.tokens.cpu(), [logits for logits, _, _ in rec.steps]
+
+    inputs, tokens, ref_logits = static([0, 1, 2, 0])
+
+    def first(row, v):
+        hits = torch.nonzero(tokens[row] == v)
+        return int(hits[0, 0]) if len(hits) else MAX_LEN
+
+    pick = next(((a, int(v)) for a in range(3) for v in tokens[a, :W]
+                 if all(first(r, v) >= W for r in range(3) if r != a)), None)
+    initial_done = None
+    if pick is None:
+        stop, rows = -1, [0, 1, 2, 0]
+        initial_done = torch.tensor([False, True, False, True], device=wrapper.device)
+    else:
+        a, stop = pick
+        rows = [a] + [r for r in range(3) if r != a] + [a]
+        if rows != [0, 1, 2, 0]:
+            inputs, tokens, ref_logits = static(rows)
+    zero_counts()
+    t = time.perf_counter()
+    with CompactionRecorder() as comp, StepRecorder() as rec:
+        dyn = mellow_model.generate_tokens_dynamic(wrapper.params, cfg, *inputs, stop_token_id=stop, min_batch=1,
+                                                   initial_done=initial_done, **kw)
+        got = dyn.tokens.cpu()
+    dyn_s = time.perf_counter() - t
+    calls.append({"rows": 4, "steps": dyn.num_steps, "launches": read_counts()})
+    check_calls(path, cfg, calls)
+    if not comp.seen:
+        raise RuntimeError(f"{path}: the cascade never compacted")
+    t0 = comp.seen[0][0]
+    if not torch.equal(got[:, :t0], tokens[:, :t0]):
+        raise RuntimeError(f"{path}: the cascade's rows differ from the static path's before the first compaction")
+    trimmed = gen.tokens_to_lists(dyn, stop)
+    ref = gen.tokens_to_lists(gen.GenerateResult(tokens, dyn.num_steps), stop)
+    live = [r for r in range(4) if len(ref[r]) >= t0 and (initial_done is None or not initial_done[r])]
+    same = sum(x == y for r in live for x, y in zip(trimmed[r][t0:], ref[r][t0:]))
+    total = sum(len(ref[r]) - t0 for r in live)
+    # The live rows' logits from the first compaction to the next (or the
+    # end) against the static batch's, relative to the largest: whether the
+    # bits moved with the batch.
+    perm = comp.perms[0][: len(live)]
+    t1 = comp.seen[1][0] if len(comp.seen) > 1 else dyn.num_steps
+    moved = max(((rec.steps[k][0][: len(live)].cpu() - ref_logits[k][perm].cpu()).abs().max().item()
+                 for k in range(t0, min(t1, len(rec.steps)))), default=0.0)
+    scale = max(ref_logits[k].abs().max().item() for k in range(t0, min(t1, len(ref_logits)))) if t1 > t0 else 1.0
+    out = {"path": path, "rows": rows, "stop_token_id": stop, "initial_done": initial_done is not None,
+           "compactions": comp.seen, "num_steps": dyn.num_steps, "rows_equal_before_first_compaction": True,
+           "live_rows_after": live, "tokens_equal_after_first_compaction": same,
+           "tokens_after_first_compaction": total, "trimmed_rows_equal": [trimmed[r] == ref[r] for r in live],
+           "logits_max_abs_diff_after_first_compaction": moved, "logits_max_abs": scale,
+           "latency_s": dyn_s, "launches": calls[-1]["launches"]}
+    print(json.dumps({"cascade": out}))
+    return out
+
+
+def products_by_batch(path, wrapper, cfg) -> dict:
+    """Where a cascade's bits can move: each product of a llama decode step
+    (layer 0's projections and MLP, the logits head) on the same seeded rows
+    at M = 4 and at M = 2 (rows 1-2); the largest difference of those rows,
+    0 where the library computes a row alike at both M."""
+    p = wrapper.params["decoder"]
+    lp = p["layers"][0]
+    head = p.get("lm_head_q", p["embed"].T)
+    g = torch.Generator(device=wrapper.device)
+    g.manual_seed(SEED)
+    out = {}
+    for name, w in [(k, lp[k]) for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")] + [("head", head)]:
+        k = (w["q"] if isinstance(w, dict) else w).shape[0]
+        x = torch.randn(4, k, generator=g, device=wrapper.device).to(wrapper.dtype)
+        out[name] = (llama._mm(x, w)[1:3] - llama._mm(x[1:3].contiguous(), w)).abs().max().item()
+    print(json.dumps({"products_by_batch": path, **out}))
+    return out
+
+
+def time_sampler(dec) -> dict:
+    """The sampler's device time a step on v0-sized bf16 logits (spin-queued
+    medians of 20), greedy and sampled, with and without the penalty."""
+    rng = np.random.default_rng(SEED + 21)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    out = {}
+    for B in (1, 4):
+        logits = _bf16(rng, B, dec.vocab_size, scale=2.0)
+        seen = torch.from_numpy(rng.random((B, dec.vocab_size)) < 0.01).cuda()
+        for name, m in (("greedy", {"greedy": True}),
+                        ("greedy_penalty", {"greedy": True, "repetition_penalty": PENALTY, "seen": seen}),
+                        ("top_p_0.8", {"greedy": False}),
+                        ("top_k_50_top_p_0.8_penalty", {"greedy": False, "top_k": 50,
+                                                         "repetition_penalty": PENALTY, "seen": seen})):
+            out[f"{name} B={B}"] = _median_ms(lambda: gen._sample_token(logits, rng=g, **SAMPLE_KNOBS, **m))
+    print(json.dumps({"sampler_ms": out}))
+    return out
+
+
+def request_latency(wrapper, request) -> dict:
+    """Host-clock latency of one B=1 ``max_len=32`` request, greedy against
+    sampled (top_p 0.8), in turns: greedy, sampled, sampled, greedy; medians
+    of 3 each."""
+    ms = {"greedy": [], "sampled": []}
+    for mode in ("greedy", "sampled", "sampled", "greedy"):
+        kw = {"sample": True, **SAMPLE_KNOBS} if mode == "sampled" else {}
+        ms[mode].append(_host_ms(lambda: wrapper.generate([request], max_len=MAX_LEN, **kw)))
+    out = {f"{mode}_ms": statistics.mean(v) for mode, v in ms.items()}
+    out.update({f"{mode}_ms_runs": v for mode, v in ms.items()})
+    print(json.dumps({"request_latency bf16 B=1": out}))
+    return out
+
+
+def decoding_phase(wrappers, cfgs, requests, answers) -> dict:
+    """Sampling on the bf16 and int8 paths, the penalty in fp32, the host
+    syncs, streaming, the cascade on the fp32, bf16, int8 and GPT-2 bf16
+    paths, and the sampler's times."""
+    t = time.perf_counter()
+    v0 = cfgs["v0"]
+    batch = requests[:2]
+    out = {"sampling": {}, "stream": {}, "cascade": {}}
+    for path in ("bf16", "int8"):
+        rec = CallRecorder(wrappers[path])
+        try:
+            greedy = wrappers[path].generate(batch, max_len=MAX_LEN, **PATHS[path][2])
+            out["sampling"][path] = hold_sampling(path, wrappers[path], v0, batch, greedy)
+        finally:
+            rec.remove()
+        check_calls(path, v0, rec.calls)
+        out["stream"][path] = hold_stream(path, wrappers[path], v0, batch)
+        out[f"no_host_sync {path}"] = hold_no_sync(wrappers[path], v0, requests[0])
+    rec = CallRecorder(wrappers["fp32"])
+    try:
+        out["penalty"] = hold_penalty(wrappers["fp32"], v0, batch, answers["fp32"][:2])
+    finally:
+        rec.remove()
+    check_calls("fp32", v0, rec.calls)
+    for path in ("fp32", "bf16", "int8", "gpt2_bf16"):
+        out["cascade"][path] = hold_cascade(path, wrappers[path], cfgs[PATHS[path][0]], requests)
+    out["products_by_batch"] = {path: products_by_batch(path, wrappers[path], v0) for path in ("fp32", "bf16", "int8")}
+    out["sampler_ms"] = time_sampler(v0.decoder)
+    out["request_latency"] = request_latency(wrappers["bf16"], requests[0])
+    print(f"decoding phase took {time.perf_counter() - t:.1f} s")
+    return out
+
+
 def slice_phase() -> dict:
     """Drive every path; return each path's kernel launches and generate
     calls, the encoder entry points' launches and the stage timings."""
@@ -1365,6 +1750,7 @@ def slice_phase() -> dict:
         _agreement("gpt2 int8 weights vs gpt2 bf16", answers["gpt2_int8_weights"], answers["gpt2_bf16"][:1])
         entries = hold_encoder_entries(cfgs[LARGE_CONFIG], wrappers["large_bf16"].params,
                                        wrappers["large_fp32"].params)
+        decoding = decoding_phase(wrappers, cfgs, requests, answers)
 
         audio1 = wrappers["fp32"].preprocess_audio([r[0] for r in requests[:2]], True)
         audio2 = wrappers["fp32"].preprocess_audio([r[1] for r in requests[:2]], True)
@@ -1387,7 +1773,7 @@ def slice_phase() -> dict:
             ("large ", LARGE_CONFIG, ("large_fp32", "large_bf16"), False, None)):
         hold_family(label, cfgs[name], params[name], [wrappers[p].params for p in paths], paths[-1],
                     (audio1, audio2, texts[name]), int8_cache, int8_tol)
-    return {"launches": launches, "calls": calls, "entries": entries, "timings": timings}
+    return {"launches": launches, "calls": calls, "entries": entries, "timings": timings, "decoding": decoding}
 
 
 # Kernels whose device time per request the profile reports: name -> the

@@ -1,20 +1,39 @@
-"""Greedy autoregressive generation over a static KV cache, as a host loop.
+"""Autoregressive generation over a static KV cache, in flush windows.
 
-Port of the greedy path of ``mellow_tpu/models/generate.py``. Semantics:
+Port of ``mellow_tpu/models/generate.py``. One decode core serves
+``generate``, ``generate_stream`` and ``generate_cascade``, as in the JAX
+package: ``_init_state`` (the prefill and the loop's state),
+``_window_body`` (one flush window: W sub-steps, each a token choice and a
+decode step) and ``_decode_loop`` (windows until ``max_len``, or until at
+most ``alive_threshold`` rows are unfinished). Semantics:
 
-  * decoding is greedy: argmax, first index on ties (as ``jnp.argmax``);
-  * no per-row early exit: rows keep generating after their stop token, and
-    the loop stops when every row has emitted it at least once, or after
-    ``max_len`` steps; callers trim each row at its first stop token.
+  * no per-row early exit: rows keep generating after their stop token;
+    the done mask is read on the host once per window, and the loop stops
+    when every row has emitted a stop token, or at ``max_len``; callers
+    trim each row at its first stop token;
+  * ``tokens`` is (B, max_len), zeros past the steps run, and
+    ``num_steps`` is ``min(t, max_len)`` with ``t`` a multiple of W: the
+    JAX package's raw tokens and step count;
+  * W is ``effective_window`` for every cache. An int8 cache's window rows
+    ride in bf16 and are quantized into the cache after the W-th sub-step
+    (``llama.FlushWindow``); a float cache is written every step, since a
+    pending row in the cache's own dtype would change nothing;
+  * the cache holds ``P + ceil(max_len / W) * W`` positions. The last
+    window runs only the sub-steps below ``max_len`` (the JAX package runs
+    all W and drops the tokens past ``max_len``), and the decode step after
+    the token at ``max_len - 1`` is skipped: nothing reads its output.
 
-The JAX loop runs in whole flush windows, so its ``num_steps`` is rounded
-up to the window and its raw token arrays can run past this loop's; the
-stop-trimmed rows are the same. An int8 KV cache decodes in the JAX
-package's flush windows (``effective_window``: W = 8, or 4 above a batch of
-128, at most ``max_len``): a window's rows ride in bf16 and are quantized
-into the cache once per window (``llama.FlushWindow``). A float cache is
-written every step: its pending rows would be in the cache's own dtype, so
-a window changes nothing there.
+Token choice (``_sample_token``): greedy is the argmax (first index on
+ties, as ``jnp.argmax``), after the repetition penalty in the logits' dtype
+when one is set. Sampling filters the logits in fp32 with ``warp_logits``
+(the HF order: penalty, temperature, top-k, top-p) and draws from the
+softmax of what is kept by the exponential race ``argmax(p / q)``, q ~
+Exp(1) from an explicit ``torch.Generator``. Neither reads anything back
+to the host. The JAX package's sort-free samplers (``_reject_sample``,
+``_fast_sample``) are not ported: they exist because a vocabulary-wide sort
+was slow on the TPU, and they draw from this distribution; under tied
+logits this sampler keeps the whole HF kept set, where ``_fast_sample``'s
+top-k keeps a subset.
 
 The compute dtype is the prefix's (float32 parity mode or bfloat16 perf
 mode); the rope tables and the logits are in it, and so is the KV cache
@@ -29,7 +48,7 @@ clamps them silently).
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -52,6 +71,206 @@ def effective_window(flush_window: Optional[int], max_len: int, batch: int) -> i
     return max(1, min(flush_window, max_len))
 
 
+# ---------------------------------------------------------------------------
+# token choice
+# ---------------------------------------------------------------------------
+
+def seen_mask(tokens: torch.Tensor, valid, vocab_size: int) -> torch.Tensor:
+    """(B, V) bool: True where a row holds that token. ``tokens``: (B, T)
+    ids; ``valid``: bool broadcastable over (B, T), False entries ignored."""
+    ids = torch.where(torch.as_tensor(valid, device=tokens.device).expand(tokens.shape),
+                      tokens.long(), vocab_size)
+    out = torch.zeros((tokens.shape[0], vocab_size + 1), dtype=torch.bool, device=tokens.device)
+    return out.scatter_(1, ids, True)[:, :vocab_size].contiguous()
+
+
+def _apply_penalty(logits: torch.Tensor, seen: torch.Tensor, repetition_penalty: float) -> torch.Tensor:
+    """CTRL/HF repetition penalty: divide positive, multiply negative
+    logits of already-seen tokens."""
+    pen = torch.where(logits > 0, logits / repetition_penalty, logits * repetition_penalty)
+    return torch.where(seen, pen, logits)
+
+
+def warp_logits(
+    logits: torch.Tensor,  # (B, V)
+    *,
+    top_p: float = 1.0,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    repetition_penalty: float = 1.0,
+    seen: Optional[torch.Tensor] = None,  # (B, V) bool: tokens to penalize
+) -> torch.Tensor:
+    """The HF logits-processor stack in its default order (repetition
+    penalty, temperature, top-k, top-p); removed tokens become -inf. The
+    kept set is value-thresholded: every token tied with the k-th or the
+    last top-p token is kept, and the top-1 always is."""
+    if seen is not None and repetition_penalty != 1.0:
+        logits = _apply_penalty(logits, seen, repetition_penalty)
+    logits = logits / max(temperature, 1e-6)
+    V = logits.shape[-1]
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    if top_k:
+        k = min(top_k, V)
+        logits = logits.masked_fill(logits < sorted_logits[:, k - 1 : k], float("-inf"))
+        sorted_logits = sorted_logits.masked_fill(
+            torch.arange(V, device=logits.device) >= top_k, float("-inf"))
+    if top_p < 1.0:
+        probs = torch.softmax(sorted_logits, dim=-1)
+        keep = torch.cumsum(probs, dim=-1) - probs < top_p  # exclusive mass
+        keep[:, 0] = True
+        min_kept = torch.where(keep, sorted_logits, float("inf")).amin(-1, keepdim=True)
+        logits = logits.masked_fill(logits < min_kept, float("-inf"))
+    return logits
+
+
+def _sample_token(
+    logits: torch.Tensor,  # (B, V)
+    *,
+    greedy: bool,
+    top_p: float,
+    temperature: float,
+    rng: Optional[torch.Generator],
+    top_k: int = 0,
+    repetition_penalty: float = 1.0,
+    seen: Optional[torch.Tensor] = None,  # (B, V) bool: prompt and emitted tokens
+) -> torch.Tensor:
+    """(B,) int64 token ids, with no host sync. Greedy: temperature, top-k
+    and top-p never move the argmax, so only the penalty is applied, in the
+    logits' dtype. Sampled: ``warp_logits`` in fp32, then one draw per row
+    from the softmax of the kept logits by the exponential race."""
+    if greedy:
+        if seen is not None and repetition_penalty != 1.0:
+            logits = _apply_penalty(logits, seen, repetition_penalty)
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(warp_logits(logits.float(), top_p=top_p, temperature=temperature, top_k=top_k,
+                                      repetition_penalty=repetition_penalty, seen=seen), dim=-1)
+    q = torch.empty_like(probs).exponential_(generator=rng)
+    # A draw of exactly 0 would give 0 / 0 = NaN for a removed token, and
+    # argmax takes NaN for the largest value.
+    return torch.argmax(probs / q.clamp_min_(torch.finfo(q.dtype).tiny), dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the decode core
+# ---------------------------------------------------------------------------
+
+class DecodeState(NamedTuple):
+    """The decode loop's state; also what ``generate_cascade`` compacts
+    between stages. Every per-row tensor keeps batch as its leading axis
+    (the cache's batch axis is 1). ``tokens``, ``done``, ``seen`` and the
+    cache are written in place."""
+
+    cache: object  # llama.KVCache or gpt2.GPT2Cache, P + ML positions
+    tokens: torch.Tensor  # (B, ML) int32, ML = max_len rounded up to W
+    last_hidden: torch.Tensor  # (B, D): the hidden the next token comes from
+    t: int  # steps taken, a multiple of W
+    done: torch.Tensor  # (B,) bool
+    rng: Optional[torch.Generator]
+    seen: Optional[torch.Tensor] = None  # (B, V) bool: the penalty's mask
+    window: Optional[llama.FlushWindow] = None  # an int8 cache's window
+
+
+def _init_state(
+    params, cfg, prefix_embeds: torch.Tensor, *, max_len: int, kv_cache_dtype, family: str, W: int,
+    rng, initial_done, repetition_penalty: float, prompt_tokens, prompt_mask, w8a8: bool,
+) -> DecodeState:
+    """Prefill into a cache of ``P + ceil(max_len / W) * W`` positions, and
+    the loop's first state. With a penalty, the seen mask starts from the
+    prompt's valid ids (HF penalizes the whole input; the audio prefix has
+    no ids)."""
+    ops = get_decoder_ops(family)
+    B, P, _ = prefix_embeds.shape
+    device, dtype = prefix_embeds.device, prefix_embeds.dtype
+    ML = -(-max_len // W) * W
+    cache_dtype = torch.int8 if kv_cache_dtype == "int8" else dtype
+    if family == "gpt2" and P + max_len > cfg.max_position_embeddings:
+        raise ValueError(
+            f"prefix {P} + max_len {max_len} exceeds the decoder's "
+            f"{cfg.max_position_embeddings} positions")
+    cache = ops.create_cache(cfg, B, P + ML, device, cache_dtype)
+    window = None
+    if family == "llama":
+        hidden = ops.prefill(params, cfg, prefix_embeds, cache, w8a8=w8a8)
+        if cache.quantized:
+            window = llama.FlushWindow(cfg, B, W, P, device, dtype)
+    else:
+        if w8a8:
+            raise ValueError("w8a8 prefill is llama-family only")
+        hidden = ops.prefill(params, cfg, prefix_embeds, cache)
+    seen = None
+    if repetition_penalty != 1.0:
+        V = ops.embed_table(params).shape[0]
+        if prompt_tokens is None:
+            seen = torch.zeros((B, V), dtype=torch.bool, device=device)
+        else:
+            valid = True if prompt_mask is None else prompt_mask.to(device)
+            seen = seen_mask(prompt_tokens.to(device), valid, V)
+    if rng is None:
+        rng = torch.Generator(device=device)
+        rng.manual_seed(0)
+    done = (torch.zeros((B,), dtype=torch.bool, device=device) if initial_done is None
+            else initial_done.to(device=device, dtype=torch.bool).clone())
+    return DecodeState(cache=cache, tokens=torch.zeros((B, ML), dtype=torch.int32, device=device),
+                       last_hidden=hidden, t=0, done=done, rng=rng, seen=seen, window=window)
+
+
+def _window_body(
+    params, cfg, state: DecodeState, *, family: str, max_len: int, stop_token_id: int, greedy: bool,
+    top_p: float, temperature: float, top_k: int, repetition_penalty: float, W: int,
+):
+    """The one-flush-window step over ``state``'s cache: W sub-steps (choose
+    the token at ``t + i``, then the decode step at position ``P + t + i``),
+    fewer in the window that reaches ``max_len``. An int8 cache's window
+    flushes inside the W-th decode step. Shared by ``_decode_loop`` and
+    ``generate_stream``."""
+    ops = get_decoder_ops(family)
+    ML = state.tokens.shape[1]
+    S_max = state.cache.k.shape[2]
+    P = S_max - ML
+    embed = ops.embed_table(params)
+    if family == "llama":
+        cos, sin = llama.rope_device_tables(cfg, S_max, state.last_hidden.dtype, state.last_hidden.device)
+
+        def step(s, tok_embed, pos):
+            return ops.decode_step(params, cfg, tok_embed, s.cache, pos, cos, sin, s.window)
+    else:
+
+        def step(s, tok_embed, pos):
+            return ops.decode_step(params, cfg, tok_embed, s.cache, pos)
+
+    def body(s: DecodeState) -> DecodeState:
+        hidden = s.last_hidden
+        for t in range(s.t, min(s.t + W, max_len)):
+            logits = ops.logits_from_hidden(params, cfg, hidden)
+            tok = _sample_token(logits, greedy=greedy, top_p=top_p, temperature=temperature, rng=s.rng,
+                                top_k=top_k, repetition_penalty=repetition_penalty, seen=s.seen)
+            s.tokens[:, t] = tok
+            s.done.logical_or_(tok == stop_token_id)
+            if s.seen is not None:
+                s.seen.scatter_(1, tok[:, None], True)
+            if t + 1 < max_len:
+                hidden = step(s, embed[tok], P + t)
+        return s._replace(t=s.t + W, last_hidden=hidden)
+
+    return body
+
+
+def _decode_loop(
+    params, cfg, state: DecodeState, *, family: str, max_len: int, stop_token_id: int, greedy: bool,
+    top_p: float, temperature: float, top_k: int, repetition_penalty: float, W: int,
+    alive_threshold: int = 0,
+) -> DecodeState:
+    """Windows until ``max_len``, or until at most ``alive_threshold`` rows
+    are unfinished (0: all done, the plain path; the cascade passes half its
+    batch). The done mask is read on the host before each window."""
+    body = _window_body(params, cfg, state, family=family, max_len=max_len, stop_token_id=stop_token_id,
+                        greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
+                        repetition_penalty=repetition_penalty, W=W)
+    while state.t < max_len and int((~state.done).sum()) > alive_threshold:
+        state = body(state)
+    return state
+
+
 @torch.no_grad()
 def generate(
     params: dict,
@@ -60,58 +279,154 @@ def generate(
     *,
     max_len: int,
     stop_token_id: int,
+    greedy: bool = True,
+    top_p: float = 0.8,
+    temperature: float = 1.0,
+    rng: Optional[torch.Generator] = None,  # on the prefix's device; default seed 0
     kv_cache_dtype: Optional[str] = None,
-    w8a8: bool = False,
+    initial_done: Optional[torch.Tensor] = None,  # (B,) bool: rows that start done
     family: str = "llama",
     flush_window: Optional[int] = None,
+    top_k: int = 0,
+    repetition_penalty: float = 1.0,
+    prompt_tokens: Optional[torch.Tensor] = None,  # (B, T) ids seeding the penalty's mask
+    prompt_mask: Optional[torch.Tensor] = None,  # (B, T) bool: the real (non-pad) ids
+    w8a8: bool = False,
 ) -> GenerateResult:
-    """Prefill, then per step: logits -> argmax -> done mask -> decode_step
-    at position P + t. One host sync per step reads the done mask.
+    """Prefill, then flush windows until every row is done or ``max_len``.
     ``kv_cache_dtype``: None (the compute dtype) or "int8"; ``w8a8``: the
-    W8A8 prefill blocks for int8 weights; ``flush_window``: the int8
-    cache's window, as the JAX package's (``effective_window``)."""
-    ops = get_decoder_ops(family)
-    B, P, _ = prefix_embeds.shape
+    W8A8 prefill blocks for int8 weights; ``flush_window``: W, as the JAX
+    package's (``effective_window``)."""
+    W = effective_window(flush_window, max_len, prefix_embeds.shape[0])
+    state = _init_state(params, cfg, prefix_embeds, max_len=max_len, kv_cache_dtype=kv_cache_dtype,
+                        family=family, W=W, rng=rng, initial_done=initial_done,
+                        repetition_penalty=repetition_penalty, prompt_tokens=prompt_tokens,
+                        prompt_mask=prompt_mask, w8a8=w8a8)
+    final = _decode_loop(params, cfg, state, family=family, max_len=max_len, stop_token_id=stop_token_id,
+                         greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
+                         repetition_penalty=repetition_penalty, W=W)
+    return GenerateResult(tokens=final.tokens[:, :max_len], num_steps=min(final.t, max_len))
+
+
+@torch.no_grad()
+def generate_stream(
+    params: dict,
+    cfg,
+    prefix_embeds: torch.Tensor,
+    *,
+    max_len: int,
+    stop_token_id: int,
+    greedy: bool = True,
+    top_p: float = 0.8,
+    temperature: float = 1.0,
+    rng: Optional[torch.Generator] = None,
+    kv_cache_dtype: Optional[str] = None,
+    initial_done: Optional[torch.Tensor] = None,
+    family: str = "llama",
+    flush_window: Optional[int] = None,
+    top_k: int = 0,
+    repetition_penalty: float = 1.0,
+    prompt_tokens: Optional[torch.Tensor] = None,
+    prompt_mask: Optional[torch.Tensor] = None,
+    w8a8: bool = False,
+) -> Iterator[GenerateResult]:
+    """``generate`` one window at a time: yields a snapshot after every
+    window, the last one included, its tokens copied to the host (one fetch
+    a window). The tokens are ``generate``'s: the same window body."""
+    W = effective_window(flush_window, max_len, prefix_embeds.shape[0])
+    state = _init_state(params, cfg, prefix_embeds, max_len=max_len, kv_cache_dtype=kv_cache_dtype,
+                        family=family, W=W, rng=rng, initial_done=initial_done,
+                        repetition_penalty=repetition_penalty, prompt_tokens=prompt_tokens,
+                        prompt_mask=prompt_mask, w8a8=w8a8)
+    body = _window_body(params, cfg, state, family=family, max_len=max_len, stop_token_id=stop_token_id,
+                        greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
+                        repetition_penalty=repetition_penalty, W=W)
+    while True:
+        state = body(state)
+        t = min(state.t, max_len)
+        yield GenerateResult(tokens=state.tokens[:, :max_len].to("cpu", copy=True), num_steps=t)
+        if t >= max_len or bool(state.done.all()):
+            return
+
+
+def _compact_state(state: DecodeState, perm: torch.Tensor) -> DecodeState:
+    """Gather the rows ``perm`` into a smaller batch: the cache (and an int8
+    cache's scales) along its batch axis, the tokens, the last hidden, the
+    done and seen masks. Only at a window boundary, where an int8 cache's
+    window holds no row."""
+    cache = type(state.cache)(*(None if a is None else a[:, perm] for a in state.cache))
+    return state._replace(
+        cache=cache, tokens=state.tokens[perm], last_hidden=state.last_hidden[perm], done=state.done[perm],
+        seen=None if state.seen is None else state.seen[perm],
+        window=None if state.window is None else state.window.select(perm))
+
+
+@torch.no_grad()
+def generate_cascade(
+    params: dict,
+    cfg,
+    prefix_embeds: torch.Tensor,
+    *,
+    max_len: int,
+    stop_token_id: int,
+    greedy: bool = True,
+    top_p: float = 0.8,
+    temperature: float = 1.0,
+    rng: Optional[torch.Generator] = None,
+    kv_cache_dtype: Optional[str] = None,
+    initial_done: Optional[torch.Tensor] = None,
+    family: str = "llama",
+    flush_window: Optional[int] = None,
+    top_k: int = 0,
+    repetition_penalty: float = 1.0,
+    prompt_tokens: Optional[torch.Tensor] = None,
+    prompt_mask: Optional[torch.Tensor] = None,
+    w8a8: bool = False,
+    min_batch: int = 32,
+) -> GenerateResult:
+    """``generate`` in stages that drop finished rows. A stage runs the
+    same windows until at most half its rows are unfinished (none, at or
+    below ``min_batch`` rows); the host then banks the finished rows'
+    tokens, gathers the live rows, padded with finished ones, into a batch
+    of the next power of two (at least ``min_batch``) and goes on. Every
+    live row is at the same position, so the stages need no ragged
+    attention.
+
+    Each row's tokens up to its first stop token are ``generate``'s (its
+    tokens after the stop may differ; the stop trim drops them). The bits
+    can move with the batch on the card, whose products choose their
+    algorithm by M; a sampled row's draws differ from ``generate``'s after
+    the first compaction. ``num_steps`` is the slowest row's, as
+    ``generate``'s."""
+    B = prefix_embeds.shape[0]
     device = prefix_embeds.device
-    dtype = prefix_embeds.dtype
-    cache_dtype = torch.int8 if kv_cache_dtype == "int8" else dtype
-    if family == "llama":
-        cache = ops.create_cache(cfg, B, P + max_len, device, cache_dtype)
-        hidden = ops.prefill(params, cfg, prefix_embeds, cache, w8a8=w8a8)
-        cos, sin = llama.rope_device_tables(cfg, P + max_len, dtype, device)
-        window = None
-        if cache.quantized:
-            W = effective_window(flush_window, max_len, B)
-            window = llama.FlushWindow(cfg, B, W, P, device, dtype)
-
-        def step(embeds, pos):
-            return ops.decode_step(params, cfg, embeds, cache, pos, cos, sin, window)
-    else:
-        if P + max_len > cfg.max_position_embeddings:
-            raise ValueError(
-                f"prefix {P} + max_len {max_len} exceeds the decoder's "
-                f"{cfg.max_position_embeddings} positions")
-        cache = ops.create_cache(cfg, B, P + max_len, device, cache_dtype)
-        if w8a8:
-            raise ValueError("w8a8 prefill is llama-family only")
-        hidden = ops.prefill(params, cfg, prefix_embeds, cache)
-
-        def step(embeds, pos):
-            return ops.decode_step(params, cfg, embeds, cache, pos)
-
-    embed = ops.embed_table(params)
-    tokens = torch.zeros((B, max_len), dtype=torch.int32, device=device)
-    done = torch.zeros((B,), dtype=torch.bool, device=device)
-    t = 0
-    while t < max_len:
-        next_tok = torch.argmax(ops.logits_from_hidden(params, cfg, hidden), dim=-1)
-        tokens[:, t] = next_tok.to(torch.int32)
-        done |= next_tok == stop_token_id
-        t += 1
-        if t == max_len or bool(done.all()):
+    W = effective_window(flush_window, max_len, B)
+    state = _init_state(params, cfg, prefix_embeds, max_len=max_len, kv_cache_dtype=kv_cache_dtype,
+                        family=family, W=W, rng=rng, initial_done=initial_done,
+                        repetition_penalty=repetition_penalty, prompt_tokens=prompt_tokens,
+                        prompt_mask=prompt_mask, w8a8=w8a8)
+    out_tokens = torch.zeros_like(state.tokens)
+    orig = torch.arange(B, device=device)  # row of the batch -> row of the request
+    cur = B
+    while True:
+        state = _decode_loop(params, cfg, state, family=family, max_len=max_len, stop_token_id=stop_token_id,
+                             greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
+                             repetition_penalty=repetition_penalty, W=W,
+                             alive_threshold=cur // 2 if cur > min_batch else 0)
+        done = state.done.cpu()
+        if state.t >= max_len or bool(done.all()):
             break
-        hidden = step(embed[next_tok], P + t - 1)
-    return GenerateResult(tokens=tokens, num_steps=t)
+        alive, dropped = torch.nonzero(~done)[:, 0], torch.nonzero(done)[:, 0]
+        new_b = max(min_batch, 1 << (len(alive) - 1).bit_length())
+        assert new_b < cur, (new_b, cur, len(alive))  # the stage's threshold guarantees it
+        dropped = dropped.to(device)
+        out_tokens[orig[dropped]] = state.tokens[dropped]
+        perm = torch.cat([alive.to(device), dropped[: new_b - len(alive)]])
+        state = _compact_state(state, perm)
+        orig = orig[perm]
+        cur = new_b
+    out_tokens[orig] = state.tokens
+    return GenerateResult(tokens=out_tokens[:, :max_len], num_steps=min(state.t, max_len))
 
 
 def tokens_to_lists(result: GenerateResult, stop_token_id: int) -> List[List[int]]:

@@ -51,6 +51,7 @@ nothing), chunked prefill, an int8 cache under fp32 compute.
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -112,6 +113,16 @@ class FlushWindow:
     @property
     def size(self) -> int:
         return self.k.shape[2]
+
+    def select(self, rows: torch.Tensor) -> "FlushWindow":
+        """This window over the batch rows ``rows`` (a cascade compaction,
+        ``generate._compact_state``): only between windows, when it holds
+        no row."""
+        if self.count:
+            raise ValueError(f"a flush window holding {self.count} rows cannot be compacted")
+        out = copy.copy(self)
+        out.k, out.v = self.k[:, rows], self.v[:, rows]
+        return out
 
     def flush(self, cache: "KVCache") -> None:
         """Quantize the window's rows into ``cache`` at [flushed, flushed +

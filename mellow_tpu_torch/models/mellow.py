@@ -9,6 +9,8 @@ numpy, so full-width random weights need no JAX.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -54,18 +56,61 @@ def generate_tokens(
     text_ids: torch.Tensor,  # (B, T)
     *,
     max_len: int,
-    stop_token_id=None,  # default: cfg.stop_token_id
+    greedy: bool = True,
+    top_p: float = 0.8,
+    temperature: float = 1.0,
+    rng: Optional[torch.Generator] = None,
     kv_cache_dtype=None,  # None (the compute dtype) or "int8"
+    initial_done: Optional[torch.Tensor] = None,
+    stop_token_id=None,  # default: cfg.stop_token_id
+    top_k: int = 0,
+    repetition_penalty: float = 1.0,
     w8a8: bool = False,  # W8A8 prefill blocks for int8 decoder weights
 ) -> gen.GenerateResult:
-    """Two waveforms + prompt ids -> greedy token ids, in the dtype of the
-    waves and the weights (float32 parity mode or bfloat16 perf mode)."""
+    """Two waveforms + prompt ids -> token ids, in the dtype of the waves
+    and the weights (float32 parity mode or bfloat16 perf mode)."""
     prefix = encode_and_prefix(params, cfg, audio1, audio2, text_ids)
-    return gen.generate(
-        params["decoder"], cfg.decoder, prefix, max_len=max_len,
-        stop_token_id=cfg.stop_token_id if stop_token_id is None else stop_token_id,
-        kv_cache_dtype=kv_cache_dtype, w8a8=w8a8, family=cfg.decoder_family,
-    )
+    return gen.generate(params["decoder"], cfg.decoder, prefix, **_decode_kwargs(
+        cfg, text_ids, max_len=max_len, greedy=greedy, top_p=top_p, temperature=temperature, rng=rng,
+        kv_cache_dtype=kv_cache_dtype, initial_done=initial_done, stop_token_id=stop_token_id, top_k=top_k,
+        repetition_penalty=repetition_penalty, w8a8=w8a8))
+
+
+def generate_tokens_dynamic(
+    params: dict,
+    cfg: MellowConfig,
+    audio1: torch.Tensor,
+    audio2: torch.Tensor,
+    text_ids: torch.Tensor,
+    *,
+    max_len: int,
+    greedy: bool = True,
+    top_p: float = 0.8,
+    temperature: float = 1.0,
+    rng: Optional[torch.Generator] = None,
+    kv_cache_dtype=None,
+    initial_done: Optional[torch.Tensor] = None,
+    stop_token_id=None,
+    top_k: int = 0,
+    repetition_penalty: float = 1.0,
+    w8a8: bool = False,
+    min_batch: int = 32,
+) -> gen.GenerateResult:
+    """``generate_tokens`` with cascade compaction: finished rows stop
+    costing decode steps (``generate.generate_cascade``)."""
+    prefix = encode_and_prefix(params, cfg, audio1, audio2, text_ids)
+    return gen.generate_cascade(params["decoder"], cfg.decoder, prefix, min_batch=min_batch, **_decode_kwargs(
+        cfg, text_ids, max_len=max_len, greedy=greedy, top_p=top_p, temperature=temperature, rng=rng,
+        kv_cache_dtype=kv_cache_dtype, initial_done=initial_done, stop_token_id=stop_token_id, top_k=top_k,
+        repetition_penalty=repetition_penalty, w8a8=w8a8))
+
+
+def _decode_kwargs(cfg: MellowConfig, text_ids: torch.Tensor, *, stop_token_id, **kwargs) -> dict:
+    """The decoder options of both entry points. HF's repetition penalty
+    covers the whole input: the prompt's ids (the only prefix positions that
+    have ids) seed its mask, the pad ids left out."""
+    return dict(kwargs, stop_token_id=cfg.stop_token_id if stop_token_id is None else stop_token_id,
+                family=cfg.decoder_family, prompt_tokens=text_ids, prompt_mask=text_ids != cfg.pad_token_id)
 
 
 def init_params(cfg: MellowConfig, seed: int) -> dict:

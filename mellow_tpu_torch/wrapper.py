@@ -1,15 +1,21 @@
-"""MellowWrapper for the PyTorch port: the same constructor and ``generate``
-signature as ``mellow_tpu.wrapper.MellowWrapper``, plus an explicit
-``device`` (a ``torch.device`` or a string, ``"cuda"`` by default).
+"""MellowWrapper for the PyTorch port: the same constructor, ``generate``
+and ``generate_stream`` signatures as ``mellow_tpu.wrapper.MellowWrapper``,
+plus an explicit ``device`` (a ``torch.device`` or a string, ``"cuda"`` by
+default).
 
 Host preprocessing (wav decode, resample, repeat-pad / crop, tokenisation)
 is the JAX wrapper's, on the port's own copies of that code
 (``mellow_tpu_torch.io`` and ``mellow_tpu_torch.native``). What differs:
 
-  * greedy only, in fp32 parity mode (``compute_dtype`` None or
-    "float32") or bf16 perf mode (``compute_dtype="bfloat16"``: every
-    floating weight, the audio and the KV cache in bf16, the hand-written
-    decode-attention, prefill-block and Swin-block kernels on the card);
+  * fp32 parity mode (``compute_dtype`` None or "float32") or bf16 perf
+    mode (``compute_dtype="bfloat16"``: every floating weight, the audio
+    and the KV cache in bf16, the hand-written decode-attention,
+    prefill-block and Swin-block kernels on the card);
+  * decoding as the JAX wrapper's: greedy, or ``sample=True`` with
+    ``top_p``, ``temperature``, ``top_k`` and ``seed`` (the port draws from
+    the same filtered distribution with its own generator, so sampled
+    tokens differ from the JAX package's), ``repetition_penalty``,
+    ``dynamic_batch`` (cascade compaction) and ``generate_stream``;
   * bf16 perf mode also takes the int8 options: ``weight_dtype="int8"``
     (int8 decoder weights, quantized from the fp32 weights before the cast
     to bf16, as the JAX wrapper does), ``weight_dtype="int8-w8a8"`` (the
@@ -22,8 +28,7 @@ is the JAX wrapper's, on the port's own copies of that code
     ``weight_dtype="int8"`` but, as in the JAX package, neither
     ``"int8-w8a8"`` (ValueError) nor an int8 KV cache (ValueError);
   * ``kv_cache_dtype`` otherwise may only name the compute dtype;
-    ``sample=True``, ``weight_dtype`` or an int8 cache under fp32, ``mesh``,
-    ``dynamic_batch`` and ``repetition_penalty != 1`` raise;
+    ``weight_dtype`` or an int8 cache under fp32 and ``mesh`` raise;
   * no power-of-two batch buckets: eager PyTorch does not recompile per
     shape, so the batch runs as given;
   * weights come from ``params=`` (the JAX package's tree layout) or from a
@@ -33,7 +38,7 @@ is the JAX wrapper's, on the port's own copies of that code
 from __future__ import annotations
 
 import random
-from typing import List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,6 +50,7 @@ from mellow_tpu_torch.io.wav import read_wav
 from mellow_tpu_torch.native import binding as native_audio
 from mellow_tpu_torch.utils.metrics import GLOBAL as metrics
 from mellow_tpu_torch.utils.params_io import load_params
+from mellow_tpu_torch.models import generate as gen
 from mellow_tpu_torch.models import gpt2, llama
 from mellow_tpu_torch.models import mellow as mellow_model
 from mellow_tpu_torch.models.params import cast_floating, count_params, params_from_jax
@@ -203,43 +209,97 @@ class MellowWrapper:
         seed: int = 0,
         crop_start: Optional[int] = None,
         kv_cache_dtype: Optional[str] = None,
+        top_k: int = 0,  # sampling only (0 = off)
+        repetition_penalty: float = 1.0,  # HF/CTRL convention; 1.0 = off
+        dynamic_batch: bool = False,  # cascade compaction: finished rows stop
+        # costing decode steps (generate.generate_cascade)
+    ) -> List[str]:
+        """Text for each [audio1, audio2, prompt] example: greedy, or with
+        ``sample=True`` a draw from the top-k / top-p / temperature filtered
+        softmax seeded by ``seed``."""
+        int8_cache = self._int8_cache(kv_cache_dtype)
+        audio1 = self.preprocess_audio([e[0] for e in examples], audio_resample, crop_start)
+        audio2 = self.preprocess_audio([e[1] for e in examples], audio_resample, crop_start)
+        text_ids = self.preprocess_text([e[2] for e in examples])
+
+        with metrics.timer("generate"):
+            gen_fn = mellow_model.generate_tokens_dynamic if dynamic_batch else mellow_model.generate_tokens
+            result = gen_fn(
+                self.params, self.cfg, *self._device_inputs(audio1, audio2, text_ids),
+                max_len=max_len, greedy=not sample, top_p=top_p, temperature=temperature,
+                rng=self._rng(seed), kv_cache_dtype="int8" if int8_cache else None,
+                stop_token_id=self._stop_token_id(stop_token), top_k=top_k,
+                repetition_penalty=repetition_penalty, w8a8=self._w8a8,
+            )
+            texts = self._detokenize(result, stop_token)
+        metrics.count("tokens", len(examples) * result.num_steps)
+        metrics.count("clips", 2 * len(examples))
+        metrics.count("generate_calls", 1)
+        return texts
+
+    def generate_stream(
+        self,
+        examples: Sequence[Sequence[str]],
+        max_len: int = 300,
+        top_p: float = 0.8,
+        temperature: float = 1.0,
+        stop_token: str = "<|endoftext|>",
+        audio_resample: bool = True,
+        *,
+        sample: bool = False,
+        seed: int = 0,
+        crop_start: Optional[int] = None,
+        kv_cache_dtype: Optional[str] = None,
         top_k: int = 0,
         repetition_penalty: float = 1.0,
-        dynamic_batch: bool = False,
-    ) -> List[str]:
-        """Text for each [audio1, audio2, prompt] example, greedy. ``top_p``,
-        ``temperature``, ``top_k`` and ``seed`` do not change a greedy
-        answer and are accepted for API parity."""
-        if sample:
-            raise NotImplementedError("sample=True (nucleus sampling) is not ported")
+    ) -> Iterator[List[str]]:
+        """Streaming ``generate``: yields the batch's texts so far after every
+        flush window, each already trimmed at the stop token, and ends with
+        the complete texts (``generate``'s: the same tokens, one host fetch
+        a window)."""
+        int8_cache = self._int8_cache(kv_cache_dtype)
+        audio1 = self.preprocess_audio([e[0] for e in examples], audio_resample, crop_start)
+        audio2 = self.preprocess_audio([e[1] for e in examples], audio_resample, crop_start)
+        text_ids = self.preprocess_text([e[2] for e in examples])
+        a1, a2, ids = self._device_inputs(audio1, audio2, text_ids)
+        prefix = mellow_model.encode_and_prefix(self.params, self.cfg, a1, a2, ids)
+        for result in gen.generate_stream(
+            self.params["decoder"], self.cfg.decoder, prefix,
+            max_len=max_len, stop_token_id=self._stop_token_id(stop_token), greedy=not sample,
+            top_p=top_p, temperature=temperature, rng=self._rng(seed),
+            kv_cache_dtype="int8" if int8_cache else None, family=self.cfg.decoder_family, top_k=top_k,
+            repetition_penalty=repetition_penalty, prompt_tokens=ids,
+            prompt_mask=ids != self.cfg.pad_token_id, w8a8=self._w8a8,
+        ):
+            yield self._detokenize(result, stop_token)
+
+    def _int8_cache(self, kv_cache_dtype: Optional[str]) -> bool:
+        """Whether ``kv_cache_dtype`` asks for the int8 cache; raises on a
+        cache dtype the port does not take under this compute dtype."""
         int8_cache = kv_cache_dtype == "int8" and self.dtype == torch.bfloat16
         if kv_cache_dtype not in (None, self.cfg.compute_dtype) and not int8_cache:
             raise NotImplementedError(
                 f"kv_cache_dtype={kv_cache_dtype!r} is not ported under "
                 f"compute_dtype={self.cfg.compute_dtype!r}")
-        if repetition_penalty != 1.0:
-            raise NotImplementedError("repetition_penalty is not ported")
-        if dynamic_batch:
-            raise NotImplementedError("dynamic_batch (cascade compaction) is not ported")
+        return int8_cache
 
-        audio1 = self.preprocess_audio([e[0] for e in examples], audio_resample, crop_start)
-        audio2 = self.preprocess_audio([e[1] for e in examples], audio_resample, crop_start)
-        text_ids = self.preprocess_text([e[2] for e in examples])
-        stop_ids = self.tokenizer.encode(stop_token)
-        stop_token_id = int(stop_ids[0]) if stop_ids else self.cfg.stop_token_id
-
-        with metrics.timer("generate"):
-            result = mellow_model.generate_tokens(
-                self.params, self.cfg,
-                torch.from_numpy(audio1).to(device=self.device, dtype=self.dtype),
+    def _device_inputs(self, audio1, audio2, text_ids):
+        return (torch.from_numpy(audio1).to(device=self.device, dtype=self.dtype),
                 torch.from_numpy(audio2).to(device=self.device, dtype=self.dtype),
-                torch.from_numpy(text_ids).to(self.device),
-                max_len=max_len, stop_token_id=stop_token_id,
-                kv_cache_dtype="int8" if int8_cache else None, w8a8=self._w8a8,
-            )
-            tokens = result.tokens.cpu().numpy()[:, : result.num_steps]
-            texts = [self.tokenizer.decode(row.tolist()).split(stop_token)[0] for row in tokens]
-        metrics.count("tokens", len(examples) * result.num_steps)
-        metrics.count("clips", 2 * len(examples))
-        metrics.count("generate_calls", 1)
-        return texts
+                torch.from_numpy(text_ids).to(self.device))
+
+    def _rng(self, seed: int) -> torch.Generator:
+        """The sampler's generator on the wrapper's device, seeded."""
+        rng = torch.Generator(device=self.device)
+        rng.manual_seed(seed)
+        return rng
+
+    def _stop_token_id(self, stop_token: str) -> int:
+        """The stop token's first id, as the reference derives it, or the
+        configuration's."""
+        stop_ids = self.tokenizer.encode(stop_token)
+        return int(stop_ids[0]) if stop_ids else self.cfg.stop_token_id
+
+    def _detokenize(self, result: gen.GenerateResult, stop_token: str) -> List[str]:
+        tokens = result.tokens.cpu().numpy()[:, : result.num_steps]
+        return [self.tokenizer.decode(row.tolist()).split(stop_token)[0] for row in tokens]

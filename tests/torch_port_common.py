@@ -17,6 +17,7 @@ from mellow_tpu.models import mellow as jmellow
 from mellow_tpu.models.gpt2 import GPT2Config
 from mellow_tpu_torch import config as tconfig
 from mellow_tpu_torch.models import gpt2 as tgpt2
+from mellow_tpu_torch.models import mellow as tmellow
 
 DEC = LlamaConfig(
     vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=4,
@@ -83,16 +84,35 @@ def _perturbed(cfg, seed: int) -> dict:
     )
 
 
+def _scale_up(dec: dict, family: str) -> None:
+    """At init scale the tiny decoder repeats one token forever; larger
+    weights make the greedy tokens vary by step and by row."""
+    dec["wte" if family == "gpt2" else "embed"] *= np.float32(3.0)
+    keys = (("w_qkv", "w_o", "w_fc", "w_proj") if family == "gpt2"
+            else ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
+    for k in keys:
+        dec["layers"][k] *= np.float32(10.0)
+
+
 @functools.lru_cache(maxsize=1)
 def jax_params_np(seed: int = 0) -> dict:
     """The JAX-layout parameter tree as numpy, every leaf perturbed."""
     tree = jax.tree.map(np.copy, _perturbed(TINY, seed))
-    # At init scale the tiny decoder repeats one token forever; larger
-    # weights make the greedy tokens vary by step and by row.
-    dec = tree["decoder"]
-    dec["embed"] = dec["embed"] * np.float32(3.0)
-    for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
-        dec["layers"][k] = dec["layers"][k] * np.float32(10.0)
+    _scale_up(tree["decoder"], "llama")
+    return tree
+
+
+@functools.lru_cache(maxsize=2)
+def port_params_np(cfg: MellowConfig, seed: int = 0) -> dict:
+    """``jax_params_np``'s recipe (every leaf perturbed, the decoder scaled
+    up) on the port's numpy init of ``cfg`` (``mellow_tpu_torch.models.
+    mellow.init_params``, the JAX package's tree layout), with no JAX init:
+    other values, for tests that only need one set of weights on both
+    sides. Cached: callers copy before they change a leaf."""
+    rng = np.random.default_rng(seed + 100)
+    tree = jax.tree.map(lambda a: (a + 0.05 * rng.standard_normal(a.shape)).astype(np.float32),
+                        tmellow.init_params(cfg, seed))
+    _scale_up(tree["decoder"], cfg.decoder_family)
     return tree
 
 
@@ -108,8 +128,5 @@ def gpt2_params_np(seed: int = 0, scaled: bool = True) -> dict:
     of hidden states, where the scaled weights amplify rounding)."""
     tree = jax.tree.map(np.copy, _perturbed(TINY_GPT2, seed))
     if scaled:
-        dec = tree["decoder"]
-        dec["wte"] = dec["wte"] * np.float32(3.0)
-        for k in ("w_qkv", "w_o", "w_fc", "w_proj"):
-            dec["layers"][k] = dec["layers"][k] * np.float32(10.0)
+        _scale_up(tree["decoder"], "gpt2")
     return tree
