@@ -27,7 +27,10 @@ result line is printed:
    attention (#9) are timed against their library call in turns over 5
    rounds, with the median and range, in device time and also with the
    host's launch overhead (how this script timed every kernel before it
-   timed device time); the int8 decode attention (#3) is also timed at a
+   timed device time); #2 and #3 also run with continuous batching's
+   ragged per-row starts at 4 and 8 rows (#2 beside SDPA with the start
+   mask), where starts of 0 must give the output without ``start`` bit for
+   bit; the int8 decode attention (#3) is also timed at a
    cluster of 1 block, and its outputs at clusters of 1, 8, 16 and the
    default size are held within one bf16 ulp of each other; the attention
    blocks (#4, #4 ``kv_quant``, #5), the MLP blocks (#6, #7) and the Swin
@@ -92,7 +95,22 @@ result line is printed:
    every call's launches checked; each decode-step product at M = 4 against
    M = 2 (``products_by_batch``); the sampler's device time a step at B=1
    and B=4, and a sampled B=1 request's latency against a greedy one;
-10. timings of the paths by stage (host preprocessing, log-mel, encoder,
+10. continuous batching (``continuous_phase``): ``ContinuousScheduler`` on
+   v0 at full width in fp32, bf16 and bf16 with an int8 cache, ten
+   requests of 4-48 tokens through 4 slots and a 64-step window on
+   prefixes encoded from the smoke's wavs (two rolls and a reset), every
+   request finished with its budget and each kernel's launches checked (#4
+   and #6, or #4 ``kv_quant`` and #6, once a layer per admission; #2 or #3
+   with ``start`` once a layer per decode step); each row against its solo
+   ``generate`` (fp32 equal, or first different at a near-tie of the solo
+   logits; bf16 and int8 agreement printed); the device time of a window's
+   decode step, of each admission and of each roll; then
+   ``ContinuousBatchingEngine`` on the bf16 path with per-request knobs
+   (greedy and sampled requests, one missing wav that fails alone), and
+   the v0 weights through ``export_mellow`` into a .pt and back through
+   ``MellowWrapper(params_path=...)``, bit for bit and with the same greedy
+   answer;
+11. timings of the paths by stage (host preprocessing, log-mel, encoder,
    prefill, decode step as the slope of two lengths, whole request), and
    torch.profiler over one warm B=1 request of each path (device time,
    kernel launches, the device's idle share, and the device time and
@@ -649,7 +667,42 @@ def bench_decode_attention(dec, prefix_len: int) -> dict:
         bound = _bound(n_bytes, 4 * batch * H * n * hd, PEAK_BF16)
         cases.append({**_case("decode_attention", f"B={batch} n={n}", err, f"{BF16_KERNEL_TOL} x max|plain|",
                               ms, plain_ms, bound, paired=paired), "cluster_blocks": da.cluster_blocks(n)})
+    # Continuous batching's ragged rows: a per-row start at 4 and 8 slots.
+    n = prefix_len + 31
+    for batch in (4, 8):
+        q = _bf16(rng, batch, H, hd)
+        k = _bf16(rng, batch, s_max, KV, hd)
+        v = _bf16(rng, batch, s_max, KV, hd)
+        start = ragged_starts(batch, n)
+        out = da.decode_attention_cuda(q, k, v, n, start)
+        torch.cuda.synchronize()
+        err = _check_bf16("decode_attention with start", out, da.decode_attention_plain(q, k, v, n, start))
+        same = torch.equal(da.decode_attention_cuda(q, k, v, n, torch.zeros_like(start)),
+                           da.decode_attention_cuda(q, k, v, n))
+        if not same:
+            raise RuntimeError("decode_attention: starts of 0 moved the output of the kernel without start")
+        ms, plain_ms = _alternate(lambda: da.decode_attention_plain(q, k, v, n, start),
+                                  lambda: da.decode_attention_cuda(q, k, v, n, start))
+        qs, ks, vs = q[:, :, None], k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+        mask = ~da.start_mask(start, n)
+        _check_bf16("decode_attention with start vs SDPA", out,
+                    F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)[:, :, 0])
+        library_ms = _median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True))
+        # The positions this run's starts leave, not all n.
+        live = int((n - start).sum().item())
+        bound = _bound(_nbytes(q, out, start) + 2 * live * KV * hd * k.element_size(), 4 * H * live * hd, PEAK_BF16)
+        cases.append({**_case("decode_attention", f"B={batch} n={n} start", err, f"{BF16_KERNEL_TOL} x max|plain|",
+                              ms, plain_ms, bound, library_ms), "starts": start.tolist(),
+                      "start_zero_bit_equal": same})
     return _row("decode_attention", cases)
+
+
+def ragged_starts(batch: int, n: int) -> torch.Tensor:
+    """(batch,) int32 first positions as continuous batching makes them:
+    0, n - 1 (the step's own position alone), one that empties the
+    cluster's first two blocks and one in its last block, in turn."""
+    pool = (0, n - 1, 2 * da.POSITIONS_PER_BLOCK + 5, n - 30)
+    return torch.tensor([pool[b % len(pool)] for b in range(batch)], dtype=torch.int32, device="cuda")
 
 
 def _decoder_layer(rng, dec) -> dict:
@@ -902,6 +955,32 @@ def bench_decode_attention_int8(dec, prefix_len: int) -> dict:
                               f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound),
                       "cluster_blocks": di.cluster_blocks(n), "ms_one_block": one_ms,
                       "max_ulp_across_clusters": ulp})
+    # Continuous batching's ragged rows: a per-row start at 4 and 8 slots,
+    # with one extra row and a whole flush window of them.
+    n = prefix_len + 31
+    for batch, E in ((4, 1), (4, W), (8, 1), (8, W)):
+        q = _bf16(rng, batch, H, hd)
+        k8, ks = llama.quantize_kv(_bf16(rng, batch, s_max, KV * hd, scale=0.5))
+        v8, vs = llama.quantize_kv(_bf16(rng, batch, s_max, KV * hd))
+        k8, v8 = k8.reshape(batch, s_max, KV, hd), v8.reshape(batch, s_max, KV, hd)
+        cur = (_bf16(rng, batch, W, KV, hd, scale=0.5)[:, :E], _bf16(rng, batch, W, KV, hd)[:, :E])
+        start = ragged_starts(batch, n)
+        args = (q, k8, v8, ks, vs, n, *cur)
+        out = di.decode_attention_int8_cuda(*args, start)
+        torch.cuda.synchronize()
+        err = _check_bf16("decode_attention_int8 with start", out, di.decode_attention_int8_plain(*args, start))
+        same = torch.equal(di.decode_attention_int8_cuda(*args, torch.zeros_like(start)),
+                           di.decode_attention_int8_cuda(*args))
+        if not same:
+            raise RuntimeError("decode_attention_int8: starts of 0 moved the output of the kernel without start")
+        ms, plain_ms = _alternate(lambda: di.decode_attention_int8_plain(*args, start),
+                                  lambda: di.decode_attention_int8_cuda(*args, start))
+        live = int((n - start).sum().item())
+        bound = _bound(_nbytes(q, out, start, *cur) + 2 * live * (KV * hd + 4), 4 * H * (live + batch * E) * hd,
+                       PEAK_INT8)
+        cases.append({**_case("decode_attention_int8", f"B={batch} n={n} E={E} start", err,
+                              f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound),
+                      "starts": start.tolist(), "start_zero_bit_equal": same})
     return _row("decode_attention_int8", cases)
 
 
@@ -1716,6 +1795,286 @@ def decoding_phase(wrappers, cfgs, requests, answers) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# continuous batching phase
+# ---------------------------------------------------------------------------
+
+CONTINUOUS_SLOTS = 4
+CONTINUOUS_HORIZON = 64
+CONTINUOUS_W = 8
+# Ten requests' token budgets (4 to 48): through 4 slots and a 64-step
+# window they force two window rolls and a capacity reset. No stop token
+# (-1): each row ends at its deadline, so the schedule is the budgets'.
+CONTINUOUS_BUDGETS = (8, 4, 40, 16, 48, 6, 24, 12, 32, 44)
+# mode -> (the wrapper's path, kv_cache_dtype): fp32 (no kernel), bf16 (#4,
+# #6 in admit, #2 with start), bf16 with an int8 cache (#4 kv_quant, #6,
+# #3 with start).
+CONTINUOUS_MODES = {"fp32": ("fp32", None), "bf16": ("bf16", None), "int8_cache": ("bf16", "int8")}
+# A greedy fp32 row may leave its solo run only where the solo run's top two
+# logits lie this close (a near-tie that summation order can flip).
+NEAR_TIE = 1e-5
+
+
+def _device_ms(fn):
+    """(fn's result, the device time of its kernels): torch.profiler over the
+    call, the sum of the kernel times it saw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
+class ContinuousRecorder:
+    """Wraps ``continuous.admit``, ``roll_window`` and ``decode_stage`` (the
+    scheduler looks each up at call time), ``generate._window_body`` and
+    ``llama.decode_step`` (looked up by every stage and every window): each
+    admission's device time (``_device_ms``: a prefill and its splice),
+    each roll's (``_median_ms`` of the same roll again: it is pure and
+    sync-free), the device time of the first window after the first
+    admission (``_device_ms``: W decode steps at the slots' full width),
+    each stage's decode steps and host time, and the decode steps run."""
+
+    def __enter__(self):
+        from mellow_tpu_torch.models import continuous as cb
+
+        self._cb = cb
+        self.admits, self.rolls, self.stages, self.window = [], [], [], None
+        self.steps = 0
+        self._orig = {name: getattr(cb, name) for name in ("admit", "roll_window", "decode_stage")}
+        self._body, self._step = gen._window_body, llama.decode_step
+
+        def admit(*args, **kwargs):
+            out, ms = _device_ms(lambda: self._orig["admit"](*args, **kwargs))
+            self.admits.append({"rows": int(args[4].shape[0]), "device_ms": ms})
+            return out
+
+        def roll(*args, **kwargs):
+            out = self._orig["roll_window"](*args, **kwargs)
+            self.rolls.append({"delta": args[1], "device_ms": _median_ms(
+                lambda: self._orig["roll_window"](*args, **kwargs))})
+            return out
+
+        def stage(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = self._orig["decode_stage"](*args, **kwargs)
+            torch.cuda.synchronize()
+            self.stages.append({"steps": out.t - args[2].t, "host_ms": (time.perf_counter() - t) * 1e3})
+            return out
+
+        def window_body(*args, **kwargs):
+            body = self._body(*args, **kwargs)
+
+            def timed(state):
+                if self.window is not None:
+                    return body(state)
+                live = int((~state.done).sum().item())
+                out, ms = _device_ms(lambda: body(state))
+                self.window = {"steps": out.t - state.t, "live_rows": live, "device_ms": ms}
+                return out
+            return timed
+
+        def step(*args, **kwargs):
+            self.steps += 1
+            return self._step(*args, **kwargs)
+
+        cb.admit, cb.roll_window, cb.decode_stage = admit, roll, stage
+        gen._window_body, llama.decode_step = window_body, step
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self._cb, name, fn)
+        gen._window_body, llama.decode_step = self._body, self._step
+
+
+def continuous_launches(cfg, mode: str, admits: int, steps: int) -> dict:
+    """What the scheduler's run in ``mode`` must launch: per admission one
+    prefill (each block once a layer; the bf16 blocks, in their kv_quant
+    mode for the attention with an int8 cache) and per decode step a
+    decode attention a layer (#2, or #3 with an int8 cache, each with its
+    start); fp32 none."""
+    want = {name: 0 for name in KERNELS}
+    if mode == "fp32":
+        return want
+    L = cfg.decoder.num_layers
+    attn, decode = ("attn_block_kv_quant", "decode_attention_int8") if mode == "int8_cache" else (
+        "attn_block", "decode_attention")
+    want[attn] = want["mlp_block"] = L * admits
+    want[decode] = L * steps
+    return want
+
+
+def hold_continuous(mode: str, wrapper, cfg, prefixes) -> dict:
+    """Ten requests through the scheduler at full width (4 slots, a 64-step
+    window, W = 8): every request finishes with its budget, the window
+    rolls and resets, each kernel launched as ``continuous_launches`` says
+    (counts set to 0 just before the run, read just after); each row against
+    its solo ``generate`` (B=1, the same cache) on the card: fp32 rows
+    equal, or their first difference at a near-tie of the solo logits;
+    bf16 and int8 agreement printed. The device time of a window's decode
+    step at the slots' width, and each admission's and roll's device
+    time, are printed."""
+    from mellow_tpu_torch.models import continuous as cb
+
+    _, cache = CONTINUOUS_MODES[mode]
+    dec = wrapper.params["decoder"]
+    sched = cb.ContinuousScheduler(dec, cfg.decoder, slots=CONTINUOUS_SLOTS, prefix_len=cfg.prefix_length,
+                                   horizon=CONTINUOUS_HORIZON, cache_dtype=cache, dtype=wrapper.dtype,
+                                   stop_token_id=-1, W=CONTINUOUS_W, device="cuda")
+    rids = [sched.submit(prefixes[i], b) for i, b in enumerate(CONTINUOUS_BUDGETS)]
+    t = time.perf_counter()
+    with ContinuousRecorder() as rec:
+        zero_counts()
+        got = sched.run_to_completion()
+        launches = read_counts()
+    wall = time.perf_counter() - t
+    if sorted(got) != sorted(rids) or [len(got[r]) for r in rids] != list(CONTINUOUS_BUDGETS):
+        raise RuntimeError(f"continuous {mode}: requests unfinished or cut: "
+                           f"{ {r: len(got.get(r, [])) for r in rids} }")
+    if sched.rolls < 1 or sched.resets < 1:
+        raise RuntimeError(f"continuous {mode}: {sched.rolls} rolls, {sched.resets} resets; the budgets must force both")
+    want = continuous_launches(cfg, mode, len(rec.admits), rec.steps)
+    if launches != want:
+        raise RuntimeError(f"continuous {mode}: launched {launches}, expected {want}")
+
+    same, total, ties = 0, 0, []
+    for i, (rid, budget) in enumerate(zip(rids, CONTINUOUS_BUDGETS)):
+        with StepRecorder() as steps:
+            solo = gen.generate(dec, cfg.decoder, prefixes[i : i + 1], max_len=budget, stop_token_id=-1,
+                                flush_window=CONTINUOUS_W, kv_cache_dtype=cache).tokens[0, :budget].tolist()
+        row = got[rid]
+        same += sum(a == b for a, b in zip(row, solo))
+        total += budget
+        if row != solo:
+            j = next(j for j, (a, b) in enumerate(zip(row, solo)) if a != b)
+            top2 = steps.steps[j][0][0].topk(2).values
+            gap = (top2[0] - top2[1]).item()
+            ties.append({"request": i, "step": j, "solo_top2_gap": gap})
+            if mode == "fp32" and gap > NEAR_TIE:
+                raise RuntimeError(f"continuous fp32: request {i} leaves its solo run at step {j}, where the "
+                                   f"solo top two logits are {gap:.3e} apart (> {NEAR_TIE})")
+    step_ms = rec.window["device_ms"] / rec.window["steps"]
+    out = {"mode": mode, "requests": len(rids), "rolls": sched.rolls, "resets": sched.resets, "clock": sched.clock,
+           "decode_steps": rec.steps, "admits": len(rec.admits), "launches": launches, "wall_s": wall,
+           "solo_agreement": [same, total], "first_differences": ties, "window": rec.window,
+           "stage_device_ms_per_decode_step": step_ms, "stages": rec.stages, "admit_device_ms": rec.admits,
+           "roll_window_device_ms": rec.rolls}
+    print(json.dumps({"continuous": out}))
+    print(f"continuous {mode}: {len(rids)} requests, {sched.rolls} rolls, {sched.resets} resets, clock {sched.clock}, "
+          f"{rec.steps} decode steps; tokens equal to the solo runs {same}/{total}"
+          + "".join(f"; request {d['request']} leaves its solo run at step {d['step']} (solo top-two gap "
+                    f"{d['solo_top2_gap']:.3e})" for d in ties)
+          + f"; a stage's device time {step_ms:.3f} ms a decode step ({rec.window['live_rows']} live rows); admit "
+          + ", ".join(f"{c['device_ms']:.3f} ({c['rows']} rows)" for c in rec.admits) + " ms; roll_window "
+          + ", ".join(f"{c['device_ms']:.4f}" for c in rec.rolls) + " ms (device time)")
+    return out
+
+
+def hold_continuous_engine(wrapper, cfg, requests) -> dict:
+    """``ContinuousBatchingEngine`` on the bf16 path with per-request knobs:
+    greedy and sampled requests on the smoke's wavs, and one with a missing
+    wav, which fails alone (FileNotFoundError) while the others answer; the
+    path's kernels launched (counts set to 0 just before); the greedy
+    answers' agreement with ``wrapper.generate`` printed (the cache's
+    columns and the kernels' splits differ, so bf16 bits may move)."""
+    from mellow_tpu_torch.serving import ContinuousBatchingEngine
+
+    engine = ContinuousBatchingEngine(wrapper, slots=CONTINUOUS_SLOTS, horizon=CONTINUOUS_HORIZON,
+                                      flush_window=CONTINUOUS_W, per_request=True, seed=SEED)
+    jobs = [(requests[i % len(requests)], n, i % 2 == 1) for i, n in enumerate((24, 8, 32, 16, 12, 40))]
+    try:
+        zero_counts()
+        t = time.perf_counter()
+        bad = engine.submit(requests[0][0], os.path.join(os.path.dirname(requests[0][0]), "missing.wav"),
+                            requests[0][2], max_len=8)
+        futures = [engine.submit(*req, max_len=n, sample=sampled, **(SAMPLE_KNOBS if sampled else {}))
+                   for req, n, sampled in jobs]
+        answers = [f.result(timeout=600) for f in futures]
+        wall = time.perf_counter() - t
+        err = bad.exception(timeout=60)
+        if err is None or "missing.wav" not in str(err):
+            raise RuntimeError(f"continuous engine: the request with a missing wav gave {err!r}")
+        launches = read_counts()
+    finally:
+        engine.shutdown()
+    if any(len(a) > n for a, (_, n, _) in zip(answers, jobs)):
+        raise RuntimeError("continuous engine: an answer outgrew its max_len")
+    must = ("log_mel", "swin_block", "attn_block", "mlp_block", "decode_attention")
+    missing = [k for k in must if not launches[k]]
+    if missing:
+        raise RuntimeError(f"continuous engine: kernels never launched: {missing}")
+    greedy = [(a, wrapper.generate([req], max_len=n)[0]) for a, (req, n, sampled) in zip(answers, jobs)
+              if not sampled]
+    agree = sum(x == y for a, b in greedy for x, y in zip(a, b))
+    out = {"requests": len(jobs) + 1, "wall_s": wall, "launches": launches, "missing_wav_error": repr(err),
+           "greedy_agreement_with_generate": [agree, sum(len(b) for _, b in greedy)],
+           "answer_lengths": [len(a) for a in answers]}
+    print(json.dumps({"continuous_engine": out}))
+    return out
+
+
+def hold_checkpoint(params_np, wrapper, request) -> dict:
+    """The v0 random weights through the port's ``export_mellow`` into a .pt
+    and back through ``MellowWrapper(params_path=...)``: parameters bit-equal
+    to the wrapper's given ``params=``, and the same greedy answer."""
+    from mellow_tpu_torch.tools.export_ckpt import export_mellow
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "v0.pt")
+        torch.save({k: torch.from_numpy(v) for k, v in export_mellow(params_np).items()}, path)
+        size = os.path.getsize(path)
+        loaded = MellowWrapper(config=wrapper.cfg.name, model="v0", device="cuda", params_path=path,
+                               tokenizer=wrapper.tokenizer)
+    ours, theirs = list(_leaves(loaded.params)), list(_leaves(wrapper.params))
+    if len(ours) != len(theirs) or not all(torch.equal(a, b) for a, b in zip(ours, theirs)):
+        raise RuntimeError("checkpoint: the .pt round trip moved a parameter")
+    if loaded.generate([request], max_len=MAX_LEN) != wrapper.generate([request], max_len=MAX_LEN):
+        raise RuntimeError("checkpoint: the loaded weights answer otherwise")
+    out = {"bytes": size, "tensors": len(ours), "seconds": time.perf_counter() - t}
+    print(json.dumps({"checkpoint_round_trip": out}))
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def continuous_phase(wrappers, cfg, params_np, wavs) -> dict:
+    """The scheduler in fp32, bf16 and bf16 with an int8 cache on prefixes
+    the v0 wrappers encode from the smoke's wavs, the engine, and the
+    checkpoint round trip."""
+    t = time.perf_counter()
+    a, b = wavs
+    prompts = ("caption the audio.", "what is different between the two clips?", "is there speech?",
+               "describe the second clip.", "count the sounds.")
+    examples = [[(a, b), (b, a), (a, a), (b, b)][i % 4] + (prompts[i % 5],) for i in range(len(CONTINUOUS_BUDGETS))]
+    out = {}
+    for mode, (path, _) in CONTINUOUS_MODES.items():
+        w = wrappers[path]
+        audio1 = w.preprocess_audio([e[0] for e in examples], True, 0)
+        audio2 = w.preprocess_audio([e[1] for e in examples], True, 0)
+        text = w.preprocess_text([e[2] for e in examples])
+        prefixes = encode_and_prefix(w.params, cfg, *w._device_inputs(audio1, audio2, text))
+        out[mode] = hold_continuous(mode, w, cfg, prefixes)
+    out["engine"] = hold_continuous_engine(wrappers["bf16"], cfg, [list(e) for e in examples[:3]])
+    out["checkpoint"] = hold_checkpoint(params_np, wrappers["fp32"], list(examples[0]))
+    out["seconds"] = time.perf_counter() - t
+    print(f"continuous phase took {out['seconds']:.1f} s")
+    return out
+
+
 def slice_phase() -> dict:
     """Drive every path; return each path's kernel launches and generate
     calls, the encoder entry points' launches and the stage timings."""
@@ -1751,6 +2110,7 @@ def slice_phase() -> dict:
         entries = hold_encoder_entries(cfgs[LARGE_CONFIG], wrappers["large_bf16"].params,
                                        wrappers["large_fp32"].params)
         decoding = decoding_phase(wrappers, cfgs, requests, answers)
+        continuous = continuous_phase(wrappers, cfgs["v0"], params["v0"], (a, b))
 
         audio1 = wrappers["fp32"].preprocess_audio([r[0] for r in requests[:2]], True)
         audio2 = wrappers["fp32"].preprocess_audio([r[1] for r in requests[:2]], True)
@@ -1773,7 +2133,8 @@ def slice_phase() -> dict:
             ("large ", LARGE_CONFIG, ("large_fp32", "large_bf16"), False, None)):
         hold_family(label, cfgs[name], params[name], [wrappers[p].params for p in paths], paths[-1],
                     (audio1, audio2, texts[name]), int8_cache, int8_tol)
-    return {"launches": launches, "calls": calls, "entries": entries, "timings": timings, "decoding": decoding}
+    return {"launches": launches, "calls": calls, "entries": entries, "timings": timings, "decoding": decoding,
+            "continuous": continuous}
 
 
 # Kernels whose device time per request the profile reports: name -> the
@@ -1843,6 +2204,10 @@ AB_TARGETS = {"mlp_block B=1": 0.060, "mlp_block B=4": 0.100,
                  for stage, limit in (("v0 stage 1", 0.050), ("v0 stage 2", 0.050), ("v0 stage 3", 0.070),
                                       ("HTSAT-large stage 1", 0.110))
                  for b in (1, 4) for msa in ("W-MSA", "SW-MSA")}}
+# Readings the change must keep within a fraction of the parent's median
+# (#2 and #3 without a start, PR 12).
+AB_WITHIN = {f"decode_attention B={b}": 0.02 for b in (1, 4)}
+AB_WITHIN.update({f"decode_attention_int8 B={b} E={e}": 0.02 for b in (1, 4) for e in (1, 8)})
 # A B=1 v0 request's device time (profile) in a kernel's calls: name ->
 # (path, limit in ms): #6's 30 calls and #8's 20 in bf16, #7's 30 in int8.
 AB_PROFILE_TARGETS = {"mlp_block": ("bf16", 1.8), "swin_block": ("bf16", 1.3), "mlp_block_w8a8": ("int8", 1.6)}
@@ -1926,6 +2291,20 @@ def ab_run(tag: str, out_dir: str) -> dict:
         _ab_time(res, tag, f"log_mel B={batch}", lambda: melspec.log_mel_cuda(wave_, fcfg))
         _ab_composed(res, tag, f"plain_log_mel B={batch}", lambda: fe.log_mel_spectrogram(wave_, fcfg))
         _ab_composed(res, tag, f"composed_log_mel B={batch}", lambda: composed_log_mel(wave_, fcfg, window, fb))
+    # #2 and #3 as the main path calls them (no start), at v0's decode shapes.
+    drng = np.random.default_rng(SEED + 6)
+    s_max = S + MAX_LEN
+    for batch, n in ((1, S), (4, S + 31)):
+        q = _bf16(drng, batch, H, hd)
+        k, v = _bf16(drng, batch, s_max, KV, hd), _bf16(drng, batch, s_max, KV, hd)
+        _ab_time(res, tag, f"decode_attention B={batch}", lambda: da.decode_attention_cuda(q, k, v, n))
+        k8, ks = llama.quantize_kv(_bf16(drng, batch, s_max, KV * hd, scale=0.5))
+        v8, vs = llama.quantize_kv(_bf16(drng, batch, s_max, KV * hd))
+        k8, v8 = k8.reshape(batch, s_max, KV, hd), v8.reshape(batch, s_max, KV, hd)
+        for E in (1, 8):
+            cur = (_bf16(drng, batch, 8, KV, hd, scale=0.5)[:, :E], _bf16(drng, batch, 8, KV, hd)[:, :E])
+            _ab_time(res, tag, f"decode_attention_int8 B={batch} E={E}",
+                     lambda: di.decode_attention_int8_cuda(q, k8, v8, ks, vs, n, *cur))
     srng = np.random.RandomState(SEED + 4)
     for label, enc in (("v0", cfg.encoder), ("HTSAT-large", htsat_large_config().encoder)):
         for si, R, C, Hs in _stages(enc, "swin_block"):
@@ -1993,6 +2372,13 @@ def ab_compare(out_dir: str) -> dict:
             continue
         lim = limit if limit is not None else 0.5 * min(par)
         targets[key] = {"parent_ms": par, "change_ms": chg, "limit_ms": lim, "met": max(chg) <= lim}
+    for key, frac in AB_WITHIN.items():
+        par = [r[key]["ms"] for r in runs["parent"] if key in r]
+        chg = [r[key]["ms"] for r in runs["change"] if key in r]
+        if par and chg:
+            lim = (1 + frac) * statistics.median(par)
+            targets[key] = {"parent_ms": par, "change_ms": chg, "limit_ms": lim,
+                            "met": statistics.median(chg) <= lim}
     for name, (path, limit) in AB_PROFILE_TARGETS.items():
         chg = [r[f"profile_{path}"].get(f"{name}_ms") for r in runs["change"]]
         par = [r[f"profile_{path}"].get(f"{name}_ms",

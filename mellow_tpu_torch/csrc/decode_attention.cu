@@ -14,7 +14,14 @@
 // "extras" are simply the last cached position here); out (B, H, hd) bf16.
 // hd is 8, 16, 32, 64 or 128 and H / KV at most 8 (template parameters
 // both); `blocks` (1..16) blocks per (KV head, batch row) split the
-// positions.
+// positions. `start` is null, or (B,) int32 on the device: row b then
+// attends to positions [start[b], n) only (continuous batching, where a
+// row's sequence begins at the cache column it was admitted at). The
+// blocks still split [0, n); a block whose positions all lie below
+// start[b] holds none and combines as a block past n does. The caller
+// keeps start[b] <= n - 1 (the step's own position is always attended).
+// The kernel is instantiated with and without a start (template START),
+// so a launch without one runs the code it ran before starts existed.
 //
 // What bounds it: bytes. Each step reads the whole valid cache of a layer,
 // 2 * B * n * KV * hd * 2 bytes (at v0, B=1, n ~ 400: 0.3 MB per layer,
@@ -74,10 +81,11 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-template <int HD, int REP>
+template <int HD, int REP, bool START>
 __global__ void __launch_bounds__(DTHREADS)
 decode_gqa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
-                  const bf16* __restrict__ vc, bf16* __restrict__ out, int H, int n, int chunk,
+                  const bf16* __restrict__ vc, bf16* __restrict__ out,
+                  const int* __restrict__ start, int H, int n, int chunk,
                   long long kv_bstride, int kv_sstride, float scale) {
   constexpr int CH = HD / 8;        // 16-byte chunks of a row
   // Chunks each of a position's two lanes scores; at HD = 8 the pair's
@@ -104,8 +112,10 @@ decode_gqa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int p0 = rank * chunk;
-  const int len = max(0, min(n, p0 + chunk) - p0);  // this block's positions
+  // This block's positions: [p0, p0 + len), its share of [0, n) cut at the
+  // row's start.
+  const int p0 = START ? max(rank * chunk, __ldg(start + b)) : rank * chunk;
+  const int len = max(0, min(n, rank * chunk + chunk) - p0);
   const bf16* qb = q + ((size_t)b * H + (size_t)g * REP) * HD;
   const bf16* kb = kc + (size_t)b * kv_bstride + (size_t)p0 * kv_sstride + (size_t)g * HD;
   const bf16* vb = vc + (size_t)b * kv_bstride + (size_t)p0 * kv_sstride + (size_t)g * HD;
@@ -294,15 +304,16 @@ decode_gqa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   }
 }
 
-template <int HD, int REP>
-int launch_decode(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-                  int n, long long kv_bstride, int kv_sstride, int blocks, cudaStream_t stream) {
+template <int HD, int REP, bool START>
+int launch_decode(const void* q, const void* k, const void* v, void* out, const int* start, int B,
+                  int H, int KV, int n, long long kv_bstride, int kv_sstride, int blocks,
+                  cudaStream_t stream) {
   const int chunk = (n + blocks - 1) / blocks;
   const int per = (REP * HD + blocks - 1) / blocks;
   const size_t smem =
       ((size_t)REP * (HD + chunk + (DTHREADS / 32) * HD) + (size_t)blocks * per) * sizeof(float);
   if (smem > (size_t)DMAX_DSMEM) return (int)cudaErrorInvalidValue;
-  auto kernel = decode_gqa_kernel<HD, REP>;
+  auto kernel = decode_gqa_kernel<HD, REP, START>;
   static std::atomic<bool> attrs_set[MELLOW_MAX_DEVICES];
   cudaError_t err = set_func_attrs_once(attrs_set, [&] {
     const cudaError_t e =
@@ -324,19 +335,22 @@ int launch_decode(const void* q, const void* k, const void* v, void* out, int B,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                           static_cast<const bf16*>(v), static_cast<bf16*>(out), H, n, chunk,
+                           static_cast<const bf16*>(v), static_cast<bf16*>(out), start, H, n, chunk,
                            kv_bstride, kv_sstride, 1.f / sqrtf((float)HD));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_decode_rep(const void* q, const void* k, const void* v, void* out, int B, int H,
-                      int KV, int n, long long kv_bstride, int kv_sstride, int blocks,
+int launch_decode_rep(const void* q, const void* k, const void* v, void* out, const int* start,
+                      int B, int H, int KV, int n, long long kv_bstride, int kv_sstride, int blocks,
                       cudaStream_t stream) {
-#define MELLOW_DECODE_REP(R) \
-  case R:                    \
-    return launch_decode<HD, R>(q, k, v, out, B, H, KV, n, kv_bstride, kv_sstride, blocks, stream);
+#define MELLOW_DECODE_REP(R)                                                                        \
+  case R:                                                                                           \
+    return start ? launch_decode<HD, R, true>(q, k, v, out, start, B, H, KV, n, kv_bstride, kv_sstride, \
+                                              blocks, stream)                                       \
+                 : launch_decode<HD, R, false>(q, k, v, out, start, B, H, KV, n, kv_bstride,         \
+                                               kv_sstride, blocks, stream);
   switch (H / KV) {
     MELLOW_DECODE_REP(1)
     MELLOW_DECODE_REP(2)
@@ -356,18 +370,21 @@ int launch_decode_rep(const void* q, const void* k, const void* v, void* out, in
 
 // Launches one kernel on `stream`; returns the cudaError_t, 0 on success.
 // Does not synchronise.
+// `start`: null, or the (B,) int32 first positions on the device.
 extern "C" int mellow_decode_attention(const void* q, const void* k, const void* v, void* out,
-                                       int B, int H, int KV, int hd, int n, long long kv_bstride,
-                                       int kv_sstride, int blocks, void* stream) {
+                                       const void* start, int B, int H, int KV, int hd, int n,
+                                       long long kv_bstride, int kv_sstride, int blocks,
+                                       void* stream) {
   if (KV < 1 || H % KV || H / KV > DMAX_REP || n < 1 || blocks < 1 || blocks > DMAX_BLOCKS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* s0 = static_cast<const int*>(start);
   switch (hd) {
-    case 8: return launch_decode_rep<8>(q, k, v, out, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
-    case 16: return launch_decode_rep<16>(q, k, v, out, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
-    case 32: return launch_decode_rep<32>(q, k, v, out, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
-    case 64: return launch_decode_rep<64>(q, k, v, out, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
-    case 128: return launch_decode_rep<128>(q, k, v, out, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
+    case 8: return launch_decode_rep<8>(q, k, v, out, s0, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
+    case 16: return launch_decode_rep<16>(q, k, v, out, s0, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
+    case 32: return launch_decode_rep<32>(q, k, v, out, s0, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
+    case 64: return launch_decode_rep<64>(q, k, v, out, s0, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
+    case 128: return launch_decode_rep<128>(q, k, v, out, s0, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -22,7 +22,14 @@
 // pending rows, then this step's; positions [0, n) of the cache are
 // attended, plus the E extra rows. out (B, H, hd) bf16. hd is a multiple
 // of 16, at most 128; H / KV <= 8; `blocks` (1..16) blocks per (KV group,
-// batch row) split the positions.
+// batch row) split the positions. `start` is null, or (B,) int32 on the
+// device: row b then attends to cached positions [start[b], n) only, plus
+// its extra rows, which lie past start[b] (continuous batching). The
+// blocks still split [0, n); a block whose positions all lie below
+// start[b] holds none and combines as a block past n does, so a row with
+// no cached position left attends to its extra rows alone. The kernel is
+// instantiated with and without a start (template START), so a launch
+// without one runs the code it ran before starts existed.
 //
 // What bounds it: bytes. A step reads a layer's valid int8 cache and its
 // scales, 2 * B * n * (KV * hd + 4) bytes (at v0, B=1, n ~ 400: 0.15 MB,
@@ -136,12 +143,13 @@ __host__ __device__ inline Int8Smem int8_smem(int rep, int hd, int n, int blocks
   return s;
 }
 
-template <int REP>
+template <int REP, bool START>
 __global__ void __launch_bounds__(ITHREADS)
 decode_gqa_int8_kernel(const bf16* __restrict__ q, const signed char* __restrict__ kc,
                        const signed char* __restrict__ vc, const float* __restrict__ ksc,
                        const float* __restrict__ vsc, const bf16* __restrict__ kex,
-                       const bf16* __restrict__ vex, bf16* __restrict__ out, int H, int KV,
+                       const bf16* __restrict__ vex, bf16* __restrict__ out,
+                       const int* __restrict__ start, int H, int KV,
                        int hd, int n, int E, long long kv_bstride, int kv_sstride,
                        long long sc_bstride, long long ex_bstride, float scale,
                        float score_scale) {
@@ -169,8 +177,10 @@ decode_gqa_int8_kernel(const bf16* __restrict__ q, const signed char* __restrict
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int p0 = rank * chunk;
-  const int len = max(0, min(n, p0 + chunk) - p0);  // this block's positions
+  // This block's positions: [p0, p0 + len), its share of [0, n) cut at the
+  // row's start.
+  const int p0 = START ? max(rank * chunk, __ldg(start + b)) : rank * chunk;
+  const int len = max(0, min(n, rank * chunk + chunk) - p0);
   const int len4 = (len + 3) & ~3;
   const bf16* qb = q + ((size_t)b * H + (size_t)g * REP) * hd;
   const signed char* kb = kc + (size_t)b * kv_bstride + (size_t)p0 * kv_sstride + (size_t)g * hd;
@@ -530,14 +540,14 @@ decode_gqa_int8_kernel(const bf16* __restrict__ q, const signed char* __restrict
   }
 }
 
-template <int REP>
+template <int REP, bool START>
 int launch_int8_decode(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-                       const void* kex, const void* vex, void* out, int B, int H, int KV, int hd,
-                       int n, int E, long long kv_bstride, int kv_sstride, long long sc_bstride,
-                       long long ex_bstride, int blocks, cudaStream_t stream) {
+                       const void* kex, const void* vex, void* out, const int* start, int B, int H,
+                       int KV, int hd, int n, int E, long long kv_bstride, int kv_sstride,
+                       long long sc_bstride, long long ex_bstride, int blocks, cudaStream_t stream) {
   const Int8Smem L = int8_smem(REP, hd, n, blocks);
   if (L.bytes > (size_t)IMAX_DSMEM) return (int)cudaErrorInvalidValue;
-  auto kernel = decode_gqa_int8_kernel<REP>;
+  auto kernel = decode_gqa_int8_kernel<REP, START>;
   static std::atomic<bool> attrs_set[MELLOW_MAX_DEVICES];
   cudaError_t err = set_func_attrs_once(attrs_set, [&] {
     const cudaError_t e =
@@ -562,7 +572,7 @@ int launch_int8_decode(const void* q, const void* k, const void* v, const void* 
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(q), static_cast<const signed char*>(k),
                            static_cast<const signed char*>(v), static_cast<const float*>(ks),
                            static_cast<const float*>(vs), static_cast<const bf16*>(kex),
-                           static_cast<const bf16*>(vex), static_cast<bf16*>(out), H, KV, hd, n, E,
+                           static_cast<const bf16*>(vex), static_cast<bf16*>(out), start, H, KV, hd, n, E,
                            kv_bstride, kv_sstride, sc_bstride, ex_bstride, scale, scale / 127.f);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -571,10 +581,12 @@ int launch_int8_decode(const void* q, const void* k, const void* v, const void* 
 }  // namespace
 
 // Launches one kernel on `stream`; returns the cudaError_t, 0 on success.
-// Does not synchronise.
+// Does not synchronise. `start`: null, or the (B,) int32 first positions on
+// the device.
 extern "C" int mellow_decode_attention_int8(const void* q, const void* k, const void* v,
                                             const void* ks, const void* vs, const void* kex,
-                                            const void* vex, void* out, int B, int H, int KV,
+                                            const void* vex, void* out, const void* start,
+                                            int B, int H, int KV,
                                             int hd, int n, int E, long long kv_bstride,
                                             int kv_sstride, long long sc_bstride,
                                             long long ex_bstride, int blocks, void* stream) {
@@ -584,10 +596,13 @@ extern "C" int mellow_decode_attention_int8(const void* q, const void* k, const 
       blocks > IMAX_BLOCKS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MELLOW_INT8_DECODE(R) \
-  case R:                     \
-    return launch_int8_decode<R>(q, k, v, ks, vs, kex, vex, out, B, H, KV, hd, n, E, kv_bstride, \
-                                 kv_sstride, sc_bstride, ex_bstride, blocks, st);
+  const int* s0 = static_cast<const int*>(start);
+#define MELLOW_INT8_DECODE(R)                                                                        \
+  case R:                                                                                            \
+    return s0 ? launch_int8_decode<R, true>(q, k, v, ks, vs, kex, vex, out, s0, B, H, KV, hd, n, E,   \
+                                            kv_bstride, kv_sstride, sc_bstride, ex_bstride, blocks, st) \
+              : launch_int8_decode<R, false>(q, k, v, ks, vs, kex, vex, out, s0, B, H, KV, hd, n, E,  \
+                                             kv_bstride, kv_sstride, sc_bstride, ex_bstride, blocks, st);
   switch (rep) {
     MELLOW_INT8_DECODE(1)
     MELLOW_INT8_DECODE(2)

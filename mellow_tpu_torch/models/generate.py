@@ -14,10 +14,12 @@ most ``alive_threshold`` rows are unfinished). Semantics:
   * ``tokens`` is (B, max_len), zeros past the steps run, and
     ``num_steps`` is ``min(t, max_len)`` with ``t`` a multiple of W: the
     JAX package's raw tokens and step count;
-  * W is ``effective_window`` for every cache. An int8 cache's window rows
-    ride in bf16 and are quantized into the cache after the W-th sub-step
-    (``llama.FlushWindow``); a float cache is written every step, since a
-    pending row in the cache's own dtype would change nothing;
+  * W is ``effective_window`` for every cache. An int8 cache's window rows,
+    and those of a float cache in another dtype than the compute dtype, ride
+    in the compute dtype and are written into the cache after the W-th
+    sub-step (``llama.FlushWindow``); a cache in the compute dtype is
+    written every step, since a pending row in the cache's own dtype would
+    change nothing;
   * the cache holds ``P + ceil(max_len / W) * W`` positions. The last
     window runs only the sub-steps below ``max_len`` (the JAX package runs
     all W and drops the tokens past ``max_len``), and the decode step after
@@ -37,7 +39,17 @@ top-k keeps a subset.
 
 The compute dtype is the prefix's (float32 parity mode or bfloat16 perf
 mode); the rope tables and the logits are in it, and so is the KV cache
-unless ``kv_cache_dtype="int8"`` asks for an int8 cache (bf16, llama only).
+unless ``kv_cache_dtype`` names another: "int8" (llama only), or a float
+dtype, "float32", "bfloat16" or "float16" (llama only, when it differs
+from the compute dtype). As in the JAX package, only the bf16 cache under
+bf16 and the int8 cache under bf16 decode through kernels; the others take
+the plain formulation (``llama.decode_step``).
+
+The core also carries continuous batching's ragged rows
+(``models/continuous.py``): a state with a per-row ``start`` and
+``deadline`` decodes each row at its own local positions and marks it done
+at its deadline, and per-row ``knobs`` (temperature, top_p, greedy) replace
+the call's sampling options.
 
 ``family`` picks the decoder (``models/decoders.py``): "llama" (SmolLM2)
 or "gpt2". As in the JAX package, the gpt2 family has no int8 cache and no
@@ -55,6 +67,20 @@ import torch
 
 from mellow_tpu_torch.models import llama
 from mellow_tpu_torch.models.decoders import get_decoder_ops
+
+
+CACHE_DTYPES = {"int8": torch.int8, "float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}
+
+
+def cache_dtype(kv_cache_dtype: Optional[str], dtype: torch.dtype) -> torch.dtype:
+    """The cache's torch dtype for ``kv_cache_dtype`` (None: the compute
+    ``dtype``)."""
+    if kv_cache_dtype is None:
+        return dtype
+    if kv_cache_dtype not in CACHE_DTYPES:
+        raise ValueError(f"unsupported kv_cache_dtype {kv_cache_dtype!r}; use one of {sorted(CACHE_DTYPES)}")
+    return CACHE_DTYPES[kv_cache_dtype]
 
 
 class GenerateResult(NamedTuple):
@@ -94,8 +120,8 @@ def _apply_penalty(logits: torch.Tensor, seen: torch.Tensor, repetition_penalty:
 def warp_logits(
     logits: torch.Tensor,  # (B, V)
     *,
-    top_p: float = 1.0,
-    temperature: float = 1.0,
+    top_p=1.0,  # a float, or (B, 1) per row
+    temperature=1.0,  # a float, or (B, 1) per row
     top_k: int = 0,
     repetition_penalty: float = 1.0,
     seen: Optional[torch.Tensor] = None,  # (B, V) bool: tokens to penalize
@@ -103,10 +129,12 @@ def warp_logits(
     """The HF logits-processor stack in its default order (repetition
     penalty, temperature, top-k, top-p); removed tokens become -inf. The
     kept set is value-thresholded: every token tied with the k-th or the
-    last top-p token is kept, and the top-1 always is."""
+    last top-p token is kept, and the top-1 always is. A (B, 1) tensor
+    ``top_p`` or ``temperature`` gives each row its own (continuous
+    batching's per-request knobs); a tensor ``top_p`` filters every row."""
     if seen is not None and repetition_penalty != 1.0:
         logits = _apply_penalty(logits, seen, repetition_penalty)
-    logits = logits / max(temperature, 1e-6)
+    logits = logits / (temperature.clamp_min(1e-6) if torch.is_tensor(temperature) else max(temperature, 1e-6))
     V = logits.shape[-1]
     sorted_logits = torch.sort(logits, dim=-1, descending=True).values
     if top_k:
@@ -114,7 +142,7 @@ def warp_logits(
         logits = logits.masked_fill(logits < sorted_logits[:, k - 1 : k], float("-inf"))
         sorted_logits = sorted_logits.masked_fill(
             torch.arange(V, device=logits.device) >= top_k, float("-inf"))
-    if top_p < 1.0:
+    if torch.is_tensor(top_p) or top_p < 1.0:
         probs = torch.softmax(sorted_logits, dim=-1)
         keep = torch.cumsum(probs, dim=-1) - probs < top_p  # exclusive mass
         keep[:, 0] = True
@@ -127,8 +155,8 @@ def _sample_token(
     logits: torch.Tensor,  # (B, V)
     *,
     greedy: bool,
-    top_p: float,
-    temperature: float,
+    top_p,  # a float, or (B, 1) per row (warp_logits)
+    temperature,
     rng: Optional[torch.Generator],
     top_k: int = 0,
     repetition_penalty: float = 1.0,
@@ -167,7 +195,11 @@ class DecodeState(NamedTuple):
     done: torch.Tensor  # (B,) bool
     rng: Optional[torch.Generator]
     seen: Optional[torch.Tensor] = None  # (B, V) bool: the penalty's mask
-    window: Optional[llama.FlushWindow] = None  # an int8 cache's window
+    window: Optional[llama.FlushWindow] = None  # a windowed cache's window (llama.uses_window)
+    # Continuous batching's ragged rows (models/continuous.py):
+    start: Optional[torch.Tensor] = None  # (B,) int32: each row's first cache column
+    deadline: Optional[torch.Tensor] = None  # (B,) int32: a row is done once t reaches it
+    knobs: Optional[tuple] = None  # (temperature (B,) fp32, top_p (B,) fp32, greedy (B,) bool)
 
 
 def _init_state(
@@ -182,20 +214,21 @@ def _init_state(
     B, P, _ = prefix_embeds.shape
     device, dtype = prefix_embeds.device, prefix_embeds.dtype
     ML = -(-max_len // W) * W
-    cache_dtype = torch.int8 if kv_cache_dtype == "int8" else dtype
     if family == "gpt2" and P + max_len > cfg.max_position_embeddings:
         raise ValueError(
             f"prefix {P} + max_len {max_len} exceeds the decoder's "
             f"{cfg.max_position_embeddings} positions")
-    cache = ops.create_cache(cfg, B, P + ML, device, cache_dtype)
+    cache = ops.create_cache(cfg, B, P + ML, device, cache_dtype(kv_cache_dtype, dtype))
     window = None
     if family == "llama":
         hidden = ops.prefill(params, cfg, prefix_embeds, cache, w8a8=w8a8)
-        if cache.quantized:
+        if llama.uses_window(cache, dtype):
             window = llama.FlushWindow(cfg, B, W, P, device, dtype)
     else:
         if w8a8:
             raise ValueError("w8a8 prefill is llama-family only")
+        if cache.k.dtype != dtype:
+            raise NotImplementedError(f"a gpt2 {cache.k.dtype} cache under {dtype} compute is not ported")
         hidden = ops.prefill(params, cfg, prefix_embeds, cache)
     seen = None
     if repetition_penalty != 1.0:
@@ -220,9 +253,13 @@ def _window_body(
 ):
     """The one-flush-window step over ``state``'s cache: W sub-steps (choose
     the token at ``t + i``, then the decode step at position ``P + t + i``),
-    fewer in the window that reaches ``max_len``. An int8 cache's window
+    fewer in the window that reaches ``max_len``. A windowed cache's window
     flushes inside the W-th decode step. Shared by ``_decode_loop`` and
-    ``generate_stream``."""
+    ``generate_stream``, and by continuous batching's stages, whose state
+    has ragged rows: its ``start`` goes to every decode step, a row is done
+    once ``t + 1`` reaches its ``deadline``, and its ``knobs`` choose each
+    row's token (greedy rows take the argmax of the raw logits; the others
+    draw with their own temperature and top_p)."""
     ops = get_decoder_ops(family)
     ML = state.tokens.shape[1]
     S_max = state.cache.k.shape[2]
@@ -232,20 +269,29 @@ def _window_body(
         cos, sin = llama.rope_device_tables(cfg, S_max, state.last_hidden.dtype, state.last_hidden.device)
 
         def step(s, tok_embed, pos):
-            return ops.decode_step(params, cfg, tok_embed, s.cache, pos, cos, sin, s.window)
+            return ops.decode_step(params, cfg, tok_embed, s.cache, pos, cos, sin, s.window, s.start)
     else:
 
         def step(s, tok_embed, pos):
             return ops.decode_step(params, cfg, tok_embed, s.cache, pos)
 
+    def choose(s: DecodeState, logits: torch.Tensor) -> torch.Tensor:
+        if s.knobs is None:
+            return _sample_token(logits, greedy=greedy, top_p=top_p, temperature=temperature, rng=s.rng,
+                                 top_k=top_k, repetition_penalty=repetition_penalty, seen=s.seen)
+        temp, topp, gmask = s.knobs
+        drawn = _sample_token(logits, greedy=False, top_p=topp[:, None], temperature=temp[:, None], rng=s.rng)
+        return torch.where(gmask, torch.argmax(logits, dim=-1), drawn)
+
     def body(s: DecodeState) -> DecodeState:
         hidden = s.last_hidden
         for t in range(s.t, min(s.t + W, max_len)):
             logits = ops.logits_from_hidden(params, cfg, hidden)
-            tok = _sample_token(logits, greedy=greedy, top_p=top_p, temperature=temperature, rng=s.rng,
-                                top_k=top_k, repetition_penalty=repetition_penalty, seen=s.seen)
+            tok = choose(s, logits)
             s.tokens[:, t] = tok
             s.done.logical_or_(tok == stop_token_id)
+            if s.deadline is not None:
+                s.done.logical_or_(s.deadline <= t + 1)
             if s.seen is not None:
                 s.seen.scatter_(1, tok[:, None], True)
             if t + 1 < max_len:
@@ -294,9 +340,10 @@ def generate(
     w8a8: bool = False,
 ) -> GenerateResult:
     """Prefill, then flush windows until every row is done or ``max_len``.
-    ``kv_cache_dtype``: None (the compute dtype) or "int8"; ``w8a8``: the
-    W8A8 prefill blocks for int8 weights; ``flush_window``: W, as the JAX
-    package's (``effective_window``)."""
+    ``kv_cache_dtype``: None (the compute dtype), "int8" or another float
+    dtype (``CACHE_DTYPES``); ``w8a8``: the W8A8 prefill blocks for int8
+    weights; ``flush_window``: W, as the JAX package's
+    (``effective_window``)."""
     W = effective_window(flush_window, max_len, prefix_embeds.shape[0])
     state = _init_state(params, cfg, prefix_embeds, max_len=max_len, kv_cache_dtype=kv_cache_dtype,
                         family=family, W=W, rng=rng, initial_done=initial_done,

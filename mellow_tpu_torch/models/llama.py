@@ -14,7 +14,7 @@ plain formulation below. (The TPU's VMEM gate on its decode kernel is not
 carried over: the math is the same either way, and the card's kernel has
 no such limit.)
 
-int8 perf options (bf16 compute only), as in the JAX package:
+int8 options, as in the JAX package (bf16 or fp32 compute):
 
   * int8 weights (``quantize_decoder``): every per-layer matmul kernel and
     the logits head become ``{"q": int8 (in, out), "scale": (out,)}``. The
@@ -23,14 +23,29 @@ int8 perf options (bf16 compute only), as in the JAX package:
     (``_deq_weight``), or, with ``w8a8``, run as the W8A8 blocks
     (``ops/attn_block_w8a8.py``, ``ops/mlp_block_w8a8.py``).
   * an int8 KV cache (``KVCache.create(..., torch.int8)``): per-position
-    scales over all KV heads together (``quantize_kv``). The prefill blocks
-    quantize k/v in their ``kv_quant`` mode. The decode step runs in flush
-    windows of W steps, as the JAX package's packed decode does
-    (``decode_step_packed``, ``flush_packed``): each step's k/v row goes
-    into a bf16 ``FlushWindow``, the attention reads the flushed int8
-    positions plus the window's rows in bf16 as extra positions
-    (``ops/decode_attention_int8.py``), and a full window is quantized
-    into the cache at once.
+    scales over all KV heads together (``quantize_kv``). The bf16 prefill
+    blocks quantize k/v in their ``kv_quant`` mode; the plain prefill
+    quantizes the k/v it computed (the JAX package's non-fused prefill).
+    The decode step runs in flush windows of W steps, as the JAX package's
+    decode does (``decode_step``'s pending rows, ``flush_pending``): each
+    step's k/v row goes into a ``FlushWindow`` in the compute dtype, the
+    attention reads the flushed int8 positions plus the window's rows as
+    extra positions, and a full window is quantized into the cache at once.
+    Under bf16 the attention is ``ops/decode_attention_int8.py``'s kernel;
+    under fp32 it is the plain formulation ``_attend_window``, the JAX
+    package's einsum step, which never routes fp32 to a kernel.
+
+A float cache in another dtype than the compute dtype (a bf16 cache under
+fp32, an fp32 or fp16 cache under bf16) decodes through the same
+``FlushWindow``, cast at its flush instead of quantized, and
+``_attend_window``: the JAX package keeps a window's pending rows in the
+compute dtype and sends these caches down its einsum path.
+
+Continuous batching (``models/continuous.py``) passes ``decode_step`` a
+per-row ``start``: row b's sequence begins at cache column ``start[b]``,
+its prefix prefilled at local positions. The step ropes row b at its
+local position ``pos - start[b]`` and attends to columns ``[start[b],
+pos]`` only; the bf16 and int8 kernels take the same ``start``.
 
 Parameters are per layer (the JAX tree stacks them on a leading L axis;
 ``models/params.py`` unstacks):
@@ -43,10 +58,10 @@ Parameters are per layer (the JAX tree stacks them on a leading L axis;
     "norm_f": (D,),
   }
 
-The KV cache is a static buffer (L, B, S_max, KV, hd) in the compute dtype
-or int8, written in place. Not ported: the packed-lane cache, pending/flush
-windows for float caches (a pending row in the cache's own dtype changes
-nothing), chunked prefill, an int8 cache under fp32 compute.
+The KV cache is a static buffer (L, B, S_max, KV, hd) in the compute dtype,
+another float dtype or int8, written in place. Not ported: the packed-lane
+cache, pending/flush windows for a cache in the compute dtype (a pending
+row in the cache's own dtype changes nothing), chunked prefill.
 """
 
 from __future__ import annotations
@@ -61,7 +76,7 @@ import torch.nn.functional as F
 from mellow_tpu_torch.config import LlamaConfig
 from mellow_tpu_torch.ops.attn_block import attn_block
 from mellow_tpu_torch.ops.attn_block_w8a8 import attn_block_w8a8
-from mellow_tpu_torch.ops.decode_attention import decode_attention
+from mellow_tpu_torch.ops.decode_attention import decode_attention, start_mask
 from mellow_tpu_torch.ops.decode_attention_int8 import decode_attention_int8
 from mellow_tpu_torch.ops.mlp_block import mlp_block, rms_norm
 from mellow_tpu_torch.ops.mlp_block_w8a8 import mlp_block_w8a8
@@ -97,10 +112,11 @@ class KVCache(NamedTuple):
 
 
 class FlushWindow:
-    """The flush window of an int8 cache: the k/v rows of the window's
-    steps in the compute dtype, ``k``, ``v`` (L, B, W, KV, hd), rows
-    [0, count) live, covering positions [flushed, flushed + count). The
-    JAX package's ``extras`` buffer of its packed decode."""
+    """The flush window of an int8 cache, or of a float cache in another
+    dtype than the compute dtype: the k/v rows of the window's steps in the
+    compute dtype, ``k``, ``v`` (L, B, W, KV, hd), rows [0, count) live,
+    covering positions [flushed, flushed + count). The JAX package's
+    pending rows (``extras`` of its packed decode)."""
 
     def __init__(self, cfg: LlamaConfig, batch: int, window: int, flushed: int, device,
                  dtype: torch.dtype):
@@ -125,16 +141,29 @@ class FlushWindow:
         return out
 
     def flush(self, cache: "KVCache") -> None:
-        """Quantize the window's rows into ``cache`` at [flushed, flushed +
-        W), one scale per position (``flush_packed``), and start the next
+        """Write the window's rows into ``cache`` at [flushed, flushed + W),
+        quantized with one scale per position for an int8 cache
+        (``flush_pending``), cast for a float one, and start the next
         window."""
-        L, B, W, KV, hd = self.k.shape
-        for rows, vals, scales in ((self.k, cache.k, cache.k_scale), (self.v, cache.v, cache.v_scale)):
-            q8, sc = quantize_kv(rows.reshape(L, B, W, KV * hd))
-            vals[:, :, self.flushed : self.flushed + W] = q8.reshape(L, B, W, KV, hd)
-            scales[:, :, self.flushed : self.flushed + W] = sc
+        W = self.size
+        write_rows(cache, slice(None), self.flushed, self.k, self.v)
         self.flushed += W
         self.count = 0
+
+
+def write_rows(cache: "KVCache", layers, pos: int, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write k/v rows (..., B, S, KV, hd) into ``cache`` at [pos, pos + S)
+    of the layers ``layers`` (an index or a slice): quantized per position
+    (``quantize_kv``) for an int8 cache, cast for a float one."""
+    S = k.shape[-3]
+    if not cache.quantized:
+        cache.k[layers, :, pos : pos + S] = k
+        cache.v[layers, :, pos : pos + S] = v
+        return
+    for rows, vals, scales in ((k, cache.k, cache.k_scale), (v, cache.v, cache.v_scale)):
+        q8, sc = quantize_kv(rows.reshape(*rows.shape[:-2], -1))
+        vals[layers, :, pos : pos + S] = q8.reshape(rows.shape)
+        scales[layers, :, pos : pos + S] = sc
 
 
 def quantize_kv(x: torch.Tensor):
@@ -201,10 +230,12 @@ def rope_tables(cfg: LlamaConfig, max_len: int, dtype=np.float32) -> Tuple[np.nd
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, H, hd); cos/sin: (S, hd). HF rotate_half convention."""
+    """x: (B, S, H, hd); cos/sin: (S, hd), or (B, S, hd) per row. HF
+    rotate_half convention."""
     x1, x2 = x.chunk(2, dim=-1)
     rotated = torch.cat([-x2, x1], dim=-1)
-    return x * cos[None, :, None, :] + rotated * sin[None, :, None, :]
+    cos, sin = (cos[None, :, None, :], sin[None, :, None, :]) if cos.ndim == 2 else (cos[:, :, None], sin[:, :, None])
+    return x * cos + rotated * sin
 
 
 def rope_device_tables(cfg: LlamaConfig, max_len: int, dtype: torch.dtype, device):
@@ -256,6 +287,40 @@ def _attend(cfg: LlamaConfig, q, k, v, mask) -> torch.Tensor:
     return torch.einsum("bhrqk,bkhd->bqhrd", attn, v).reshape(B, S, H * hd)
 
 
+def _attend_window(cfg: LlamaConfig, q, cache: KVCache, li: int, n: int, k_extra, v_extra,
+                   start: Optional[torch.Tensor]) -> torch.Tensor:
+    """One decode step's attention over layer ``li`` of the cache, positions
+    [0, n) ([start[b], n) for row b with a ``start``), plus the extra rows
+    ``k_extra``, ``v_extra`` (B, E, KV, hd) in the compute dtype (the flush
+    window's rows, this step's last), in plain PyTorch as the JAX package's
+    einsum decode step computes it (``llama.decode_step``): the cached rows
+    cast to the compute dtype, an int8 cache's k scales folded into the
+    scores after the product and its v scales into the weights before it;
+    one softmax in fp32 over the cached and the extra positions, its
+    weights cast to the compute dtype. q: (B, 1, H, hd). Returns (B, 1,
+    H*hd)."""
+    B, _, H, hd = q.shape
+    KV = cfg.num_kv_heads
+    dt = q.dtype
+    qg = q.reshape(B, KV, H // KV, hd)
+    scale = 1.0 / np.sqrt(hd)
+    s = torch.einsum("bgrd,bngd->bgrn", qg, cache.k[li, :, :n].to(dt)) * scale
+    if cache.quantized:
+        s = s * cache.k_scale[li][:, None, None, :n].to(dt)
+    s = s.float()
+    if start is not None:
+        s = s.masked_fill(start_mask(start, n), float("-inf"))
+    s_x = (torch.einsum("bgrd,bxgd->bgrx", qg, k_extra) * scale).float()
+    m = torch.maximum(s.amax(-1, keepdim=True), s_x.amax(-1, keepdim=True))
+    e, e_x = torch.exp(s - m).to(dt), torch.exp(s_x - m).to(dt)
+    denom = e.sum(-1, keepdim=True) + e_x.sum(-1, keepdim=True)
+    if cache.quantized:
+        e = e * cache.v_scale[li][:, None, None, :n].to(dt)
+    o = (torch.einsum("bgrn,bngd->bgrd", e, cache.v[li, :, :n].to(dt))
+         + torch.einsum("bgrx,bxgd->bgrd", e_x, v_extra))
+    return (o / denom).reshape(B, 1, H * hd)
+
+
 def logits_from_hidden(params: dict, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     if "lm_head_q" in params:  # int8 weights (quantize_decoder)
         return _mm(x, params["lm_head_q"])
@@ -263,9 +328,10 @@ def logits_from_hidden(params: dict, cfg: LlamaConfig, x: torch.Tensor) -> torch
     return x @ head
 
 
-def _check_int8_cache(cache: KVCache, x: torch.Tensor) -> None:
-    if cache.quantized and x.dtype != torch.bfloat16:
-        raise NotImplementedError("an int8 KV cache is ported under bf16 compute only")
+def uses_window(cache: KVCache, dtype: torch.dtype) -> bool:
+    """Whether a cache decodes through a ``FlushWindow`` under compute
+    ``dtype``: an int8 cache, or a float cache in another dtype."""
+    return cache.quantized or cache.k.dtype != dtype
 
 
 def prefill(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, cache: KVCache,
@@ -275,10 +341,11 @@ def prefill(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, cache: 
     position, (B, D). ``w8a8``: with int8 weights, run the fused prefill
     blocks as W8A8 (the JAX package's ``prefill(w8a8=True)``); without it,
     int8 weights enter the bf16 blocks dequantized per layer. An int8
-    cache takes the blocks' in-kernel k/v quantization."""
+    cache takes the blocks' in-kernel k/v quantization, or in the plain
+    prefill the quantizer after (``write_rows``); a float cache in another
+    dtype takes the rows cast."""
     B, S, D = inputs_embeds.shape
     device = inputs_embeds.device
-    _check_int8_cache(cache, inputs_embeds)
     cos, sin = rope_device_tables(cfg, S, inputs_embeds.dtype, device)
     if uses_fused_prefill(cfg, inputs_embeds):
         kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
@@ -286,11 +353,17 @@ def prefill(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, cache: 
         w8 = w8a8 and isinstance(params["layers"][0]["w_gate"], dict)
         dt = inputs_embeds.dtype
         x = inputs_embeds
+        # A float cache in another dtype: each block writes its k/v rows in
+        # bf16 here, cast into the cache after.
+        cast = None if cache.quantized or cache.k.dtype == dt else torch.empty(
+            (2, B, S, cfg.num_kv_heads, cfg.head_dim), dtype=dt, device=device)
         for li, lp in enumerate(params["layers"]):
             kv = dict(k_out=cache.k[li, :, :S], v_out=cache.v[li, :, :S])
             if cache.quantized:
                 kv.update(kv_quant=True, k_scale_out=cache.k_scale[li, :, :S],
                           v_scale_out=cache.v_scale[li, :, :S])
+            elif cast is not None:
+                kv = dict(k_out=cast[0], v_out=cast[1])
             if w8:
                 ws = [t for k in ("wq", "wk", "wv", "wo") for t in (lp[k]["q"], lp[k]["scale"])]
                 x = attn_block_w8a8(x, lp["ln_attn"], *ws, cos, sin, **kw, **kv)[0]
@@ -303,17 +376,16 @@ def prefill(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, cache: 
             else:
                 ws = [_deq_weight(lp[k], dt) for k in ("w_gate", "w_up", "w_down")]
                 x = mlp_block(x, lp["ln_mlp"], *ws, eps=cfg.rms_norm_eps)
+            if cast is not None:
+                write_rows(cache, li, 0, cast[0], cast[1])
         return rms_norm(x[:, -1, :], params["norm_f"], cfg.rms_norm_eps)
-    if cache.quantized:
-        raise NotImplementedError("an int8 KV cache is ported for the fused bf16 prefill only")
     causal = torch.ones((S, S), dtype=torch.bool, device=device).tril()
     mask = torch.zeros((S, S), dtype=torch.float32, device=device).masked_fill(~causal, float("-inf"))
 
     x = inputs_embeds
     for li, lp in enumerate(params["layers"]):
         q, k, v = _qkv(cfg, x, lp, cos, sin)
-        cache.k[li, :, :S] = k
-        cache.v[li, :, :S] = v
+        write_rows(cache, li, 0, k, v)
         x = x + _mm(_attend(cfg, q, k, v, mask), lp["wo"])
         x = _mlp(cfg, x, lp)
     # The final norm is per position: only the last row feeds decoding.
@@ -329,51 +401,70 @@ def decode_step(
     cos_full: torch.Tensor,  # (S_max, hd) rope tables on the device
     sin_full: torch.Tensor,
     window: Optional[FlushWindow] = None,
+    start: Optional[torch.Tensor] = None,  # (B,) int32: each row's first cache column
 ) -> torch.Tensor:
     """One incremental step over positions [0, pos]. Returns the
     post-final-norm hidden (B, D). In bf16 the attention is a decode-attention
     kernel (its plain version on the CPU); the projections and the MLP stay
     plain matmuls, as the JAX package leaves them to XLA.
 
-    A float cache is written at ``pos`` first and attended over [0, pos].
-    An int8 cache takes this step's k/v row into ``window`` (row ``pos -
-    window.flushed``; the JAX package's ``decode_step_packed``), attends
-    over its flushed positions [0, window.flushed) plus the window's rows
-    in bf16 as extra positions, and, once the window is full, quantizes
-    its rows into the cache; it raises without ``window`` (a window of one
-    quantizes each row into the cache after its step)."""
-    _check_int8_cache(cache, token_embed)
-    cos = cos_full[pos : pos + 1]
-    sin = sin_full[pos : pos + 1]
+    A cache in the compute dtype is written at ``pos`` first and attended
+    over [0, pos]: in bf16 by ``ops/decode_attention.py``, in fp32 by
+    ``_attend``. Any other cache (int8, or a float cache in another dtype;
+    ``uses_window``) takes this step's k/v row into ``window`` (row ``pos -
+    window.flushed``; the JAX package's pending rows), attends over its
+    flushed positions [0, window.flushed) plus the window's rows as extra
+    positions, and, once the window is full, writes its rows into the
+    cache; it raises without ``window``. The int8 cache under bf16 attends
+    through ``ops/decode_attention_int8.py``, every other windowed cache
+    through ``_attend_window``.
+
+    ``start`` (continuous batching): row b ropes at its local position
+    ``pos - start[b]`` (a (B, hd) gather of the tables on the device) and
+    attends to columns [start[b], pos] only; ``pos`` stays the batch's
+    shared write column."""
+    if start is None:
+        cos, sin = cos_full[pos : pos + 1], sin_full[pos : pos + 1]
+    else:
+        local = pos - start.long()
+        cos, sin = cos_full[local][:, None], sin_full[local][:, None]
     x = token_embed[:, None, :]
-    B = x.shape[0]
+    B, dt = x.shape[0], x.dtype
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if cache.quantized:
+    windowed = uses_window(cache, dt)
+    if windowed:
         if window is None:
-            raise ValueError("an int8 cache decodes through a FlushWindow")
+            raise ValueError(f"a {cache.k.dtype} cache under {dt} decodes through a FlushWindow")
         i = pos - window.flushed
         if i != window.count or i >= window.size:
             raise ValueError(f"position {pos} is not the next row of the flush window "
                              f"({window.count} of {window.size} rows from {window.flushed})")
     for li, lp in enumerate(params["layers"]):
         q, k, v = _qkv(cfg, x, lp, cos, sin)
-        if cache.quantized:
+        if windowed:
             window.k[li, :, i] = k[:, 0]
             window.v[li, :, i] = v[:, 0]
-            o = decode_attention_int8(q.reshape(B, H, hd), cache.k[li], cache.v[li], cache.k_scale[li],
-                                      cache.v_scale[li], window.flushed, window.k[li, :, : i + 1],
-                                      window.v[li, :, : i + 1])
-            o = o.reshape(B, 1, H * hd)
+            kx, vx = window.k[li, :, : i + 1], window.v[li, :, : i + 1]
+            if cache.quantized and dt == torch.bfloat16:
+                o = decode_attention_int8(q.reshape(B, H, hd), cache.k[li], cache.v[li], cache.k_scale[li],
+                                          cache.v_scale[li], window.flushed, kx, vx, start)
+                o = o.reshape(B, 1, H * hd)
+            else:
+                o = _attend_window(cfg, q, cache, li, window.flushed, kx, vx, start)
         else:
             cache.k[li, :, pos : pos + 1] = k
             cache.v[li, :, pos : pos + 1] = v
-            if x.dtype == torch.bfloat16:
-                o = decode_attention(q.reshape(B, H, hd), cache.k[li], cache.v[li], pos + 1)
+            if dt == torch.bfloat16:
+                o = decode_attention(q.reshape(B, H, hd), cache.k[li], cache.v[li], pos + 1, start)
                 o = o.reshape(B, 1, H * hd)
             else:
-                o = _attend(cfg, q, cache.k[li, :, : pos + 1], cache.v[li, :, : pos + 1], None)
+                mask = None
+                if start is not None:
+                    mask = torch.zeros((B, 1, 1, 1, pos + 1), dtype=torch.float32, device=x.device).masked_fill(
+                        start_mask(start, pos + 1)[:, :, None], float("-inf"))
+                o = _attend(cfg, q, cache.k[li, :, : pos + 1], cache.v[li, :, : pos + 1], mask)
         x = _mlp(cfg, x + _mm(o, lp["wo"]), lp)
-    if cache.quantized:
+    if windowed:
         window.count = i + 1
         if window.count == window.size:
             window.flush(cache)

@@ -37,11 +37,11 @@ _L = ctypes.c_longlong
 # stream as c_void_p, so ctypes never cuts a pointer to 32 bits).
 SIGNATURES = {
     "mellow_log_mel": [_P] * 5 + [_I, _P, _I, _I, _F, _F, _P],
-    "mellow_decode_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _P],
+    "mellow_decode_attention": [_P] * 5 + [_I] * 5 + [_L, _I, _I, _P],
     "mellow_attn_block": [_P] * 11 + [_L] + [_P] * 4 + [_L, _P, _P, _L] + [_I] * 6 + [_F, _P],
     "mellow_mlp_block": [_P] * 7 + [_I, _I, _I, _F, _P],
     "mellow_swin_block": [_P] * 20 + [_I, _I, _I, _I, _F, _F, _P],
-    "mellow_decode_attention_int8": [_P] * 8 + [_I] * 6 + [_L, _I, _L, _L, _I, _P],
+    "mellow_decode_attention_int8": [_P] * 9 + [_I] * 6 + [_L, _I, _L, _L, _I, _P],
     "mellow_attn_block_w8a8": [_P] * 15 + [_L] + [_P] * 6 + [_L, _P, _P, _L] + [_I] * 6 + [_F, _P],
     "mellow_mlp_block_w8a8": [_P] * 11 + [_I, _I, _I, _F, _P],
     "mellow_flash_gqa_prefill": [_P] * 4 + [_L, _I, _L, _I] + [_I] * 5 + [_P],

@@ -17,6 +17,12 @@ thread-block cluster of ``cluster_blocks(n)`` blocks, about
 blocks combine their maxima, sums and partial outputs through distributed
 shared memory inside the one launch.
 
+An optional per-row ``start`` ((B,) int32 on the tensors' device) limits
+row b to positions ``[start[b], n)``: continuous batching admits a
+request's prefix at the cache column where the batch stands, so the
+columns before it belong to other requests. The blocks still split
+``[0, n)``; a block whose positions all lie below ``start[b]`` holds none.
+
 ``decode_attention`` dispatches by device: a CUDA tensor goes through the
 kernel (it raises on what the kernel does not take), a CPU tensor through
 ``decode_attention_plain``. ``LAUNCHES`` counts the kernel's launches.
@@ -25,6 +31,8 @@ kernel (it raises on what the kernel does not take), a CPU tensor through
 from __future__ import annotations
 
 import math
+from typing import Optional
+
 import torch
 
 from mellow_tpu_torch.ops._build import check, load_library
@@ -38,14 +46,22 @@ POSITIONS_PER_BLOCK = 48
 MAX_CLUSTER = 16
 
 
-def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
-    """q (B, H, hd); k, v (B, S_max, KV, hd), positions [0, n) attended.
-    Returns (B, H, hd) in q's dtype; head h = g * (H // KV) + r reads KV
-    head g."""
+def start_mask(start: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, 1, 1, n) bool: True at the positions below each row's start."""
+    return (torch.arange(n, device=start.device) < start[:, None].long())[:, None, None, :]
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: int,
+                           start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, H, hd); k, v (B, S_max, KV, hd), positions [0, n) attended, or
+    [start[b], n) for row b with a (B,) ``start``. Returns (B, H, hd) in
+    q's dtype; head h = g * (H // KV) + r reads KV head g."""
     B, H, hd = q.shape
     KV = k.shape[2]
     qg = q.float().reshape(B, KV, H // KV, hd)
     s = torch.einsum("bgrd,bngd->bgrn", qg, k[:, :n].float()) * (1.0 / math.sqrt(hd))
+    if start is not None:
+        s = s.masked_fill(start_mask(start, n), float("-inf"))
     e = torch.exp(s - s.amax(-1, keepdim=True))
     o = torch.einsum("bgrn,bngd->bgrd", e.to(q.dtype).float(), v[:, :n].float())
     return (o / e.sum(-1, keepdim=True)).to(q.dtype).reshape(B, H, hd)
@@ -56,11 +72,22 @@ def cluster_blocks(n: int) -> int:
     return max(1, min(MAX_CLUSTER, -(-n // POSITIONS_PER_BLOCK)))
 
 
-def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
+def check_start(start: Optional[torch.Tensor], B: int, device) -> None:
+    """``start`` is None or a contiguous (B,) int32 tensor on ``device``."""
+    if start is not None and (start.shape != (B,) or start.dtype != torch.int32 or start.device != device
+                              or not start.is_contiguous()):
+        raise ValueError(f"start must be a contiguous ({B},) int32 tensor on {device}, got "
+                         f"{tuple(start.shape)} {start.dtype} on {start.device}")
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: int,
+                          start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel on the current stream: q (B, H, hd) contiguous bf16 CUDA;
     k, v (B, S_max, KV, hd) bf16 with contiguous (KV, hd) rows (a layer of
-    the cache), split over clusters of ``cluster_blocks(n)`` blocks. Raises
-    on any input it does not take and on a failed launch."""
+    the cache), split over clusters of ``cluster_blocks(n)`` blocks;
+    ``start`` None or (B,) int32 on the device, each ``start[b] < n`` (not
+    checked: reading it would sync with the host). Raises on any input it
+    does not take and on a failed launch."""
     global LAUNCHES
     B, H, hd = q.shape
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
@@ -81,11 +108,13 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: 
         raise ValueError(f"n={n} over {blocks} blocks exceeds the kernel's shared-memory score buffer")
     if not q.is_contiguous() or k.stride() != v.stride() or k.stride()[2:] != (hd, 1):
         raise ValueError("decode_attention_cuda needs contiguous q and (KV, hd)-contiguous cache rows")
+    check_start(start, B, q.device)
     lib = load_library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.mellow_decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, hd, n,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if start is None else start.data_ptr(), B, H, KV, hd, n,
             k.stride(0), k.stride(1), blocks, torch.cuda.current_stream().cuda_stream,
         )
     check(err, "decode attention kernel")
@@ -93,8 +122,9 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: 
     return out
 
 
-def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: int,
+                     start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel for CUDA tensors, the plain version otherwise."""
     if q.is_cuda:
-        return decode_attention_cuda(q, k, v, n)
-    return decode_attention_plain(q, k, v, n)
+        return decode_attention_cuda(q, k, v, n, start)
+    return decode_attention_plain(q, k, v, n, start)

@@ -28,6 +28,10 @@ the fp32 sum ``d`` depends on the split, so any two cluster sizes agree
 within one bf16 ulp, and one block gives the single-block kernel's output
 bit for bit.
 
+An optional per-row ``start`` ((B,) int32 on the device) limits row b to
+cached positions ``[start[b], n)`` (``decode_attention``'s rule); its extra
+rows always lie past it and are always attended.
+
 ``decode_attention_int8`` dispatches by device: a CUDA tensor goes through
 the kernel (it raises on what the kernel does not take), a CPU tensor
 through ``decode_attention_int8_plain``. ``LAUNCHES`` counts the kernel's
@@ -43,7 +47,7 @@ import numpy as np
 import torch
 
 from mellow_tpu_torch.ops._build import check, load_library
-from mellow_tpu_torch.ops.decode_attention import MAX_CLUSTER, cluster_blocks
+from mellow_tpu_torch.ops.decode_attention import MAX_CLUSTER, check_start, cluster_blocks, start_mask
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 1
@@ -60,11 +64,13 @@ def _score_scale(hd: int) -> float:
     return float(np.float32(1.0 / math.sqrt(hd)) / np.float32(127.0))
 
 
-def decode_attention_int8_plain(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_extra) -> torch.Tensor:
+def decode_attention_int8_plain(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_extra,
+                                start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, H, hd) bf16; k8, v8 (B, S_max, KV, hd) int8 with positions
-    [0, n) attended; k_scale, v_scale (B, S_max) fp32; k_extra, v_extra
-    (B, E, KV, hd) bf16, the window's pending rows and this step's. Returns
-    (B, H, hd) bf16; head h = g * (H // KV) + r reads KV head g."""
+    [0, n) attended ([start[b], n) for row b with a (B,) ``start``);
+    k_scale, v_scale (B, S_max) fp32; k_extra, v_extra (B, E, KV, hd) bf16,
+    the window's pending rows and this step's. Returns (B, H, hd) bf16;
+    head h = g * (H // KV) + r reads KV head g."""
     B, H, hd = q.shape
     KV = k8.shape[2]
     scale = 1.0 / math.sqrt(hd)
@@ -74,6 +80,8 @@ def decode_attention_int8_plain(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_
     # Integer dots, exact in float64 as in the kernels' int32 sums.
     s32 = torch.einsum("bgrd,bngd->bgrn", q8.double(), k8[:, :n].double()).float()
     s = s32 * (qmax * _score_scale(hd)) * k_scale[:, None, None, :n]
+    if start is not None:
+        s = s.masked_fill(start_mask(start, n), float("-inf"))
     kx = k_extra.float().permute(0, 2, 1, 3)  # (B, KV, E, hd)
     vx = v_extra.float().permute(0, 2, 1, 3)
     s_x = (qf[:, :, :, None] * kx[:, :, None]).sum(-1) * scale  # (B, KV, rep, E)
@@ -122,7 +130,7 @@ def cluster_launch(rep: int, hd: int, n: int, blocks: Optional[int] = None) -> t
 
 
 def decode_attention_int8_cuda(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_extra,
-                               blocks: Optional[int] = None) -> torch.Tensor:
+                               start: Optional[torch.Tensor] = None, blocks: Optional[int] = None) -> torch.Tensor:
     """The kernel on the current stream. q (B, H, hd) contiguous bf16 CUDA;
     k8, v8 (B, S_max, KV, hd) int8 with contiguous (KV, hd) rows and equal
     strides (a layer of the cache); k_scale, v_scale (B, S_max) fp32 with
@@ -130,8 +138,8 @@ def decode_attention_int8_cuda(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_e
     with contiguous (E, KV, hd) rows and equal strides (a slice of the
     window's pending buffer). The positions are split over clusters of
     ``blocks`` blocks (default ``cluster_blocks(n)``; blocks past n hold no
-    position). Raises on any input it does not take and on a failed
-    launch."""
+    position); ``start`` None or (B,) int32 on the device. Raises on any
+    input it does not take and on a failed launch."""
     global LAUNCHES
     B, H, hd = q.shape
     tensors = (q, k8, v8, k_scale, v_scale, k_extra, v_extra)
@@ -160,12 +168,14 @@ def decode_attention_int8_cuda(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_e
             or k_scale.stride() != v_scale.stride() or k_scale.stride(1) != 1):
         raise ValueError("decode_attention_int8_cuda needs contiguous q, (E, KV, hd)-contiguous extra "
                          "rows, (KV, hd)-contiguous cache rows and unit-stride scales")
+    check_start(start, B, q.device)
     lib = load_library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.mellow_decode_attention_int8(
             q.data_ptr(), k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            k_extra.data_ptr(), v_extra.data_ptr(), out.data_ptr(), B, H, KV, hd, n, E,
+            k_extra.data_ptr(), v_extra.data_ptr(), out.data_ptr(),
+            None if start is None else start.data_ptr(), B, H, KV, hd, n, E,
             k8.stride(0), k8.stride(1), k_scale.stride(0), k_extra.stride(0), blocks,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -174,7 +184,8 @@ def decode_attention_int8_cuda(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_e
     return out
 
 
-def decode_attention_int8(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_extra) -> torch.Tensor:
+def decode_attention_int8(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_extra,
+                          start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel for CUDA tensors, the plain version otherwise."""
     fn = decode_attention_int8_cuda if q.is_cuda else decode_attention_int8_plain
-    return fn(q, k8, v8, k_scale, v_scale, n, k_extra, v_extra)
+    return fn(q, k8, v8, k_scale, v_scale, n, k_extra, v_extra, start)

@@ -1,7 +1,8 @@
-"""Batched serving engine for the port: the port's own copy of
-``BatchingEngine`` from ``mellow_tpu/serving.py`` (the continuous-batching
-engine is not ported), whose ``submit`` also takes the wrapper's
-``kv_cache_dtype`` (part of the batch key).
+"""Serving engines for the port: the port's own copy of ``BatchingEngine``
+from ``mellow_tpu/serving.py``, whose ``submit`` also takes the wrapper's
+``kv_cache_dtype`` (part of the batch key), and ``ContinuousBatchingEngine``
+(``mellow_tpu/serving.py:197``) over the port's
+``models/continuous.ContinuousScheduler``.
 
 Concurrent callers submit single examples; a background dispatcher
 coalesces them into batches, runs one ``wrapper.generate`` per batch and
@@ -27,6 +28,9 @@ from collections import OrderedDict, deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -193,3 +197,201 @@ class BatchingEngine:
             for r in batch:
                 if not r.future.done():
                     r.future.set_exception(e)
+
+
+class ContinuousBatchingEngine:
+    """Continuous batching: one live decode batch whose freed slots admit
+    queued requests mid-flight (``models/continuous.ContinuousScheduler``),
+    instead of coalescing arrivals into batch-at-a-time ``generate`` calls.
+    A slot frees the moment its row finishes (at a flush window's end) and
+    the next request's prefill splices into the live cache, so a short
+    answer batched with long captions does not hold its slot for the whole
+    batch.
+
+    Greedy by default with engine-wide decode knobs; per-request
+    ``max_len``. With ``per_request=True`` requests may carry their own
+    ``sample``, ``temperature`` and ``top_p`` (greedy rows take their
+    argmax), drawn from a ``torch.Generator`` seeded by ``seed``. The cache
+    dtype is the wrapper's ``kv_cache_dtype`` rule (``MellowWrapper.
+    cache_dtype``). Runs where the wrapper runs (the card by default).
+
+    Unlike the JAX engine: each request is preprocessed on its own, so one
+    whose wavs cannot be read fails its own future alone; when encoding a
+    drained batch or handing it to the scheduler raises, every request of
+    that batch fails; a failed stage fails every request in flight and
+    starts a fresh scheduler; ``submit`` validates the knobs and
+    ``max_len`` itself, so a bad request fails at once. No future is left
+    pending: shutdown fails what remains."""
+
+    def __init__(
+        self,
+        wrapper,
+        slots: int = 8,
+        horizon: int = 512,
+        stop_token: str = "<|endoftext|>",
+        kv_cache_dtype: Optional[str] = None,
+        flush_window: int = 8,
+        per_request: bool = False,
+        seed: int = 0,
+    ):
+        from mellow_tpu_torch.models import continuous
+
+        if wrapper.cfg.decoder_family != "llama":
+            raise ValueError("continuous batching is llama-family only")
+        if getattr(wrapper, "mesh", None) is not None:
+            raise ValueError("continuous batching is single-device; use BatchingEngine under a mesh")
+        self.wrapper = wrapper
+        self._stop_token = stop_token
+        self._per_request = per_request
+        self._horizon = horizon
+        cache = wrapper.cache_dtype(kv_cache_dtype)
+        rng = torch.Generator(device=wrapper.device)
+        rng.manual_seed(seed)
+
+        def scheduler():
+            return continuous.ContinuousScheduler(
+                wrapper.params["decoder"], wrapper.cfg.decoder, slots=slots,
+                prefix_len=wrapper.cfg.prefix_length, horizon=horizon,
+                stop_token_id=wrapper._stop_token_id(stop_token), cache_dtype=cache, dtype=wrapper.dtype,
+                greedy=True, W=flush_window, rng=rng, per_request=per_request, w8a8=wrapper._w8a8,
+                device=wrapper.device)
+
+        self._new_scheduler = scheduler
+        self._sched = scheduler()
+        self._futures: Dict[int, Future] = {}
+        self._inbox: "queue.Queue[Optional[_Request]]" = queue.Queue()
+        self._running = True
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    # ------------------------------------------------------------------
+
+    def submit(
+        self,
+        audio_path1: str,
+        audio_path2: str,
+        prompt: str,
+        *,
+        max_len: int = 300,
+        timeout: Optional[float] = None,
+        sample: bool = False,
+        top_p: float = 0.8,
+        temperature: float = 1.0,
+    ) -> Future:
+        """Non-blocking: returns a Future resolving to the generated str.
+        Raises ValueError at once on knobs the engine cannot serve."""
+        from mellow_tpu_torch.models.continuous import REJECT_MIN_TOP_P
+
+        if not self._running:
+            raise RuntimeError("engine is shut down")
+        if not 1 <= max_len <= self._horizon:
+            raise ValueError(f"max_len {max_len} outside 1..{self._horizon} (the engine's horizon)")
+        if sample and not self._per_request:
+            raise ValueError("sampled requests need ContinuousBatchingEngine(per_request=True)")
+        if sample and not REJECT_MIN_TOP_P <= top_p <= 1.0:
+            raise ValueError(f"top_p {top_p} outside [{REJECT_MIN_TOP_P}, 1]")
+        if sample and not temperature > 0:
+            raise ValueError(f"temperature {temperature} must be positive")
+        req = _Request(
+            [audio_path1, audio_path2, prompt],
+            _BatchKey(max_len, top_p, temperature, sample),
+            0,
+            None if timeout is None else time.monotonic() + timeout,
+        )
+        self._inbox.put(req)
+        return req.future
+
+    def generate(self, *args, timeout: Optional[float] = None, **kw) -> str:
+        return self.submit(*args, timeout=timeout, **kw).result(timeout)
+
+    def shutdown(self) -> None:
+        self._running = False
+        self._inbox.put(None)
+        self._thread.join(timeout=60)
+
+    # ------------------------------------------------------------------
+
+    def _drain(self, block: bool) -> Tuple[List[_Request], bool]:
+        out: List[_Request] = []
+        first = True
+        while True:
+            try:
+                req = self._inbox.get(timeout=0.05) if block and first else self._inbox.get_nowait()
+            except queue.Empty:
+                return out, True
+            first = False
+            if req is None:
+                return out, False
+            if req.deadline is not None and req.deadline < time.monotonic():
+                req.future.set_exception(TimeoutError("request expired in queue"))
+                continue
+            out.append(req)
+
+    def _encode_and_submit(self, reqs: List[_Request]) -> None:
+        """Preprocess each arrival on its own (a failure fails that request
+        alone), encode the rest in one batch with ``encode_and_prefix`` and
+        hand each prefix row to the scheduler; if the encoder or the
+        scheduler raises, every request of the batch fails."""
+        from mellow_tpu_torch.models.mellow import encode_and_prefix
+
+        w = self.wrapper
+        good, a1, a2 = [], [], []
+        for r in reqs:
+            try:
+                x1 = w.preprocess_audio([r.example[0]], True)
+                x2 = w.preprocess_audio([r.example[1]], True)
+            except Exception as e:  # noqa: BLE001 - the request's own failure
+                if not r.future.done():
+                    r.future.set_exception(e)
+                continue
+            good.append(r)
+            a1.append(x1)
+            a2.append(x2)
+        if not good:
+            return
+        rids = []
+        try:
+            ids = w.preprocess_text([r.example[2] for r in good])
+            prefix = encode_and_prefix(w.params, w.cfg, *w._device_inputs(np.concatenate(a1), np.concatenate(a2), ids))
+            for i, r in enumerate(good):
+                kw = {}
+                if self._per_request:
+                    kw = dict(greedy=not r.key.sample, top_p=r.key.top_p, temperature=r.key.temperature)
+                rids.append(self._sched.submit(prefix[i], r.key.max_len, **kw))
+        except Exception as e:  # noqa: BLE001 - fail the whole batch
+            self._sched._queue = [q for q in self._sched._queue if q[0] not in rids]
+            for r in good:
+                if not r.future.done():
+                    r.future.set_exception(e)
+            return
+        for rid, r in zip(rids, good):
+            self._futures[rid] = r.future
+
+    def _loop(self) -> None:
+        from mellow_tpu_torch.utils.metrics import GLOBAL as metrics
+
+        alive = True
+        while alive:
+            reqs, alive = self._drain(block=self._sched.idle and alive)
+            if reqs:
+                self._encode_and_submit(reqs)
+            if self._sched.idle:
+                continue
+            try:
+                for rid, toks in self._sched.step():
+                    fut = self._futures.pop(rid, None)
+                    if fut is not None and not fut.done():
+                        text = self.wrapper.tokenizer.decode(toks)
+                        fut.set_result(text.split(self._stop_token)[0])
+                        metrics.count("continuous_requests", 1)
+            except Exception as e:  # noqa: BLE001 - the slot state is suspect: start afresh
+                for fut in self._futures.values():
+                    if not fut.done():
+                        fut.set_exception(e)
+                self._futures.clear()
+                self._sched = self._new_scheduler()
+        # Shutdown: fail whatever remains.
+        reqs, _ = self._drain(block=False)
+        for fut in [r.future for r in reqs] + list(self._futures.values()):
+            if not fut.done():
+                fut.set_exception(RuntimeError("engine shut down"))

@@ -16,27 +16,34 @@ is the JAX wrapper's, on the port's own copies of that code
     the same filtered distribution with its own generator, so sampled
     tokens differ from the JAX package's), ``repetition_penalty``,
     ``dynamic_batch`` (cascade compaction) and ``generate_stream``;
-  * bf16 perf mode also takes the int8 options: ``weight_dtype="int8"``
+  * the int8 options, under either compute dtype: ``weight_dtype="int8"``
     (int8 decoder weights, quantized from the fp32 weights before the cast
-    to bf16, as the JAX wrapper does), ``weight_dtype="int8-w8a8"`` (the
-    same, with the W8A8 prefill blocks) and ``generate(...,
-    kv_cache_dtype="int8")`` (an int8 KV cache, the int8 decode-attention
-    kernel), in any combination;
+    to the compute dtype, as the JAX wrapper does), ``weight_dtype=
+    "int8-w8a8"`` (the same, with the W8A8 prefill blocks in bf16) and
+    ``generate(..., kv_cache_dtype="int8")`` (an int8 KV cache; in bf16 the
+    int8 decode-attention kernel), in any combination; and a float cache
+    in another dtype than the compute dtype (``kv_cache_dtype`` "float32",
+    "bfloat16" or "float16"). As in the JAX package, fp32 and a cache in
+    another float dtype take the plain formulation, not a kernel;
   * both decoder families (``cfg.decoder_family``): SmolLM2 ("llama") and
     GPT-2 ("gpt2"; its prompts get " <|endoftext|>" appended, its bf16
     prefill runs the hand-written prefill-attention kernel, and it takes
     ``weight_dtype="int8"`` but, as in the JAX package, neither
-    ``"int8-w8a8"`` (ValueError) nor an int8 KV cache (ValueError);
-  * ``kv_cache_dtype`` otherwise may only name the compute dtype;
-    ``weight_dtype`` or an int8 cache under fp32 and ``mesh`` raise;
+    ``"int8-w8a8"`` (ValueError) nor an int8 KV cache (ValueError), and
+    the port does not take a GPT-2 cache in another float dtype
+    (NotImplementedError); ``mesh`` raises;
   * no power-of-two batch buckets: eager PyTorch does not recompile per
     shape, so the batch runs as given;
-  * weights come from ``params=`` (the JAX package's tree layout) or from a
-    ``params_path`` .npz; there is no hub download.
+  * weights come from ``params=`` (the JAX package's tree layout), then
+    ``params_path``, then the ``MELLOW_TPU_PARAMS`` and ``MELLOW_TPU_CKPT``
+    environment variables: a ``.ckpt``/``.pt`` path is the reference's
+    PyTorch state dict, converted by the port's ``tools/convert_ckpt.py``;
+    any other path is a converted ``.npz``. There is no hub download.
 """
 
 from __future__ import annotations
 
+import os
 import random
 from typing import Iterator, List, Optional, Sequence
 
@@ -54,6 +61,7 @@ from mellow_tpu_torch.models import generate as gen
 from mellow_tpu_torch.models import gpt2, llama
 from mellow_tpu_torch.models import mellow as mellow_model
 from mellow_tpu_torch.models.params import cast_floating, count_params, params_from_jax
+from mellow_tpu_torch.tools.convert_ckpt import convert_mellow, load_state_dict
 
 _MODELS = ("v0", "v0_s")  # the two published checkpoints of the v0 architecture
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -93,8 +101,6 @@ class MellowWrapper:
         self._gpt2 = self.cfg.decoder_family == "gpt2"
         if weight_dtype == "int8-w8a8" and self._gpt2:
             raise ValueError("weight_dtype 'int8-w8a8' is llama-family only")
-        if weight_dtype is not None and self.dtype != torch.bfloat16:
-            raise NotImplementedError("int8 weights are ported under compute_dtype='bfloat16' only")
         self._w8a8 = weight_dtype == "int8-w8a8"
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device inference) is not ported")
@@ -108,7 +114,7 @@ class MellowWrapper:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
 
-        tree = self._load_params(params_path, params)
+        tree = self._load_params(params_path, params, self.cfg.decoder.num_layers)
         if weight_dtype is None:
             self.params = params_from_jax(tree, self.device, self.dtype)
         else:
@@ -130,15 +136,24 @@ class MellowWrapper:
         print(f"model {model}, {config}, parameter count: {count_params(self.params)}")
 
     @staticmethod
-    def _load_params(params_path, params):
+    def _load_params(params_path, params, num_layers: int):
+        """The JAX-layout tree from, in order: ``params``, ``params_path``,
+        ``MELLOW_TPU_PARAMS``, ``MELLOW_TPU_CKPT``."""
         if params is not None:
             return params
-        if params_path is None:
-            raise RuntimeError(
-                "No weights available: pass params= (the mellow_tpu parameter "
-                "tree) or params_path= (a converted .npz)."
-            )
-        return load_params(params_path)
+        path = params_path or os.environ.get("MELLOW_TPU_PARAMS")
+        if not path:
+            ckpt = os.environ.get("MELLOW_TPU_CKPT")
+            if not ckpt:
+                raise RuntimeError(
+                    "No weights available: pass params= (the mellow_tpu parameter tree) or params_path= "
+                    "(a .ckpt/.pt state dict or a converted .npz), or set MELLOW_TPU_PARAMS or "
+                    "MELLOW_TPU_CKPT (a state dict); the port downloads nothing."
+                )
+            return convert_mellow(load_state_dict(ckpt), num_layers)
+        if path.endswith((".ckpt", ".pt")):
+            return convert_mellow(load_state_dict(path), num_layers)
+        return load_params(path)
 
     # ------------------------------------------------------------------
     # preprocessing (host side, as mellow_tpu.wrapper)
@@ -217,7 +232,7 @@ class MellowWrapper:
         """Text for each [audio1, audio2, prompt] example: greedy, or with
         ``sample=True`` a draw from the top-k / top-p / temperature filtered
         softmax seeded by ``seed``."""
-        int8_cache = self._int8_cache(kv_cache_dtype)
+        cache = self.cache_dtype(kv_cache_dtype)
         audio1 = self.preprocess_audio([e[0] for e in examples], audio_resample, crop_start)
         audio2 = self.preprocess_audio([e[1] for e in examples], audio_resample, crop_start)
         text_ids = self.preprocess_text([e[2] for e in examples])
@@ -227,7 +242,7 @@ class MellowWrapper:
             result = gen_fn(
                 self.params, self.cfg, *self._device_inputs(audio1, audio2, text_ids),
                 max_len=max_len, greedy=not sample, top_p=top_p, temperature=temperature,
-                rng=self._rng(seed), kv_cache_dtype="int8" if int8_cache else None,
+                rng=self._rng(seed), kv_cache_dtype=cache,
                 stop_token_id=self._stop_token_id(stop_token), top_k=top_k,
                 repetition_penalty=repetition_penalty, w8a8=self._w8a8,
             )
@@ -257,7 +272,7 @@ class MellowWrapper:
         flush window, each already trimmed at the stop token, and ends with
         the complete texts (``generate``'s: the same tokens, one host fetch
         a window)."""
-        int8_cache = self._int8_cache(kv_cache_dtype)
+        cache = self.cache_dtype(kv_cache_dtype)
         audio1 = self.preprocess_audio([e[0] for e in examples], audio_resample, crop_start)
         audio2 = self.preprocess_audio([e[1] for e in examples], audio_resample, crop_start)
         text_ids = self.preprocess_text([e[2] for e in examples])
@@ -267,21 +282,26 @@ class MellowWrapper:
             self.params["decoder"], self.cfg.decoder, prefix,
             max_len=max_len, stop_token_id=self._stop_token_id(stop_token), greedy=not sample,
             top_p=top_p, temperature=temperature, rng=self._rng(seed),
-            kv_cache_dtype="int8" if int8_cache else None, family=self.cfg.decoder_family, top_k=top_k,
+            kv_cache_dtype=cache, family=self.cfg.decoder_family, top_k=top_k,
             repetition_penalty=repetition_penalty, prompt_tokens=ids,
             prompt_mask=ids != self.cfg.pad_token_id, w8a8=self._w8a8,
         ):
             yield self._detokenize(result, stop_token)
 
-    def _int8_cache(self, kv_cache_dtype: Optional[str]) -> bool:
-        """Whether ``kv_cache_dtype`` asks for the int8 cache; raises on a
-        cache dtype the port does not take under this compute dtype."""
-        int8_cache = kv_cache_dtype == "int8" and self.dtype == torch.bfloat16
-        if kv_cache_dtype not in (None, self.cfg.compute_dtype) and not int8_cache:
+    def cache_dtype(self, kv_cache_dtype: Optional[str]) -> Optional[str]:
+        """The decoder's ``kv_cache_dtype`` for a request's (the JAX
+        wrapper's ``kv_cache_dtype or str(dtype)``): None for the compute
+        dtype, else "int8" or another float dtype. Raises on a dtype the
+        port does not take."""
+        if kv_cache_dtype in (None, self.cfg.compute_dtype):
+            return None
+        if kv_cache_dtype not in gen.CACHE_DTYPES:
             raise NotImplementedError(
-                f"kv_cache_dtype={kv_cache_dtype!r} is not ported under "
-                f"compute_dtype={self.cfg.compute_dtype!r}")
-        return int8_cache
+                f"kv_cache_dtype={kv_cache_dtype!r} is not ported; use one of {sorted(gen.CACHE_DTYPES)}")
+        if self._gpt2 and kv_cache_dtype != "int8":
+            raise NotImplementedError(
+                f"a gpt2 cache in {kv_cache_dtype} under compute_dtype={self.cfg.compute_dtype!r} is not ported")
+        return kv_cache_dtype
 
     def _device_inputs(self, audio1, audio2, text_ids):
         return (torch.from_numpy(audio1).to(device=self.device, dtype=self.dtype),
@@ -303,3 +323,4 @@ class MellowWrapper:
     def _detokenize(self, result: gen.GenerateResult, stop_token: str) -> List[str]:
         tokens = result.tokens.cpu().numpy()[:, : result.num_steps]
         return [self.tokenizer.decode(row.tolist()).split(stop_token)[0] for row in tokens]
+

@@ -108,8 +108,10 @@ def test_wrapper_greedy_tokens_against_jax_bf16(tmp_path):
     assert same >= total // 2
 
 
-# int8 is accepted under bf16 since the int8 slice (tests/test_torch_int8*.py).
-@pytest.mark.parametrize("kwargs", [{"kv_cache_dtype": "float32"}, {"kv_cache_dtype": "float16"}])
+# int8 is accepted under bf16 since the int8 slice (tests/test_torch_int8*.py),
+# and float32 and float16 caches since the dtype surface
+# (tests/test_torch_dtype_surface.py): what is left to refuse.
+@pytest.mark.parametrize("kwargs", [{"kv_cache_dtype": "float64"}, {"kv_cache_dtype": "int4"}])
 def test_bf16_wrapper_refuses_other_cache_dtypes(kwargs):
     tw = TorchWrapper(TINY.name, "v0", "cpu", params=jax_params_np(), tokenizer=_DistinctTokenizer(),
                       compute_dtype="bfloat16", use_native_audio=False)

@@ -1,18 +1,22 @@
 """The port keeps its own copies of the JAX package's torch-free host code
-(``mellow_tpu_torch.config``, ``io``, ``native``, ``utils``): each copied
-function is held bit-equal to the original on the same inputs."""
+(``mellow_tpu_torch.config``, ``io``, ``native``, ``utils``) and of its
+checkpoint tools (``mellow_tpu_torch.tools``): each copied function is held
+bit-equal to the original on the same inputs."""
 
 import dataclasses
 import wave
 
 import numpy as np
 import pytest
+import torch
 
 from mellow_tpu import config as jconfig
 from mellow_tpu.io import bpe as jbpe
 from mellow_tpu.io import resample as jresample
 from mellow_tpu.io import tokenizer as jtokenizer
 from mellow_tpu.io import wav as jwav
+from mellow_tpu.tools import convert_ckpt as jconvert
+from mellow_tpu.tools import export_ckpt as jexport
 from mellow_tpu.utils import params_io as jparams_io
 from mellow_tpu_torch import config as tconfig
 from mellow_tpu_torch.io import bpe as tbpe
@@ -20,8 +24,11 @@ from mellow_tpu_torch.io import resample as tresample
 from mellow_tpu_torch.io import tokenizer as ttokenizer
 from mellow_tpu_torch.io import wav as twav
 from mellow_tpu_torch.native import binding as tnative
+from mellow_tpu_torch.tools import convert_ckpt as tconvert
+from mellow_tpu_torch.tools import export_ckpt as texport
 from mellow_tpu_torch.utils import params_io as tparams_io
 from tests.test_bpe import SAMPLES, _handcrafted_files
+from tests.torch_port_common import TINY, port_params_np
 
 
 def _write_wav(path, sr, channels, width, seed):
@@ -114,3 +121,33 @@ def test_native_copy_builds_outside_the_package_and_matches_python(tmp_path):
     ref, ref_sr = twav.read_wav(path)
     assert sr == ref_sr
     np.testing.assert_array_equal(ours, ref)
+
+
+def _assert_trees_equal(ours, theirs):
+    a, b = sorted(_flatten(ours)), sorted(_flatten(theirs))
+    assert [k for k, _ in a] == [k for k, _ in b]
+    for (k, x), (_, y) in zip(a, b):
+        assert x.dtype == y.dtype, k
+        np.testing.assert_array_equal(x, y, err_msg=k)
+
+
+def test_export_ckpt_copy_equal():
+    """``export_mellow`` of seeded params in the JAX package's tree layout:
+    the same keys and values as the JAX package's."""
+    tree = port_params_np(TINY)
+    ours, theirs = texport.export_mellow(tree), jexport.export_mellow(tree)
+    assert sorted(ours) == sorted(theirs) and len(ours) > 100
+    for k, v in theirs.items():
+        assert ours[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(ours[k], v, err_msg=k)
+
+
+def test_convert_ckpt_copy_equal():
+    """``convert_mellow`` of the state dict the JAX package's
+    ``export_mellow`` makes: the same tree as the JAX package's
+    conversion, which is the exported tree."""
+    tree = port_params_np(TINY)
+    sd = {k: torch.from_numpy(v) for k, v in jexport.export_mellow(tree).items()}
+    ours = tconvert.convert_mellow(sd, TINY.decoder.num_layers)
+    _assert_trees_equal(ours, jconvert.convert_mellow(sd, TINY.decoder.num_layers))
+    _assert_trees_equal(ours, tree)

@@ -137,18 +137,6 @@ def test_wrapper_strings_identical_to_jax_wrapper(tmp_path):
     assert ours[0] == free[0][: free[0].index(stop)]
 
 
-@pytest.mark.parametrize("kwargs", [{"kv_cache_dtype": "int8"}, {"kv_cache_dtype": "bfloat16"}])
-def test_wrapper_refuses_what_is_not_ported(kwargs):
-    """Under fp32: an int8 cache, and a float cache in another dtype than
-    the compute dtype (ROADMAP Queue 1 item 6). The options this test once
-    refused are served: ``tests/test_torch_decode_surface.py::
-    test_wrapper_serves_what_is_now_ported``."""
-    tw = TorchWrapper(TINY.name, "v0", "cpu", params=jax_params_np(),
-                      tokenizer=ByteTokenizer(), use_native_audio=False)
-    with pytest.raises(NotImplementedError):
-        tw.generate([["a.wav", "b.wav", "x"]], max_len=2, **kwargs)
-
-
 def test_wrapper_rejects_unknown_model_and_missing_weights():
     with pytest.raises(ValueError, match="not supported"):
         TorchWrapper("v0", "v99", "cpu", params={})
@@ -182,7 +170,9 @@ def test_port_never_imports_jax():
         "import mellow_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(mellow_tpu_torch.__path__, 'mellow_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert {'mellow_tpu_torch.ops.window_attention', 'mellow_tpu_torch.models.registry'} <= set(names)\n"
+        "assert {'mellow_tpu_torch.ops.window_attention', 'mellow_tpu_torch.models.registry',\n"
+        "        'mellow_tpu_torch.models.continuous', 'mellow_tpu_torch.tools.convert_ckpt',\n"
+        "        'mellow_tpu_torch.tools.export_ckpt'} <= set(names)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'mellow_tpu')\n"
         "       and sys.modules[n] is not None]\n"
         "print(len(names), bad)\n"

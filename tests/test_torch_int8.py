@@ -159,14 +159,14 @@ def test_wrapper_runs_every_accepted_int8_combination(tmp_path, weight_dtype, kv
     assert [m.LAUNCHES for m in mods] == before
 
 
+# An int8 cache or int8 weights under fp32 and an fp16 cache are served since
+# the dtype surface (tests/test_torch_dtype_surface.py): what is left to refuse.
 @pytest.mark.parametrize(
     "ctor, call, error",
-    [({}, {"kv_cache_dtype": "int8"}, NotImplementedError),  # an int8 cache under fp32
-     ({"weight_dtype": "int8"}, {}, NotImplementedError),  # int8 weights under fp32
-     ({"compute_dtype": "bfloat16", "weight_dtype": "int4"}, {}, ValueError),
-     ({"compute_dtype": "bfloat16", "weight_dtype": "int8"}, {"kv_cache_dtype": "float16"},
+    [({"compute_dtype": "bfloat16", "weight_dtype": "int4"}, {}, ValueError),
+     ({"compute_dtype": "bfloat16", "weight_dtype": "int8"}, {"kv_cache_dtype": "float64"},
       NotImplementedError)],
-    ids=["int8-cache-fp32", "int8-weights-fp32", "int4-weights", "fp16-cache"],
+    ids=["int4-weights", "fp64-cache"],
 )
 def test_wrapper_refuses_the_rest_of_the_int8_surface(ctor, call, error):
     with pytest.raises(error):

@@ -297,7 +297,7 @@ def test_decode_attention_kernel_with_blocks_past_n(device, blocks):
     v = _bf16(rng, B, n + 3, KV, hd)
     out = torch.empty_like(q)
     check(load_library().mellow_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, hd, n, k.stride(0),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B, H, KV, hd, n, k.stride(0),
         k.stride(1), blocks, torch.cuda.current_stream().cuda_stream), "decode attention kernel")
     torch.cuda.synchronize()
     _close_bf16(out, da.decode_attention_plain(q, k, v, n))
@@ -318,6 +318,52 @@ def test_decode_attention_kernel_at_every_head_dim(device, n, hd):
     torch.cuda.synchronize()
     assert da.LAUNCHES == before + 1
     _close_bf16(out, da.decode_attention_plain(q, k, v, n))
+
+
+def _starts(B, n, kind):
+    """(B,) int32 first positions: "ragged" gives rows 0 and n - 1 (its own
+    position alone) and, past them, a start that empties the cluster's
+    first blocks (2 * 48 + 5) and one in the last block; "zero" all 0."""
+    if kind == "zero":
+        return torch.zeros(B, dtype=torch.int32, device="cuda")
+    pool = [0, n - 1, min(2 * da.POSITIONS_PER_BLOCK + 5, n - 1), max(n - 30, 0)]
+    return torch.tensor([pool[b % len(pool)] for b in range(B)], dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("kind", ["ragged", "zero"])
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("n", [7, 389, 420])
+def test_decode_attention_kernel_with_per_row_start(device, n, B, kind):
+    """Row b attends to [start[b], n): ragged starts (0, n - 1, one that
+    empties whole blocks of the cluster, one in its last block) against
+    the plain version's mask; starts of 0 give the output without
+    ``start`` bit for bit."""
+    rng = np.random.RandomState(n + B)
+    H, KV, hd = 9, 3, 64
+    q = _bf16(rng, B, H, hd)
+    k = _bf16(rng, 2, B, n + 8, KV, hd)[1]
+    v = _bf16(rng, 2, B, n + 8, KV, hd)[1]
+    start = _starts(B, n, kind)
+    before = da.LAUNCHES
+    out = da.decode_attention(q, k, v, n, start)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES == before + 1
+    _close_bf16(out, da.decode_attention_plain(q, k, v, n, start))
+    if kind == "zero":
+        assert torch.equal(out, da.decode_attention_cuda(q, k, v, n))
+    elif B > 1:
+        # Row 1 starts at n - 1: it attends to its own position alone.
+        assert torch.equal(out[1], v[1, n - 1].repeat_interleave(H // KV, dim=0))
+
+
+def test_decode_attention_kernel_rejects_a_bad_start(device):
+    rng = np.random.RandomState(0)
+    q = _bf16(rng, 2, 9, 64)
+    k = _bf16(rng, 2, 20, 3, 64)
+    for bad in (torch.zeros(2, dtype=torch.int64, device="cuda"), torch.zeros(3, dtype=torch.int32, device="cuda"),
+                torch.zeros(2, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="start must be"):
+            da.decode_attention_cuda(q, k, k, 10, bad)
 
 
 # ---------------------------------------------------------------------------
@@ -380,6 +426,32 @@ def test_int8_decode_attention_kernel_across_cluster_sizes(device, B, n, E):
     torch.cuda.synchronize()
     assert max(_max_ulp(a, b) for a in outs for b in outs) <= 1
     _close_bf16(outs[1], di.decode_attention_int8_plain(q, k8, v8, ks, vs, n, *extra))
+
+
+@pytest.mark.parametrize("kind", ["ragged", "zero"])
+@pytest.mark.parametrize("E", [1, 8])
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("n", [7, 389, 420])
+def test_int8_decode_attention_kernel_with_per_row_start(device, n, B, E, kind):
+    """Row b attends to cached positions [start[b], n) and its E extra rows:
+    ragged starts (0, n - 1, one that empties whole blocks of the cluster,
+    one in its last block) against the plain version's mask; starts of 0
+    give the output without ``start`` bit for bit; a start at n leaves a
+    row its extra rows alone."""
+    q, k8, v8, ks, vs, extra = _int8_decode_inputs(B, n, E, s_max=n + 8)
+    start = _starts(B, n, kind)
+    before = di.LAUNCHES
+    out = di.decode_attention_int8(q, k8, v8, ks, vs, n, *extra, start)
+    torch.cuda.synchronize()
+    assert di.LAUNCHES == before + 1
+    _close_bf16(out, di.decode_attention_int8_plain(q, k8, v8, ks, vs, n, *extra, start))
+    if kind == "zero":
+        assert torch.equal(out, di.decode_attention_int8_cuda(q, k8, v8, ks, vs, n, *extra))
+    else:
+        empty = torch.full((B,), n, dtype=torch.int32, device="cuda")
+        alone = di.decode_attention_int8_cuda(q, k8, v8, ks, vs, n, *extra, empty)
+        torch.cuda.synchronize()
+        _close_bf16(alone, di.decode_attention_int8_plain(q, k8, v8, ks, vs, n, *extra, empty))
 
 
 @pytest.mark.parametrize("E", [0, 9])
