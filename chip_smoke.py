@@ -68,7 +68,9 @@ result line is printed:
    (``weight_dtype="int8"``, one request); every call's launches checked;
    at a batch of 2 the fp32 CUDA prefix and logits are held against the
    CPU, bf16 against fp32 CUDA and the int8 weights against bf16 (the same
-   prefix, bit for bit); the token agreement is printed;
+   prefix, bit for bit); the token agreement is printed; one bf16 request
+   with an fp32 KV cache (``hold_gpt2_float_cache``) has the bf16 cache's
+   first token and the bf16 path's launches;
 8. HTSAT-large paths: ``v0_htsat_large`` (``htsat_large_config``, v0's
    decoder behind HTSAT-large, registered in code) in fp32 and bf16, three
    requests and a batch of 2 each, every call's launches checked (bf16:
@@ -94,7 +96,8 @@ result line is printed:
    the static path's, the agreement after it and the compactions printed);
    every call's launches checked; each decode-step product at M = 4 against
    M = 2 (``products_by_batch``); the sampler's device time a step at B=1
-   and B=4, and a sampled B=1 request's latency against a greedy one;
+   and B=4, and a sampled B=1 request's latency against a greedy one (one
+   request a round);
 10. continuous batching (``continuous_phase``): ``ContinuousScheduler`` on
    v0 at full width in fp32, bf16 and bf16 with an int8 cache, ten
    requests of 4-48 tokens through 4 slots and a 64-step window on
@@ -110,7 +113,26 @@ result line is printed:
    the v0 weights through ``export_mellow`` into a .pt and back through
    ``MellowWrapper(params_path=...)``, bit for bit and with the same greedy
    answer;
-11. timings of the paths by stage (host preprocessing, log-mel, encoder,
+11. training (``training_phase``): v0 at full width in fp32 from the seed-0
+   weights, the port's ``ReasonAQALoader`` over a 4-row manifest of the
+   smoke's wavs (B=4, 16 answer tokens a row), six ``train_step``s on one
+   batch (finite, falling losses), a mixup step, ``train_step_accum(2)``
+   and remat against the plain step from one state (the loss within 1e-5
+   relative, each parameter within 1e-2 x the learning rate), the
+   checkpoint round trip bit for bit and ``loop.train`` resuming from it;
+   every forward pass launches the log-mel kernel twice and no other
+   kernel, while a bf16 request of the same phase launches the Swin-block
+   kernel; one bf16 ``forward_train`` and backward (finite, its loss's
+   distance from fp32's printed); a step's device time (torch.profiler),
+   host time, answer tokens/s and peak memory;
+12. entry points (``entry_phase``): ``cli.build_wrapper("v0")`` with no
+   weights reachable (the seed-0 random weights on the card); a bf16 v0
+   ``MellowServer`` on loopback: three concurrent ``/generate`` POSTs
+   coalesced into one batch, answers equal to ``wrapper.generate``'s and
+   ``/metrics`` showing one generate call of six clips, one SSE stream
+   whose text equals the one-shot answer; ``run_eval`` on a 4-row
+   manifest, its report printed;
+13. timings of the paths by stage (host preprocessing, log-mel, encoder,
    prefill, decode step as the slope of two lengths, whole request), and
    torch.profiler over one warm B=1 request of each path (device time,
    kernel launches, the device's idle share, and the device time and
@@ -125,7 +147,7 @@ result line is printed:
 ``AB_TARGETS`` and ``AB_PROFILE_TARGETS`` as met or not (``ab_compare``).
 
 The launch counts are set to 0 just before each path is driven and read
-just after. The last line is ``{"ok": true, "device": {...}}``; the line
+just after; each phase prints its seconds. The last line is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit; before that, the
 ``{"kernels": [...]}`` line.
 """
@@ -1312,7 +1334,7 @@ def stage_times(wrapper, cfg, request, batch: int, path: str) -> dict:
     """Per-stage times of one path at batch ``batch``: host clock around
     work that ends in a synchronize (medians of 3), the log-mel's device
     time (median of 5), the decode step as the slope between 32 and 64
-    generated tokens at a fixed prefix (medians of 5 each) with no stop
+    generated tokens at a fixed prefix (medians of 3 each) with no stop
     token, so both lengths run in full."""
     dev, dt, dec, p = wrapper.device, wrapper.dtype, cfg.decoder, wrapper.params
     _, ctor, gen_kwargs = PATHS[path]
@@ -1343,10 +1365,10 @@ def stage_times(wrapper, cfg, request, batch: int, path: str) -> dict:
                 llama.prefill(p["decoder"], dec, prefix, cache, w8a8=w8a8)
 
         out["prefill_ms"] = _host_ms(prefill)
-        # Five pairs, the two lengths in turn; the slope of the medians, and
-        # the spread of the five pairs' own slopes.
+        # Three pairs, the two lengths in turn; the slope of the medians, and
+        # the spread of the three pairs' own slopes.
         t32, t64 = [], []
-        for _ in range(5):
+        for _ in range(3):
             for n, ts in ((32, t32), (64, t64)):
                 ts.append(_host_ms(lambda: gen.generate(p["decoder"], dec, prefix, max_len=n, stop_token_id=-1,
                                                         w8a8=w8a8, family=family, **gen_kwargs),
@@ -1407,6 +1429,27 @@ def hold_family(label, cfg, params, trees, int8_name, inputs, int8_cache: bool, 
         raise RuntimeError(f"the {int8_name} path's prefix differs from the bf16 path's")
     _hold(f"{int8_name} vs bf16 CUDA", names[1:], got8[1:], got16[1:], int8_tol)
     print(f"{int8_name} prefill argmax {got8[1].argmax(-1).tolist()}")
+
+
+def hold_gpt2_float_cache(wrapper, cfg, request) -> dict:
+    """One bf16 GPT-2 request with an fp32 KV cache (the JAX package's
+    einsum path: rows cast into the cache at the prefill and at each flush
+    window's end) against the same request with the bf16 cache: the same
+    first token (the cache's rows are bf16 values either way, so the answers
+    should agree in full; the agreement is printed), and the launches of
+    the GPT-2 bf16 path."""
+    ref = wrapper.generate([request], max_len=MAX_LEN)[0]
+    zero_counts()
+    got = wrapper.generate([request], max_len=MAX_LEN, kv_cache_dtype="float32")[0]
+    launches = read_counts()
+    want = expected_launches(cfg, MAX_LEN, "gpt2_bf16")
+    out = {"answers_equal": got == ref, "tokens_equal": sum(x == y for x, y in zip(got, ref)),
+           "tokens": max(len(got), len(ref)), "launches": launches}
+    print(json.dumps({"gpt2_fp32_cache_vs_bf16_cache": out}))
+    if got[:1] != ref[:1] or launches != want:
+        raise RuntimeError(f"gpt2 fp32 cache: first token {got[:1]!r} vs {ref[:1]!r}, launches {launches} "
+                           f"vs {want}")
+    return out
 
 
 # The encoder's other entry points at HTSAT-large on the card: name,
@@ -1750,12 +1793,12 @@ def time_sampler(dec) -> dict:
 
 def request_latency(wrapper, request) -> dict:
     """Host-clock latency of one B=1 ``max_len=32`` request, greedy against
-    sampled (top_p 0.8), in turns: greedy, sampled, sampled, greedy; medians
-    of 3 each."""
+    sampled (top_p 0.8), in turns: greedy, sampled, sampled, greedy; one
+    request each."""
     ms = {"greedy": [], "sampled": []}
     for mode in ("greedy", "sampled", "sampled", "greedy"):
         kw = {"sample": True, **SAMPLE_KNOBS} if mode == "sampled" else {}
-        ms[mode].append(_host_ms(lambda: wrapper.generate([request], max_len=MAX_LEN, **kw)))
+        ms[mode].append(_host_ms(lambda: wrapper.generate([request], max_len=MAX_LEN, **kw), reps=1))
     out = {f"{mode}_ms": statistics.mean(v) for mode, v in ms.items()}
     out.update({f"{mode}_ms_runs": v for mode, v in ms.items()})
     print(json.dumps({"request_latency bf16 B=1": out}))
@@ -2075,9 +2118,318 @@ def continuous_phase(wrappers, cfg, params_np, wavs) -> dict:
     return out
 
 
-def slice_phase() -> dict:
+# ---------------------------------------------------------------------------
+# training phase
+# ---------------------------------------------------------------------------
+
+# Six steps on one batch (the loss must fall), at a learning rate past its
+# warmup from update 1 (update 0's rate is 0, as optax's schedule gives).
+TRAIN_LR = 1e-3
+# Gradient accumulation and remat against the plain step, from one state:
+# the loss within TRAIN_LOSS_RTOL relative, and each parameter after the
+# step within TRAIN_PARAM_TOL x the learning rate of the plain step's (the
+# same gradients in another summation order move an Adam update by a
+# small share of its step).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_TOL = 1e-2
+# Four answers of one length: every micro-batch has the same answer tokens,
+# so accumulation's equal-micro-batch average is the whole batch's gradient.
+TRAIN_ROWS = (("caption the audio.", "a busy street, honks"), ("what is different?", "rain on the tin roof"),
+              ("is there speech?", "yes, two people talk"), ("count the sounds.", "three sounds, a bell"))
+TRAIN_ANSWER_LEN = 16
+
+
+class ForwardCounter:
+    """Counts ``mellow.forward_train`` calls (``train/step.py`` looks the
+    function up at call time): each must launch the log-mel kernel twice."""
+
+    def __init__(self):
+        self.calls = 0
+        self.fn = mellow_model.forward_train
+        mellow_model.forward_train = self
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.fn(*args, **kwargs)
+
+    def remove(self):
+        mellow_model.forward_train = self.fn
+
+
+def _train_launches(label, fn, forwards: int, total: dict):
+    """Run ``fn`` with every count set to 0 first; it must launch the
+    log-mel kernel twice a forward pass and no other kernel. Adds the
+    launches to ``total``."""
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = read_counts()
+    want = {name: 2 * forwards if name == "log_mel" else 0 for name in KERNELS}
+    if got != want:
+        raise RuntimeError(f"training {label}: launched {got}, expected {want}")
+    for name, n in got.items():
+        total[name] = total.get(name, 0) + n
+    return out
+
+
+def _max_param_diff(a, b) -> float:
+    from mellow_tpu_torch.models.params import tree_leaves
+
+    return max((x.detach() - y.detach()).abs().max().item() for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def training_phase(wrappers, cfg, wavs, tmp, card) -> dict:
+    """v0 at full width in fp32 from the seed-0 weights: the port's
+    ``ReasonAQALoader`` over a 4-row manifest of the smoke's wavs, six
+    ``train_step``s on one batch (losses finite and falling), one mixup
+    step, ``train_step_accum(2)`` and remat against the plain step, the
+    checkpoint round trip and ``loop.train`` resuming from it; each
+    forward pass launches the log-mel kernel twice and nothing else, while
+    a bf16 request of the same phase launches the Swin-block kernel (the
+    route is by mode); one bf16 ``forward_train`` and backward; a step's
+    device and host time, answer tokens/s and peak memory."""
+    from mellow_tpu_torch.models.params import cast_floating, tree_leaves, tree_map
+    from mellow_tpu_torch.train import checkpoint, loop
+    from mellow_tpu_torch.train import step as tstep
+    from mellow_tpu_torch.train.data import ReasonAQALoader, load_json
+
+    t0 = time.perf_counter()
+    a, b = wavs
+    manifest = os.path.join(tmp, "train.json")
+    with open(manifest, "w") as f:
+        json.dump([{"filepath1": x, "filepath2": y, "input": q, "answer": ans, "subtype": "smoke"}
+                   for (x, y), (q, ans) in zip(((a, b), (b, a), (a, a), (b, b)), TRAIN_ROWS)], f)
+    tok = wrappers["fp32"].tokenizer
+    loader = ReasonAQALoader(load_json(manifest), tok, cfg, batch_size=4, answer_len=TRAIN_ANSWER_LEN)
+    batch = next(loader.epoch(0))
+    if (batch["audio1"].shape != (4, cfg.frontend.num_samples)
+            or set(batch["answer_mask"].sum(1)) != {float(TRAIN_ANSWER_LEN)}):
+        raise RuntimeError(f"training: bad batch {batch['audio1'].shape}, {batch['answer_mask'].sum(1)}")
+    opt = tstep.make_optimizer(learning_rate=TRAIN_LR, warmup_steps=1, total_steps=100)
+    fp32, dev = wrappers["fp32"].params, wrappers["fp32"].device
+    state = tstep.init_train_state(tree_map(lambda p: p.detach().clone(), fp32), opt)
+    out = {"card": card}
+    total = {}
+    counter = ForwardCounter()
+    try:
+        losses = []
+        for i in range(6):
+            g = torch.Generator(device=dev)
+            g.manual_seed(SEED + i)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = _train_launches(f"step {i}", lambda: tstep.train_step(state, cfg, opt, batch, g), 1, total)
+            host_ms = (time.perf_counter() - t) * 1e3
+            losses.append(float(m["loss"]))
+            print(json.dumps({"train_step": i, "loss": losses[-1], "grad_norm": float(m["grad_norm"]),
+                              "host_ms": host_ms, "max_memory_allocated": torch.cuda.max_memory_allocated()}))
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise RuntimeError(f"training: the loss did not fall over six steps: {losses}")
+        out["losses"] = losses
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 6)
+        state, m = _train_launches("mixup", lambda: tstep.train_step(state, cfg, opt, batch, g, mixup=True), 1,
+                                  total)
+        out["mixup_loss"] = float(m["loss"])
+        # The mixed pairs' token weights sum to each pair's tokens: half the batch's.
+        if not np.isfinite(out["mixup_loss"]) or abs(float(m["num_answer_tokens"]) - 2 * TRAIN_ANSWER_LEN) > 1e-3:
+            raise RuntimeError(f"training: bad mixup step {m}")
+
+        # Accumulation and remat against the plain step, from copies of one state.
+        ref, m_ref = tstep.train_step(tstep.clone_state(state), cfg, opt, batch, None)
+        lr = opt.schedule(state.opt_state.count)
+        for label, fn, forwards in (
+                ("accum", lambda: tstep.train_step_accum(tstep.clone_state(state), cfg, opt, batch, None, 2), 2),
+                ("remat", lambda: tstep.train_step(tstep.clone_state(state), cfg, opt, batch, None, remat=True), 1)):
+            other, m_other = _train_launches(label, fn, forwards, total)
+            loss_err = abs(float(m_other["loss"]) - float(m_ref["loss"])) / abs(float(m_ref["loss"]))
+            param_err = _max_param_diff(other.params, ref.params)
+            out[label] = {"loss_rel_err": loss_err, "max_param_diff": param_err, "lr": lr}
+            print(json.dumps({f"train_{label}_vs_plain": out[label], "card": card}))
+            if loss_err > TRAIN_LOSS_RTOL or param_err > TRAIN_PARAM_TOL * lr:
+                raise RuntimeError(f"training: {label} is off the plain step: {out[label]}")
+        del ref, other
+
+        # A step's device time (torch.profiler), host time and peak memory.
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 7)
+        torch.cuda.reset_peak_memory_stats()
+        (state, m), device_ms = _device_ms(lambda: tstep.train_step(state, cfg, opt, batch, g))
+        g.manual_seed(SEED + 8)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = tstep.train_step(state, cfg, opt, batch, g)
+        float(m["loss"])
+        host_ms = (time.perf_counter() - t) * 1e3
+        out["step"] = {"device_ms": device_ms, "host_ms": host_ms,
+                       "answer_tokens_per_s": float(m["num_answer_tokens"]) / (host_ms / 1e3),
+                       "max_memory_allocated": torch.cuda.max_memory_allocated(), "batch": 4,
+                       "answer_len": 16}
+        print(json.dumps({"train_step_v0_fp32_B4": out["step"], "card": card}))
+
+        # Checkpoint: bit for bit, then the loop resumes from it.
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        t = time.perf_counter()
+        path = checkpoint.save(ckpt_dir, state)
+        back = checkpoint.restore(path, state)
+        pairs = [(state.params, back.params), (state.opt_state.mu, back.opt_state.mu),
+                 (state.opt_state.nu, back.opt_state.nu)]
+        if back.step != state.step or not all(torch.equal(x, y) for ta, tb in pairs
+                                              for x, y in zip(tree_leaves(ta), tree_leaves(tb))):
+            raise RuntimeError("training: the checkpoint round trip moved a value")
+        del back
+        resumed = _train_launches("loop", lambda: loop.train(fp32, cfg, loader, max_steps=state.step + 1,
+                                                            ckpt_dir=ckpt_dir, log_every=1), 1, total)
+        if resumed.step != state.step + 1:
+            raise RuntimeError(f"training: loop.train ended at step {resumed.step}, not {state.step + 1}")
+        out["checkpoint"] = {"bytes": os.path.getsize(path), "step": state.step, "resumed_to": resumed.step,
+                             "seconds": time.perf_counter() - t}
+        print(json.dumps({"train_checkpoint": out["checkpoint"]}))
+        del resumed
+    finally:
+        counter.remove()
+    # 6 steps, mixup, the plain, accumulated (2) and remat comparison steps,
+    # the two timed steps and the loop's step.
+    if counter.calls != 14:
+        raise RuntimeError(f"training: {counter.calls} forward passes, expected 14")
+
+    # The same phase's bf16 request takes the Swin-block kernel.
+    zero_counts()
+    wrappers["bf16"].generate([[a, b, "caption the audio."]], max_len=4)
+    swin = read_counts()["swin_block"]
+    if not swin:
+        raise RuntimeError("training: a bf16 request of the phase launched no Swin-block kernel")
+    out["bf16_request_swin_block_launches"] = swin
+
+    # One bf16 forward_train + backward, against fp32's loss at the seed weights.
+    p32 = tstep.init_train_state(tree_map(lambda p: p.detach().clone(), fp32), opt).params
+    p16 = tree_map(lambda p: p.requires_grad_(True), cast_floating(tree_map(lambda p: p.detach().clone(), fp32),
+                                                                   torch.bfloat16))
+    losses = {}
+    for label, params in (("fp32", p32), ("bf16", p16)):
+        dev = tstep._device_batch(batch, params)
+
+        def fwd_bwd():
+            loss, _ = mellow_model.forward_train(params, cfg, dev["audio1"], dev["audio2"], dev["text_ids"],
+                                                 dev["answer_ids"], dev["answer_mask"])
+            grads = torch.autograd.grad(loss, tree_leaves(params), allow_unused=True)
+            return loss, grads
+
+        loss, grads = _train_launches(f"{label} forward_train", fwd_bwd, 1, total)
+        if not torch.isfinite(loss) or not all(gr is None or torch.isfinite(gr).all() for gr in grads):
+            raise RuntimeError(f"training: {label} forward_train or its gradients are not finite")
+        losses[label] = loss.item()
+    out["bf16_loss"] = losses
+    out["bf16_loss_rel_diff"] = abs(losses["bf16"] - losses["fp32"]) / abs(losses["fp32"])
+    del p32, p16, params
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"training": {k: v for k, v in out.items() if k not in ("card", "launches")}, "card": card}))
+    print(f"training phase took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# entry phase
+# ---------------------------------------------------------------------------
+
+def _http_json(url, body=None):
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def entry_phase(wrappers, cfg, wavs, tmp, card) -> dict:
+    """``cli.build_wrapper("v0")`` with no weights reachable (the seed-0
+    random weights, on the card); a bf16 v0 ``MellowServer`` on loopback:
+    three concurrent ``/generate`` POSTs coalesced into one batch (answers
+    equal to ``wrapper.generate``'s, ``/metrics`` showing one call of six
+    clips), one SSE stream (its text equal to the one-shot answer); and
+    ``run_eval`` on a 4-row manifest."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mellow_tpu_torch import cli
+    from mellow_tpu_torch import eval as ev
+    from mellow_tpu_torch.models.params import tree_leaves
+    from mellow_tpu_torch.server import MellowServer
+
+    t0 = time.perf_counter()
+    a, b = wavs
+    out = {}
+    for name in ("MELLOW_TPU_PARAMS", "MELLOW_TPU_CKPT"):
+        os.environ.pop(name, None)
+    fallback = cli.build_wrapper("v0")
+    if fallback.device != wrappers["fp32"].device or not isinstance(fallback.tokenizer, ByteTokenizer) or not all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(fallback.params), tree_leaves(wrappers["fp32"].params))):
+        raise RuntimeError("entry: build_wrapper's fallback is not the seed-0 random weights on the card")
+    del fallback
+
+    w = wrappers["bf16"]
+    bodies = [{"audio1": x, "audio2": y, "prompt": q, "max_len": MAX_LEN}
+              for x, y, q in ((a, b, "caption the audio."), (b, a, "what is different?"), (a, a, "is there speech?"))]
+    srv = MellowServer(w, max_batch_size=3, max_wait_ms=600_000)
+    httpd = srv.make_http_server("127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        if _http_json(url + "/healthz") != {"status": "ok"}:
+            raise RuntimeError("entry: /healthz")
+        before = _http_json(url + "/metrics")
+        zero_counts()
+        t = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=3) as pool:
+            answers = [r["text"] for r in pool.map(lambda body: _http_json(url + "/generate", body), bodies)]
+        out["three_posts_s"] = time.perf_counter() - t
+        out["launches"] = read_counts()
+        after = _http_json(url + "/metrics")
+        calls = after["generate_calls"] - before.get("generate_calls", 0)
+        clips = after["clips"] - before.get("clips", 0)
+        direct = w.generate([[x["audio1"], x["audio2"], x["prompt"]] for x in bodies], max_len=MAX_LEN,
+                            dynamic_batch=True)
+        if answers != direct or (calls, clips) != (1, 6):
+            raise RuntimeError(f"entry: the server answered {answers} in {calls} calls of {clips} clips, "
+                               f"the wrapper {direct}")
+        req = urllib.request.Request(url + "/generate_stream", data=json.dumps(bodies[0]).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            events = [json.loads(line[6:]) for line in (r.decode().strip() for r in resp) if line.startswith("data: ")]
+        # The one-shot answer from the wrapper: the server's engine holds a
+        # lone request back while it waits for a batch of 3.
+        one_shot = w.generate([[bodies[0]["audio1"], bodies[0]["audio2"], bodies[0]["prompt"]]], max_len=MAX_LEN)[0]
+        if not events or not events[-1]["done"] or events[-1]["text"] != one_shot:
+            raise RuntimeError(f"entry: the stream's text {events[-1:]} is not the one-shot answer {one_shot!r}")
+        out["stream_events"] = len(events)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.shutdown()
+        thread.join(timeout=60)
+
+    manifest = os.path.join(tmp, "eval.json")
+    with open(manifest, "w") as f:
+        json.dump([{"filepath1": x, "filepath2": y, "input": q, "answer": ans, "subtype": sub}
+                   for (x, y), (q, ans), sub in zip(((a, b), (b, a), (a, a), (b, b)), TRAIN_ROWS,
+                                                    ("AudioCaps.json", "ClothoAQA-binary.json") * 2)], f)
+    reports, preds = ev.run_eval(w, ev.load_manifest(manifest), batch_size=4, max_len=MAX_LEN)
+    print(ev.format_report(reports))
+    if len(preds) != 4 or reports["OVERALL"].n != 4:
+        raise RuntimeError("entry: run_eval did not score the four rows")
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"entry": out, "card": card}))
+    print(f"entry phase took {out['seconds']:.1f} s")
+    return out
+
+
+def slice_phase(card: str) -> dict:
     """Drive every path; return each path's kernel launches and generate
-    calls, the encoder entry points' launches and the stage timings."""
+    calls, the encoder entry points' launches, the stage timings, and the
+    training and entry phases."""
     t0 = time.perf_counter()
     register_config(GPT2_CONFIG, gpt2_config())
     register_config(LARGE_CONFIG, htsat_large_config())
@@ -2107,34 +2459,47 @@ def slice_phase() -> dict:
         _agreement("int8 weights + int8 cache vs bf16", answers["int8_weights"], answers["bf16"][:1])
         _agreement("gpt2 bf16 vs gpt2 fp32", answers["gpt2_bf16"], answers["gpt2_fp32"])
         _agreement("gpt2 int8 weights vs gpt2 bf16", answers["gpt2_int8_weights"], answers["gpt2_bf16"][:1])
+        gpt2_float_cache = hold_gpt2_float_cache(wrappers["gpt2_bf16"], cfgs[GPT2_CONFIG], requests[0])
+        print(f"paths took {time.perf_counter() - t0:.1f} s")
+        t = time.perf_counter()
         entries = hold_encoder_entries(cfgs[LARGE_CONFIG], wrappers["large_bf16"].params,
                                        wrappers["large_fp32"].params)
+        print(f"encoder entry points took {time.perf_counter() - t:.1f} s")
         decoding = decoding_phase(wrappers, cfgs, requests, answers)
         continuous = continuous_phase(wrappers, cfgs["v0"], params["v0"], (a, b))
+        training = training_phase(wrappers, cfgs["v0"], (a, b), tmp, card)
+        entry = entry_phase(wrappers, cfgs["v0"], (a, b), tmp, card)
+        launches["training"], launches["entry_server"] = training["launches"], entry["launches"]
 
         audio1 = wrappers["fp32"].preprocess_audio([r[0] for r in requests[:2]], True)
         audio2 = wrappers["fp32"].preprocess_audio([r[1] for r in requests[:2]], True)
         texts = {name: wrappers[path].preprocess_text([r[2] for r in requests[:2]])
                  for name, path in (("v0", "fp32"), (GPT2_CONFIG, "gpt2_fp32"), (LARGE_CONFIG, "large_fp32"))}
+        t = time.perf_counter()
         for path, batches in (("fp32", (1, 4)), ("bf16", (1, 4)), ("int8", (1, 4)),
                               ("gpt2_fp32", (1,)), ("gpt2_bf16", (1,)), ("large_fp32", (1,)), ("large_bf16", (1,))):
             for batch in batches:
                 key = f"{path} B={batch}"
                 timings[key] = stage_times(wrappers[path], cfgs[PATHS[path][0]], requests[0], batch, path)
                 print(json.dumps({"stage_times": key, **timings[key]}))
+        print(f"stage timings took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
         for path in ("fp32", "bf16", "int8", "gpt2_fp32", "gpt2_bf16", "large_fp32", "large_bf16"):
             timings[f"profile {path}"] = profile_request(wrappers[path], requests[0], path)
+        print(f"request profiles took {time.perf_counter() - t:.1f} s")
 
     # Two rows (requests 0 and 1), so the batch strides of the prefill
     # blocks' cache writes and of decode attention's cache reads are used.
+    t = time.perf_counter()
     for label, name, paths, int8_cache, int8_tol in (
             ("", "v0", ("fp32", "bf16", "int8"), True, INT8_TOL),
             ("gpt2 ", GPT2_CONFIG, ("gpt2_fp32", "gpt2_bf16", "gpt2_int8_weights"), False, GPT2_INT8_TOL),
             ("large ", LARGE_CONFIG, ("large_fp32", "large_bf16"), False, None)):
         hold_family(label, cfgs[name], params[name], [wrappers[p].params for p in paths], paths[-1],
                     (audio1, audio2, texts[name]), int8_cache, int8_tol)
+    print(f"family holds took {time.perf_counter() - t:.1f} s")
     return {"launches": launches, "calls": calls, "entries": entries, "timings": timings, "decoding": decoding,
-            "continuous": continuous}
+            "continuous": continuous, "training": training, "entry": entry, "gpt2_float_cache": gpt2_float_cache}
 
 
 # Kernels whose device time per request the profile reports: name -> the
@@ -2457,7 +2822,7 @@ def main() -> int:
     rows = kernel_phase(get_config("v0"), gpt2_config(), htsat_large_config())
     print(f"kernel phase took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    run = slice_phase()
+    run = slice_phase(card)
     launches = run["launches"]
     print(f"slice phase took {time.perf_counter() - t:.1f} s")
     # Each kernel's launches on the run of the path that carries it (the

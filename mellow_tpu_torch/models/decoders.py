@@ -3,13 +3,14 @@
 logits_from_hidden / embed_table.
 
 The port's families differ from the JAX package's protocol where the port
-differs: no ``flush_pending`` (a float cache takes each step's k/v at
-once; an int8 cache flushes its window inside ``llama.decode_step``,
-through ``llama.FlushWindow``), no ``forward`` (training is not ported),
-and the random init is ``models/mellow.py``'s ``init_params``. The llama
-step also takes the rope tables and the int8 cache's window, and the
-prefill its ``w8a8`` flag, so ``models/generate.py`` calls those two per
-family."""
+differs: no ``flush_pending`` (a cache in the compute dtype takes each
+step's k/v at once; any other cache flushes its window inside the family's
+``decode_step``, through its ``FlushWindow``), and the random init is
+``models/mellow.py``'s ``init_params``. The llama step also takes the rope
+tables, the prefill its ``w8a8`` flag, and ``forward`` (training's
+teacher-forced pass) its ``attention_mask`` where GPT-2's takes
+``position_offset``, so ``models/generate.py`` calls the step and the
+prefill per family."""
 
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ def get_decoder_ops(family: str) -> SimpleNamespace:
             decode_step=m.decode_step,
             logits_from_hidden=m.logits_from_hidden,
             embed_table=lambda params: params["embed"],
+            forward=m.forward,
         )
     if family == "gpt2":
         from mellow_tpu_torch.models import gpt2 as m
@@ -38,5 +40,6 @@ def get_decoder_ops(family: str) -> SimpleNamespace:
             decode_step=m.decode_step,
             logits_from_hidden=m.logits_from_hidden,
             embed_table=lambda params: params["wte"],
+            forward=m.forward,
         )
     raise ValueError(f"unknown decoder family '{family}' (llama|gpt2)")

@@ -17,7 +17,7 @@ most ``alive_threshold`` rows are unfinished). Semantics:
   * W is ``effective_window`` for every cache. An int8 cache's window rows,
     and those of a float cache in another dtype than the compute dtype, ride
     in the compute dtype and are written into the cache after the W-th
-    sub-step (``llama.FlushWindow``); a cache in the compute dtype is
+    sub-step (``llama.FlushWindow``, ``gpt2.FlushWindow``); a cache in the compute dtype is
     written every step, since a pending row in the cache's own dtype would
     change nothing;
   * the cache holds ``P + ceil(max_len / W) * W`` positions. The last
@@ -40,10 +40,10 @@ top-k keeps a subset.
 The compute dtype is the prefix's (float32 parity mode or bfloat16 perf
 mode); the rope tables and the logits are in it, and so is the KV cache
 unless ``kv_cache_dtype`` names another: "int8" (llama only), or a float
-dtype, "float32", "bfloat16" or "float16" (llama only, when it differs
+dtype, "float32", "bfloat16" or "float16" (either family, when it differs
 from the compute dtype). As in the JAX package, only the bf16 cache under
 bf16 and the int8 cache under bf16 decode through kernels; the others take
-the plain formulation (``llama.decode_step``).
+the plain formulation (``llama.decode_step``, ``gpt2.decode_step``).
 
 The core also carries continuous batching's ragged rows
 (``models/continuous.py``): a state with a per-row ``start`` and
@@ -65,7 +65,7 @@ from typing import Iterator, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from mellow_tpu_torch.models import llama
+from mellow_tpu_torch.models import gpt2, llama
 from mellow_tpu_torch.models.decoders import get_decoder_ops
 
 
@@ -195,7 +195,7 @@ class DecodeState(NamedTuple):
     done: torch.Tensor  # (B,) bool
     rng: Optional[torch.Generator]
     seen: Optional[torch.Tensor] = None  # (B, V) bool: the penalty's mask
-    window: Optional[llama.FlushWindow] = None  # a windowed cache's window (llama.uses_window)
+    window: Optional[llama.FlushWindow] = None  # a windowed cache's window (llama/gpt2.uses_window)
     # Continuous batching's ragged rows (models/continuous.py):
     start: Optional[torch.Tensor] = None  # (B,) int32: each row's first cache column
     deadline: Optional[torch.Tensor] = None  # (B,) int32: a row is done once t reaches it
@@ -227,9 +227,9 @@ def _init_state(
     else:
         if w8a8:
             raise ValueError("w8a8 prefill is llama-family only")
-        if cache.k.dtype != dtype:
-            raise NotImplementedError(f"a gpt2 {cache.k.dtype} cache under {dtype} compute is not ported")
         hidden = ops.prefill(params, cfg, prefix_embeds, cache)
+        if gpt2.uses_window(cache, dtype):
+            window = gpt2.FlushWindow(cfg, B, W, P, device, dtype)
     seen = None
     if repetition_penalty != 1.0:
         V = ops.embed_table(params).shape[0]
@@ -273,7 +273,7 @@ def _window_body(
     else:
 
         def step(s, tok_embed, pos):
-            return ops.decode_step(params, cfg, tok_embed, s.cache, pos)
+            return ops.decode_step(params, cfg, tok_embed, s.cache, pos, s.window)
 
     def choose(s: DecodeState, logits: torch.Tensor) -> torch.Tensor:
         if s.knobs is None:

@@ -26,10 +26,18 @@ Parameters are per layer (the JAX tree stacks them on a leading L axis;
     "lnf_g", "lnf_b": (D,),
   }
 
-The KV cache is a static buffer (L, B, S_max, D) in the compute dtype,
-heads packed along D, written in place: the decode step writes its
-position, then attends over it. Not ported: ``forward`` (the teacher-forced
-pass of training) and the pending/flush window.
+The KV cache is a static buffer (L, B, S_max, D), heads packed along D,
+written in place. A cache in the compute dtype takes each decode step's
+row at once, then the step attends over it. A cache in another float dtype
+(a bf16 cache under fp32, an fp32 or fp16 cache under bf16) decodes as the
+JAX package's einsum step does: the prefill writes its rows cast to the
+cache's dtype, the step reads the flushed rows back in the compute dtype,
+and the rows of the current flush window stay in the compute dtype
+(``FlushWindow``) until the window's last step writes them into the cache.
+
+``forward`` is the teacher-forced pass of training (``gpt2.forward``): the
+plain formulation in every dtype, as in the JAX package, so autograd
+differentiates it; the prefill's kernel has no backward.
 
 One deliberate difference: GPT-2 has ``max_position_embeddings`` learned
 positions, and the JAX package's gather silently clamps past them;
@@ -39,12 +47,14 @@ positions, and the JAX package's gather silently clamps past them;
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from mellow_tpu_torch.models import llama
 from mellow_tpu_torch.models.llama import _mm, quantize_weight
 from mellow_tpu_torch.ops.flash_gqa_prefill import flash_gqa_prefill
 
@@ -80,6 +90,31 @@ class GPT2Cache(NamedTuple):
         shape = (cfg.num_layers, batch, max_len, cfg.hidden_size)
         return GPT2Cache(torch.zeros(shape, dtype=dtype, device=device),
                          torch.zeros(shape, dtype=dtype, device=device))
+
+
+class FlushWindow(llama.FlushWindow):
+    """The flush window of a cache in another float dtype than the compute
+    dtype: ``k``, ``v`` (L, B, W, D) in the compute dtype, heads packed as
+    in the cache (the JAX package's pending rows)."""
+
+    @staticmethod
+    def row_shape(cfg: GPT2Config) -> tuple:
+        return (cfg.hidden_size,)
+
+    def flush(self, cache: GPT2Cache) -> None:
+        """Write the window's rows into ``cache`` at [flushed, flushed + W),
+        cast to its dtype, and start the next window."""
+        W = self.size
+        cache.k[:, :, self.flushed : self.flushed + W] = self.k
+        cache.v[:, :, self.flushed : self.flushed + W] = self.v
+        self.flushed += W
+        self.count = 0
+
+
+def uses_window(cache: GPT2Cache, dtype: torch.dtype) -> bool:
+    """Whether a cache decodes through a ``FlushWindow`` under compute
+    ``dtype``: a cache in another float dtype."""
+    return cache.k.dtype != dtype
 
 
 _QUANT_KEYS = ("w_qkv", "w_o", "w_fc", "w_proj")
@@ -161,31 +196,76 @@ def prefill(params: dict, cfg: GPT2Config, inputs_embeds: torch.Tensor, cache: G
     return _ln(x[:, -1, :], params["lnf_g"], params["lnf_b"], cfg.layer_norm_eps)
 
 
+def forward(params: dict, cfg: GPT2Config, inputs_embeds: torch.Tensor, *, position_offset: int = 0,
+            remat: bool = False) -> torch.Tensor:
+    """Full-sequence teacher-forced forward (``gpt2.forward``): the
+    embedded inputs (B, S, D) from position ``position_offset`` -> logits
+    (B, S, V). The plain formulation in every dtype. ``remat`` recomputes
+    each layer's activations in the backward pass
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``)."""
+    B, S, D = inputs_embeds.shape
+    device = inputs_embeds.device
+    x = inputs_embeds + params["wpe"][position_offset : position_offset + S].to(inputs_embeds.dtype)
+    causal = torch.ones((S, S), dtype=torch.bool, device=device).tril()
+    mask = torch.zeros((S, S), dtype=torch.float32, device=device).masked_fill(~causal, float("-inf"))
+
+    def layer(x, lp):
+        return _layer_full(cfg, x, lp, mask, False)[0]
+
+    for lp in params["layers"]:
+        x = checkpoint(layer, x, lp, use_reentrant=False) if remat else layer(x, lp)
+    x = _ln(x, params["lnf_g"], params["lnf_b"], cfg.layer_norm_eps)
+    return x @ params["wte"].T.to(x.dtype)
+
+
 def decode_step(params: dict, cfg: GPT2Config, token_embed: torch.Tensor, cache: GPT2Cache,
-                pos: int) -> torch.Tensor:
-    """One incremental step: ``token_embed`` (B, D) at position ``pos``,
-    whose k/v row is written into the cache first; attends over [0, pos].
-    Returns the post-final-norm hidden (B, D). Rounding as
-    ``gpt2.decode_step``: the scores in the compute dtype, then fp32; the
-    exps cast back; the value product in the compute dtype."""
+                pos: int, window: Optional[FlushWindow] = None) -> torch.Tensor:
+    """One incremental step: ``token_embed`` (B, D) at position ``pos``;
+    attends over [0, pos]. Returns the post-final-norm hidden (B, D).
+    Rounding as ``gpt2.decode_step``: the scores in the compute dtype, then
+    fp32; the exps cast back; the value product in the compute dtype.
+
+    A cache in the compute dtype takes this step's k/v row first. A cache
+    in another float dtype (``uses_window``) leaves it in ``window`` (row
+    ``pos - window.flushed``), attends over the flushed positions read back
+    in the compute dtype plus the window's rows, and once the window is
+    full writes its rows into the cache; it raises without ``window``."""
     B, D = token_embed.shape
     H, hd = cfg.num_heads, cfg.head_dim
     n = pos + 1
     x = token_embed[:, None, :] + params["wpe"][pos].to(token_embed.dtype)
+    windowed = uses_window(cache, x.dtype)
+    if windowed:
+        if window is None:
+            raise ValueError(f"a {cache.k.dtype} cache under {x.dtype} decodes through a FlushWindow")
+        i = pos - window.flushed
+        if i != window.count or i >= window.size:
+            raise ValueError(f"position {pos} is not the next row of the flush window "
+                             f"({window.count} of {window.size} rows from {window.flushed})")
     scale = 1.0 / np.sqrt(hd)
     for li, lp in enumerate(params["layers"]):
         h = _ln(x, lp["ln1_g"], lp["ln1_b"], cfg.layer_norm_eps)
         qkv = _mm(h, lp["w_qkv"]) + lp["b_qkv"]
         q, k, v = qkv.split(D, dim=-1)  # (B, 1, D) each
-        cache.k[li, :, pos] = k[:, 0]
-        cache.v[li, :, pos] = v[:, 0]
-        kc = cache.k[li, :, :n].reshape(B, n, H, hd)
-        vc = cache.v[li, :, :n].reshape(B, n, H, hd)
+        if windowed:
+            window.k[li, :, i] = k[:, 0]
+            window.v[li, :, i] = v[:, 0]
+            kc = torch.cat([cache.k[li, :, : window.flushed].to(x.dtype), window.k[li, :, : i + 1]], dim=1)
+            vc = torch.cat([cache.v[li, :, : window.flushed].to(x.dtype), window.v[li, :, : i + 1]], dim=1)
+        else:
+            cache.k[li, :, pos] = k[:, 0]
+            cache.v[li, :, pos] = v[:, 0]
+            kc, vc = cache.k[li, :, :n], cache.v[li, :, :n]
+        kc, vc = kc.reshape(B, n, H, hd), vc.reshape(B, n, H, hd)
         s = (torch.einsum("bhd,bshd->bhs", q.reshape(B, H, hd), kc) * scale).float()
         e = torch.exp(s - s.amax(-1, keepdim=True)).to(x.dtype)
         o = torch.einsum("bhs,bshd->bhd", e, vc) / e.sum(-1, keepdim=True)
         x = x + _mm(o.reshape(B, 1, D), lp["w_o"]) + lp["b_o"]
         x = _mlp(cfg, x, lp)
+    if windowed:
+        window.count = i + 1
+        if window.count == window.size:
+            window.flush(cache)
     return _ln(x[:, 0, :], params["lnf_g"], params["lnf_b"], cfg.layer_norm_eps)
 
 

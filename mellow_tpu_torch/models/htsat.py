@@ -1,4 +1,4 @@
-"""HTSAT Swin-Transformer audio encoder in PyTorch, eval paths.
+"""HTSAT Swin-Transformer audio encoder in PyTorch.
 
 Port of ``mellow_tpu/models/htsat.py`` as plain functions on tensors with a
 parameter dict of the same tree (see ``models/params.py``). Activations are
@@ -26,9 +26,17 @@ Entry points: the compact eval path the wrapper runs
 back to the wave's dtype, as ``frontend_image`` does, where the JAX package
 lets it promote the trunk to fp32 (ROADMAP Queue 3).
 
-Not ported here: the train-time arguments (``rng``, ``mixup_lambda``:
-drop-path, SpecAugment, mixup, projection dropout), which raise
-``NotImplementedError``.
+Training (``encode_audio(..., training=True)``, which
+``models/mellow.forward_train`` passes): every Swin block takes the plain
+formulation (``kernel_route(..., training=True)`` is "plain"), since the
+Swin-block and window-attention kernels have no backward (nor do their
+Pallas originals); the log-mel kernel stays, its input the waveform, which
+needs no gradient. The train-time arguments are the JAX package's: ``rng``
+(a ``torch.Generator`` on the wave's device) turns on SpecAugment after
+bn0, drop-path at the per-block rates ``linspace(0, drop_path_rate,
+blocks)`` and the projection's dropout (p = 0.5); ``mixup_lambda`` (B,)
+mixes the folded image's even rows with its odd rows and halves the batch.
+The draws come from the generator in order, not from JAX's key streams.
 """
 
 from __future__ import annotations
@@ -99,13 +107,6 @@ def _device_mask(resolution: int, window_size: int, shift: int, device: torch.de
 # layers
 # ---------------------------------------------------------------------------
 
-def _eval_only(**train_args) -> None:
-    """Raise for a train-time argument: training is not ported yet."""
-    given = [k for k, v in train_args.items() if v is not None]
-    if given:
-        raise NotImplementedError(f"train-time arguments are not ported: {', '.join(given)}")
-
-
 def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
     mu = x.mean(-1, keepdim=True)
     var = (x - mu).square().mean(-1, keepdim=True)
@@ -142,12 +143,14 @@ def window_attention(
     window_size: int,
     mask,  # (nW, N, N) numpy array or float32 tensor, or None
     return_attn: bool = False,
+    training: bool = False,
 ):
-    """Window MSA with relative position bias. In bf16, where one window
-    passes the JAX package's 6 MB gate, the core between the qkv and proj
-    products is the window-attention kernel (its plain version on the
+    """Window MSA with relative position bias. In bf16 eval, where one
+    window passes the JAX package's 6 MB gate, the core between the qkv and
+    proj products is the window-attention kernel (its plain version on the
     CPU). ``return_attn`` also returns the softmax probabilities
-    (Bn, H, N, N) in x's dtype and forces the plain formulation."""
+    (Bn, H, N, N) in x's dtype; it and ``training`` force the plain
+    formulation."""
     Bn, N, C = x.shape
     hd = C // num_heads
     qkv = linear(x, p["qkv"])  # (Bn, N, 3C)
@@ -155,7 +158,7 @@ def window_attention(
     bias = p["rel_bias_table"][_device_index(window_size, x.device)]
     bias = bias.reshape(N, N, num_heads).permute(2, 0, 1)  # (H, N, N)
 
-    if (not return_attn and x.dtype == torch.bfloat16
+    if (not return_attn and not training and x.dtype == torch.bfloat16
             and window_kernel.window_vmem_bytes(C, num_heads, N) <= window_kernel.WINDOW_BUDGET):
         m = None if mask is None else torch.as_tensor(mask, device=x.device).float().contiguous()
         out = window_kernel.window_attention(qkv, bias.float().contiguous(), m, num_heads=num_heads)
@@ -176,11 +179,16 @@ def window_attention(
     return (out, attn) if return_attn else out
 
 
-def kernel_route(C: int, num_heads: int, window_size: int, resolution: int) -> str:
-    """The kernel a bf16 eval Swin block of this geometry runs, by the JAX
+def kernel_route(C: int, num_heads: int, window_size: int, resolution: int, training: bool = False) -> str:
+    """The kernel a bf16 Swin block of this geometry runs, by the JAX
     package's gates: "swin_block" (the whole block, when its weights and
     activations pass the 10 MB gate), else "window_attention" (its
-    attention core, when one window passes the 6 MB gate), else "plain"."""
+    attention core, when one window passes the 6 MB gate), else "plain".
+    ``training``: "plain", whatever the geometry; neither kernel has a
+    backward. (JAX's gate sends a bf16 block with a zero drop-path rate to
+    its Swin-block kernel even under a gradient.)"""
+    if training:
+        return "plain"
     window_size = min(window_size, resolution)
     if (swin_kernel.fused_block_vmem_bytes(C, num_heads, window_size, resolution)
             <= swin_kernel.FUSED_BLOCK_BUDGET):
@@ -198,21 +206,24 @@ def swin_block(
     window_size: int,
     shift: int,
     *,
+    drop_path_rate: float = 0.0,
     rng=None,
     return_attn: bool = False,
+    training: bool = False,
 ):
-    """One Swin block (eval). When the window covers the whole resolution
-    the shift collapses to 0. ``return_attn`` also returns the window
-    attention probabilities and forces the plain formulation."""
-    _eval_only(rng=rng)
+    """One Swin block. When the window covers the whole resolution the
+    shift collapses to 0. ``return_attn`` also returns the window
+    attention probabilities and forces the plain formulation, as does
+    ``training`` (``kernel_route``). With ``rng`` (a ``torch.Generator``)
+    both residual branches take drop-path at ``drop_path_rate``."""
     H = W = resolution
     B, L, C = x.shape
     if min(H, W) <= window_size:
         window_size = min(H, W)
         shift = 0
 
-    if (not return_attn and x.dtype == torch.bfloat16
-            and kernel_route(C, num_heads, window_size, H) == "swin_block"):
+    if (not return_attn and x.dtype == torch.bfloat16 and (drop_path_rate == 0.0 or rng is None)
+            and kernel_route(C, num_heads, window_size, H, training) == "swin_block"):
         N = window_size * window_size
         bias = p["rel_bias_table"][_device_index(window_size, x.device)]
         bias = bias.reshape(N, N, num_heads).permute(2, 0, 1).float()
@@ -232,17 +243,28 @@ def swin_block(
         x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
     mask = _device_mask(H, window_size, shift, x.device) if shift > 0 else None
     windows = window_attention(window_partition(x, window_size), p, num_heads, window_size, mask,
-                               return_attn=return_attn)
+                               return_attn=return_attn, training=training)
     if return_attn:
         windows, attn = windows
     x = window_reverse(windows, window_size, H, W)
     if shift > 0:
         x = torch.roll(x, shifts=(shift, shift), dims=(1, 2))
-    x = shortcut + x.reshape(B, L, C)
+    x = shortcut + _drop_path(x.reshape(B, L, C), drop_path_rate, rng)
 
     h = gelu(linear(layer_norm(x, p["norm2"]), p["fc1"]))
-    out = x + linear(h, p["fc2"])
+    out = x + _drop_path(linear(h, p["fc2"]), drop_path_rate, rng)
     return (out, attn) if return_attn else out
+
+
+def _drop_path(x: torch.Tensor, rate: float, rng) -> torch.Tensor:
+    """Stochastic depth: each batch row of the branch kept with probability
+    1 - ``rate`` and scaled by 1 / (1 - rate); the identity without ``rng``
+    or at rate 0."""
+    if rate == 0.0 or rng is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=rng, device=x.device) < keep
+    return x / keep * mask.to(x.dtype)
 
 
 def patch_merging(x: torch.Tensor, p: dict, resolution: int) -> torch.Tensor:
@@ -270,17 +292,22 @@ def patch_embed(img: torch.Tensor, p: dict, patch: int) -> torch.Tensor:
 # encoder
 # ---------------------------------------------------------------------------
 
-def swin_features(img: torch.Tensor, params: dict, cfg: HTSATConfig, *, rng=None) -> torch.Tensor:
+def swin_features(img: torch.Tensor, params: dict, cfg: HTSATConfig, *, rng=None,
+                  training: bool = False) -> torch.Tensor:
     """Patch embed + Swin stages + final LayerNorm -> (B, 64, num_features)
-    tokens."""
-    _eval_only(rng=rng)
+    tokens. With ``rng``, block i of all the stages' blocks takes drop-path
+    at ``linspace(0, cfg.drop_path_rate, blocks)[i]``."""
     x = patch_embed(img, params["patch_embed"], cfg.patch_size)
     res = cfg.grid_size
+    dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)) if rng is not None else np.zeros(sum(cfg.depths))
+    bi = 0
     for si, depth in enumerate(cfg.depths):
         stage = params["stages"][si]
         for d in range(depth):
             shift = 0 if d % 2 == 0 else cfg.window_size // 2
-            x = swin_block(x, stage["blocks"][d], res, cfg.num_heads[si], cfg.window_size, shift)
+            x = swin_block(x, stage["blocks"][d], res, cfg.num_heads[si], cfg.window_size, shift,
+                           drop_path_rate=float(dpr[bi]), rng=rng, training=training)
+            bi += 1
         if "downsample" in stage:
             x = patch_merging(x, stage["downsample"], res)
             res //= 2
@@ -354,25 +381,33 @@ def _with_embedding(out: dict, params: dict) -> dict:
 
 def htsat_embedding(
     wave: torch.Tensor, params: dict, fe_cfg: FrontendConfig, cfg: HTSATConfig, *,
-    rng=None, mixup_lambda=None,
+    rng=None, mixup_lambda=None, training: bool = False,
 ) -> dict:
-    """The full eval forward: (B, 320000) -> ``tscam_head``'s outputs and
-    the (B, 1025, C) embedding."""
-    _eval_only(rng=rng, mixup_lambda=mixup_lambda)
+    """The full forward: (B, 320000) -> ``tscam_head``'s outputs and the
+    (B, 1025, C) embedding. Train-time: ``rng`` draws SpecAugment (after
+    bn0) and drop-path; ``mixup_lambda`` (B,) mixes the folded image's even
+    rows with its odd rows (a per-row reshape, so it commutes with the
+    reference's mixup of the spectrogram) and halves the batch;
+    ``training`` routes every block to the plain formulation."""
     enc = params["encoder"]
-    img = fe.frontend_image(wave, fe_cfg, enc["bn0"], cfg.freq_ratio, cfg.target_frames)
-    return _with_embedding(tscam_head(swin_features(img, enc, cfg), enc, cfg), params)
+    img = fe.frontend_image(wave, fe_cfg, enc["bn0"], cfg.freq_ratio, cfg.target_frames, augment_rng=rng)
+    if mixup_lambda is not None:
+        from mellow_tpu_torch.train.augment import mixup
+
+        img = mixup(img, mixup_lambda.to(img.dtype))
+    tokens = swin_features(img, enc, cfg, rng=rng, training=training)
+    return _with_embedding(tscam_head(tokens, enc, cfg), params)
 
 
 def htsat_embedding_compact(
-    wave: torch.Tensor, params: dict, fe_cfg: FrontendConfig, cfg: HTSATConfig
+    wave: torch.Tensor, params: dict, fe_cfg: FrontendConfig, cfg: HTSATConfig, training: bool = False
 ) -> torch.Tensor:
     """(B, 33, C) = [latent | the 32 unique frame rows] of the embedding.
     The full form repeats each frame row 32 times; every op up to the
     prefix mean-pool is row-wise, so the compact form is exact."""
     enc = params["encoder"]
     img = fe.frontend_image(wave, fe_cfg, enc["bn0"], cfg.freq_ratio, cfg.target_frames)
-    tokens = swin_features(img, enc, cfg)
+    tokens = swin_features(img, enc, cfg, training=training)
     latent, logits_t = _tscam_core(tokens, enc, cfg)
     fpx = torch.sigmoid(logits_t).transpose(1, 2)  # (B, 32, O)
     oframe = linear(fpx, params["c2l"])
@@ -420,29 +455,47 @@ def htsat_embedding_infer_mode(
     return _with_embedding(tscam_head(swin_features(img, enc, cfg), enc, cfg), params)
 
 
-def projection(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """Residual MLP + LayerNorm into the decoder width (eval: no dropout)."""
+def projection(x: torch.Tensor, p: dict, *, dropout_rng=None, rate: float = 0.5) -> torch.Tensor:
+    """Residual MLP + LayerNorm into the decoder width. With
+    ``dropout_rng`` (training) the second branch takes element-wise dropout
+    at ``rate``."""
     e1 = x @ p["linear1"]["kernel"]
     e2 = gelu(e1) @ p["linear2"]["kernel"]
+    if dropout_rng is not None:
+        e2 = _dropout(e2, rate, dropout_rng)
     return layer_norm(e1 + e2, p["layer_norm"])
+
+
+def _dropout(x: torch.Tensor, rate: float, rng: torch.Generator) -> torch.Tensor:
+    """Each element kept with probability 1 - ``rate`` and scaled by
+    1 / (1 - rate), else 0."""
+    keep = torch.rand(x.shape, generator=rng, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def encode_audio(
     wave: torch.Tensor, params: dict, fe_cfg: FrontendConfig, cfg: HTSATConfig, *,
-    rng=None, mixup_lambda=None,
+    rng=None, mixup_lambda=None, training: bool = False,
 ) -> torch.Tensor:
-    """(B, 320000) -> projected (B, 1025, d_proj), eval: the compact rows
-    re-expanded, each frame row 32 times, as the JAX package does."""
-    _eval_only(rng=rng, mixup_lambda=mixup_lambda)
-    c = encode_audio_compact(wave, params, fe_cfg, cfg)
-    return torch.cat([c[:, :1], c[:, 1:].repeat_interleave(32, dim=1)], dim=1)
+    """(B, 320000) -> projected (B, 1025, d_proj). Without ``rng`` and
+    ``mixup_lambda``: the compact rows re-expanded, each frame row 32
+    times, as the JAX package does. With either: the full
+    ``htsat_embedding`` (its SpecAugment, drop-path and mixup), then the
+    projection with its dropout when ``rng`` is given (per element, so the
+    frame rows stop repeating). ``training`` routes every Swin block to the
+    plain formulation (``kernel_route``)."""
+    if rng is None and mixup_lambda is None:
+        c = encode_audio_compact(wave, params, fe_cfg, cfg, training=training)
+        return torch.cat([c[:, :1], c[:, 1:].repeat_interleave(32, dim=1)], dim=1)
+    out = htsat_embedding(wave, params, fe_cfg, cfg, rng=rng, mixup_lambda=mixup_lambda, training=training)
+    return projection(out["embedding"], params["projection"], dropout_rng=rng)
 
 
 def encode_audio_compact(
-    wave: torch.Tensor, params: dict, fe_cfg: FrontendConfig, cfg: HTSATConfig
+    wave: torch.Tensor, params: dict, fe_cfg: FrontendConfig, cfg: HTSATConfig, training: bool = False
 ) -> torch.Tensor:
     """(B, 320000) -> (B, 33, d_proj): projected [latent | 32 frame rows]."""
-    return projection(htsat_embedding_compact(wave, params, fe_cfg, cfg), params["projection"])
+    return projection(htsat_embedding_compact(wave, params, fe_cfg, cfg, training), params["projection"])
 
 
 def downsample_tokens_compact(x: torch.Tensor) -> torch.Tensor:

@@ -62,6 +62,10 @@ The KV cache is a static buffer (L, B, S_max, KV, hd) in the compute dtype,
 another float dtype or int8, written in place. Not ported: the packed-lane
 cache, pending/flush windows for a cache in the compute dtype (a pending
 row in the cache's own dtype changes nothing), chunked prefill.
+
+``forward`` is the teacher-forced pass of training, on the plain
+formulation in every dtype (the JAX package's ``forward`` never takes its
+kernels either), so autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mellow_tpu_torch.config import LlamaConfig
 from mellow_tpu_torch.ops.attn_block import attn_block
@@ -120,11 +125,16 @@ class FlushWindow:
 
     def __init__(self, cfg: LlamaConfig, batch: int, window: int, flushed: int, device,
                  dtype: torch.dtype):
-        shape = (cfg.num_layers, batch, window, cfg.num_kv_heads, cfg.head_dim)
+        shape = (cfg.num_layers, batch, window) + self.row_shape(cfg)
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)
         self.flushed = flushed
         self.count = 0
+
+    @staticmethod
+    def row_shape(cfg: LlamaConfig) -> tuple:
+        """One position's k (or v) row: (KV, hd), as in the cache."""
+        return (cfg.num_kv_heads, cfg.head_dim)
 
     @property
     def size(self) -> int:
@@ -319,6 +329,36 @@ def _attend_window(cfg: LlamaConfig, q, cache: KVCache, li: int, n: int, k_extra
     o = (torch.einsum("bgrn,bngd->bgrd", e, cache.v[li, :, :n].to(dt))
          + torch.einsum("bgrx,bxgd->bgrd", e_x, v_extra))
     return (o / denom).reshape(B, 1, H * hd)
+
+
+def forward(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, *,
+            attention_mask: Optional[torch.Tensor] = None, remat: bool = False) -> torch.Tensor:
+    """Full-sequence teacher-forced forward (``llama.forward``): the
+    embedded inputs (B, S, D) -> logits (B, S, V), causal, with keys where
+    ``attention_mask`` (B, S) is 0 masked out. The plain formulation
+    (``_qkv``, ``_attend``, ``_mlp``) in every dtype, as the JAX package's
+    training forward, so autograd differentiates it; the prefill kernels
+    have no backward. ``remat`` recomputes each layer's activations in the
+    backward pass (``torch.utils.checkpoint``, the JAX package's
+    ``jax.checkpoint``)."""
+    B, S, D = inputs_embeds.shape
+    device = inputs_embeds.device
+    cos, sin = rope_device_tables(cfg, S, inputs_embeds.dtype, device)
+    causal = torch.ones((S, S), dtype=torch.bool, device=device).tril()
+    mask = torch.zeros((S, S), dtype=torch.float32, device=device).masked_fill(~causal, float("-inf"))
+    if attention_mask is not None:
+        pad = torch.zeros((B, 1, 1, 1, S), dtype=torch.float32, device=device).masked_fill(
+            ~attention_mask.bool()[:, None, None, None, :], float("-inf"))
+        mask = mask + pad  # (B, 1, 1, S, S): broadcast over (KV, rep)
+
+    def layer(x, lp):
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        return _mlp(cfg, x + _mm(_attend(cfg, q, k, v, mask), lp["wo"]), lp)
+
+    x = inputs_embeds
+    for lp in params["layers"]:
+        x = checkpoint(layer, x, lp, use_reentrant=False) if remat else layer(x, lp)
+    return logits_from_hidden(params, cfg, rms_norm(x, params["norm_f"], cfg.rms_norm_eps))
 
 
 def logits_from_hidden(params: dict, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Mellow assembly in PyTorch: two audio encodings + prompt -> prefix -> LM.
 
-Port of the inference path of ``mellow_tpu/models/mellow.py``, for both
-decoder families (``cfg.decoder_family``: "llama" or "gpt2"). The port's
+Port of ``mellow_tpu/models/mellow.py``'s inference path and its training
+objective (``forward_train``), for both decoder families
+(``cfg.decoder_family``: "llama" or "gpt2"). The port's
 parameter tree is the JAX tree with the decoder's stacked layers split per
 layer (``models/params.py``); ``init_params`` builds the JAX-layout tree in
 numpy, so full-width random weights need no JAX.
@@ -23,17 +24,21 @@ from mellow_tpu_torch.models.decoders import get_decoder_ops
 def build_prefix(
     params: dict,
     cfg: MellowConfig,
-    audio_proj1: torch.Tensor,  # (B, 33, D) compact encoder outputs
+    audio_proj1: torch.Tensor,  # (B, 33, D) compact encoder outputs, or (B, 1025, D)
     audio_proj2: torch.Tensor,
     text_ids: torch.Tensor,  # (B, T) int
+    text_embeds: Optional[torch.Tensor] = None,  # (B, T, D): in place of embed[text_ids]
+    compact: bool = True,
 ) -> torch.Tensor:
     """(B, 389, D) = [a1 (129) | sep | a2 (129) | sep | text (T)], sep the
-    embedding of ``cfg.sep_token_id`` in the family's token table."""
-    a1 = htsat.downsample_tokens_compact(audio_proj1)
-    a2 = htsat.downsample_tokens_compact(audio_proj2)
+    embedding of ``cfg.sep_token_id`` in the family's token table. The
+    audio inputs are the compact 33-row forms, or with ``compact=False``
+    the full 1025-row ones, mean-pooled (``htsat.downsample_tokens``)."""
+    ds = htsat.downsample_tokens_compact if compact else htsat.downsample_tokens
+    a1, a2 = ds(audio_proj1), ds(audio_proj2)
     embed = get_decoder_ops(cfg.decoder_family).embed_table(params["decoder"])
-    dtext = embed[text_ids.long()]
-    sep = embed[cfg.sep_token_id].expand(a1.shape[0], 1, embed.shape[1])
+    dtext = embed[text_ids.long()].to(a1.dtype) if text_embeds is None else text_embeds
+    sep = embed[cfg.sep_token_id].to(a1.dtype).expand(a1.shape[0], 1, embed.shape[1])
     return torch.cat([a1, sep, a2, sep, dtext], dim=1)
 
 
@@ -111,6 +116,71 @@ def _decode_kwargs(cfg: MellowConfig, text_ids: torch.Tensor, *, stop_token_id, 
     have ids) seed its mask, the pad ids left out."""
     return dict(kwargs, stop_token_id=cfg.stop_token_id if stop_token_id is None else stop_token_id,
                 family=cfg.decoder_family, prompt_tokens=text_ids, prompt_mask=text_ids != cfg.pad_token_id)
+
+
+def forward_train(
+    params: dict,
+    cfg: MellowConfig,
+    audio1: torch.Tensor,  # (B, 320000)
+    audio2: torch.Tensor,
+    text_ids: torch.Tensor,  # (B, T) prompt
+    answer_ids: torch.Tensor,  # (B, T_ans) target tokens
+    answer_mask: torch.Tensor,  # (B, T_ans) 1 for real tokens
+    *,
+    rng: Optional[torch.Generator] = None,
+    remat: bool = False,
+    mixup_lambda: Optional[torch.Tensor] = None,  # (B,) train-time mixup weights
+) -> tuple:
+    """The training objective (``mellow.forward_train``): next-token cross
+    entropy over the answer span, the prefix positions masked out. Returns
+    (loss, metrics) with ``loss``, ``num_answer_tokens`` and ``accuracy``.
+
+    Both clips go through the encoder's training route
+    (``htsat.encode_audio(..., training=True)``: the plain formulation, the
+    log-mel kernel on the card), with ``rng`` for SpecAugment, drop-path
+    and dropout (None: none of them) and ``mixup_lambda`` for mixup, which
+    halves the batch: the prompt and answer input embeddings are mixed with
+    the same weights, and the loss is the convex combination ``lam *
+    CE(y_even) + (1 - lam) * CE(y_odd)``, its accuracy scored against the
+    labels of the row with the larger weight."""
+    p1, p2 = (htsat.encode_audio(a, params, cfg.frontend, cfg.encoder, rng=rng, mixup_lambda=mixup_lambda,
+                                 training=True) for a in (audio1, audio2))
+    ops = get_decoder_ops(cfg.decoder_family)
+    embed = ops.embed_table(params["decoder"])
+    answer_ids = answer_ids.long()
+    ans_emb = embed[answer_ids].to(p1.dtype)
+    if mixup_lambda is None:
+        prefix = build_prefix(params, cfg, p1, p2, text_ids, compact=False)
+    else:
+        from mellow_tpu_torch.train.augment import mixup
+
+        lam = mixup_lambda.to(p1.dtype)
+        dtext = mixup(embed[text_ids.long()].to(p1.dtype), lam)
+        prefix = build_prefix(params, cfg, p1, p2, text_ids, text_embeds=dtext, compact=False)
+        ans_emb = mixup(ans_emb, lam)
+    logits = ops.forward(params["decoder"], cfg.decoder, torch.cat([prefix, ans_emb], dim=1), remat=remat)
+    P = prefix.shape[1]
+    pred = logits[:, P - 1 : -1]  # position P - 1 + t predicts answer token t
+    logp = torch.log_softmax(pred.float(), dim=-1)
+    mask = answer_mask.float()
+    if mixup_lambda is None:
+        tok_lp = logp.gather(-1, answer_ids[..., None])[..., 0] * mask
+        weight, acc_ids, acc_mask = mask, answer_ids, mask
+    else:
+        lam_f = mixup_lambda.float()
+        w_even = lam_f[0::2, None] * mask[0::2]
+        w_odd = lam_f[1::2, None] * mask[1::2]
+        tok_lp = (logp.gather(-1, answer_ids[0::2, :, None])[..., 0] * w_even
+                  + logp.gather(-1, answer_ids[1::2, :, None])[..., 0] * w_odd)
+        weight = w_even + w_odd
+        acc_ids = torch.where((lam_f[0::2] >= lam_f[1::2])[:, None], answer_ids[0::2], answer_ids[1::2])
+        acc_mask = torch.where(w_even >= w_odd, mask[0::2], mask[1::2])
+    n = weight.sum()
+    loss = -tok_lp.sum() / n.clamp_min(1.0)
+    correct = (pred.argmax(-1) == acc_ids).float() * acc_mask
+    metrics = {"loss": loss, "num_answer_tokens": n,
+               "accuracy": correct.sum() / acc_mask.sum().clamp_min(1.0)}
+    return loss, metrics
 
 
 def init_params(cfg: MellowConfig, seed: int) -> dict:

@@ -63,3 +63,38 @@ def count_params(params) -> int:
     if isinstance(params, (list, tuple)):
         return sum(count_params(v) for v in params)
     return params.numel()
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree (dicts by sorted key, lists in order), in a
+    fixed order: the order of ``flatten``'s keys."""
+    return list(flatten(tree).values())
+
+
+def tree_map(fn, tree):
+    """``tree`` with ``fn`` applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """{"decoder/layers/0/wq": tensor, ...}: every leaf under its path,
+    dicts by sorted key."""
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree) for k, v in flatten(tree[key], f"{prefix}{key}/").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, x in enumerate(tree) for k, v in flatten(x, f"{prefix}{i}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def unflatten(flat: dict, template, prefix: str = ""):
+    """The tree of ``template``'s structure whose leaves are ``flat``'s (a
+    ``flatten`` of a tree of that structure)."""
+    if isinstance(template, dict):
+        return {k: unflatten(flat, v, f"{prefix}{k}/") for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return [unflatten(flat, v, f"{prefix}{i}/") for i, v in enumerate(template)]
+    return flat[prefix[:-1]]

@@ -1,9 +1,7 @@
 """Model registry: a name maps to the bundle of the port's functions for that
 model, under the JAX package's names (``mellow_tpu/models/registry.py``).
 
-``get_model`` has no ``forward_train``: training is not ported yet, and the
-bundle gains it when training lands. ``count_params`` counts the elements of
-a tree of tensors."""
+``count_params`` counts the elements of a tree of tensors."""
 
 from __future__ import annotations
 
@@ -37,5 +35,6 @@ def get_model(model_type: str = "Mellow") -> SimpleNamespace:
         generate_tokens=m.generate_tokens,
         encode_and_prefix=m.encode_and_prefix,
         build_prefix=m.build_prefix,
+        forward_train=m.forward_train,
         count_params=count_params,
     )

@@ -20,6 +20,8 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "mellow_tpu_torch")
@@ -130,6 +132,16 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if any of ``tensors`` (None allowed) requires grad while
+    autograd records: the kernels have no backward (nor do their Pallas
+    originals), and a launch would cut the graph without a word. Training
+    takes the plain formulations instead."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward, and an input requires grad; "
+                           "the training path runs the plain formulation")
 
 
 def check(err: int, what: str) -> None:

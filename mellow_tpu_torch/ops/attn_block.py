@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from mellow_tpu_torch.ops._build import check, load_library
+from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 from mellow_tpu_torch.ops.int8 import rowquant
 from mellow_tpu_torch.ops.mlp_block import mm, rms_norm
 
@@ -198,6 +198,7 @@ def attn_block_cuda(x, ln_w, wq, wk, wv, wo, cos, sin, *, num_heads: int, num_kv
     ``k_scale_out``/``v_scale_out`` in ``kv_quant`` mode; the kernels write
     them in place, and they are returned viewed as (B, S, KV*hd)."""
     global LAUNCHES, LAUNCHES_KV_QUANT
+    refuse_grad("attn_block_cuda", x, ln_w, wq, wk, wv, wo, cos, sin)
     B, S, D = x.shape
     H, KV, hd = num_heads, num_kv_heads, head_dim
     tensors = (x, ln_w, wq, wk, wv, wo, cos, sin)

@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from mellow_tpu_torch.ops._build import check, load_library
+from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 from mellow_tpu_torch.ops.attn_block import (
     causal_gqa_plain, check_geometry, copy_kv, kv_destinations, kv_quant_plain, kv_results, quant_args,
     rope_rounded)
@@ -63,6 +63,7 @@ def attn_block_w8a8_cuda(x, ln_w, wq_q, wq_s, wk_q, wk_s, wv_q, wv_s, wo_q, wo_s
     CUDA; weights contiguous int8 (in, out) with bf16 (out,) scales; ln_w,
     cos/sin bf16. K/V destinations as ``attn_block.attn_block_cuda``."""
     global LAUNCHES
+    refuse_grad("attn_block_w8a8_cuda", x, ln_w, wq_s, wk_s, wv_s, wo_s, cos, sin)
     B, S, D = x.shape
     H, KV, hd = num_heads, num_kv_heads, head_dim
     weights = (wq_q, wk_q, wv_q, wo_q)

@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from mellow_tpu_torch.ops._build import check, load_library
+from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 1
@@ -89,6 +89,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: 
     checked: reading it would sync with the host). Raises on any input it
     does not take and on a failed launch."""
     global LAUNCHES
+    refuse_grad("decode_attention_cuda", q, k, v)
     B, H, hd = q.shape
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("decode_attention_cuda needs CUDA tensors")

@@ -46,7 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mellow_tpu_torch.ops._build import check, load_library
+from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 from mellow_tpu_torch.ops.decode_attention import MAX_CLUSTER, check_start, cluster_blocks, start_mask
 
 LAUNCHES = 0
@@ -141,6 +141,7 @@ def decode_attention_int8_cuda(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_e
     position); ``start`` None or (B,) int32 on the device. Raises on any
     input it does not take and on a failed launch."""
     global LAUNCHES
+    refuse_grad("decode_attention_int8_cuda", q, k8, v8, k_scale, v_scale, k_extra, v_extra)
     B, H, hd = q.shape
     tensors = (q, k8, v8, k_scale, v_scale, k_extra, v_extra)
     if not all(t.is_cuda for t in tensors):

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from mellow_tpu_torch.ops._build import check, load_library
+from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 from mellow_tpu_torch.ops.attn_block import causal_gqa_plain
 
 LAUNCHES = 0
@@ -51,6 +51,7 @@ def flash_gqa_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV*hd), bf16 CUDA, with strided rows allowed (k and v share strides).
     Raises on any input it does not take and on a failed launch."""
     global LAUNCHES
+    refuse_grad("flash_gqa_prefill_cuda", q, k, v)
     H, KV, hd = num_heads, num_kv_heads, head_dim
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_gqa_prefill_cuda needs CUDA tensors")

@@ -14,6 +14,7 @@ version ``log_mel_spectrogram``.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -260,11 +261,19 @@ def frontend_image(
     bn0: dict,
     freq_ratio: int,
     target_frames: int,
+    *,
+    augment_rng: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Eval front-end: waveform -> (B, 256, 256) image for the patch embed,
-    in the wave's dtype. The log-mel itself runs in fp32 on the (possibly
-    bf16-rounded) wave and is cast back, as in the JAX package."""
+    """Front-end: waveform -> (B, 256, 256) image for the patch embed, in
+    the wave's dtype. The log-mel itself runs in fp32 on the (possibly
+    bf16-rounded) wave and is cast back, as in the JAX package. With
+    ``augment_rng`` (training), SpecAugment follows bn0, the reference's
+    order."""
     x = log_mel_auto(wave.float(), fe_cfg).to(wave.dtype)  # (B, 1001, 64)
     x = batchnorm_mel(x, bn0)
+    if augment_rng is not None:
+        from mellow_tpu_torch.train.augment import spec_augment
+
+        x = spec_augment(x, augment_rng)
     x = resize_time_bicubic(x, target_frames)  # (B, 1024, 64)
     return fold_time_to_freq(x, freq_ratio)  # (B, 256, 256)

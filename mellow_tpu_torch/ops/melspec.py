@@ -13,7 +13,7 @@ import torch
 
 from mellow_tpu_torch.config import FrontendConfig
 from mellow_tpu_torch.ops import frontend as fe
-from mellow_tpu_torch.ops._build import check, load_library
+from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 1
@@ -31,6 +31,7 @@ def log_mel_cuda(wave: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     n_fft // 2 + 1 samples, what the reflect padding needs. Raises on any
     input the kernel does not take, and on a failed launch."""
     global LAUNCHES
+    refuse_grad("log_mel_cuda", wave)
     if not wave.is_cuda:
         raise ValueError(f"log_mel_cuda needs a CUDA tensor, got one on {wave.device}")
     if wave.dtype != torch.float32:

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mellow_tpu_torch.ops._build import check, load_library
+from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 2
@@ -87,6 +87,7 @@ def mlp_block_cuda(x, ln_w, w_gate, w_up, w_down, *, eps: float) -> torch.Tensor
     """The kernel chain on the current stream. x (B, S, D) contiguous bf16
     CUDA; weights contiguous bf16 on the same device."""
     global LAUNCHES
+    refuse_grad("mlp_block_cuda", x, ln_w, w_gate, w_up, w_down)
     tensors = (x, ln_w, w_gate, w_up, w_down)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("mlp_block_cuda needs CUDA tensors")

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mellow_tpu_torch.ops._build import check, load_library
+from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 from mellow_tpu_torch.ops.int8 import mm8, rms_norm_f32, rowquant
 
 LAUNCHES = 0
@@ -74,6 +74,7 @@ def mlp_block_w8a8_cuda(x, ln_w, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s, *, eps: flo
     """The kernels on the current stream. x (B, S, D) contiguous bf16
     CUDA; weights contiguous int8 (in, out) with bf16 (out,) scales."""
     global LAUNCHES
+    refuse_grad("mlp_block_w8a8_cuda", x, ln_w, wg_s, wu_s, wd_s)
     weights = (wg_q, wu_q, wd_q)
     others = (x, ln_w, wg_s, wu_s, wd_s)
     if not all(t.is_cuda for t in weights + others):

@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from mellow_tpu_torch.ops._build import check, load_library
+from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 from mellow_tpu_torch.ops.mlp_block import MAX_SHARED, mm, panel_shared_bytes
 
 LAUNCHES = 0
@@ -121,6 +121,7 @@ def swin_block_cuda(x: torch.Tensor, p: dict, bias: torch.Tensor, mask: Optional
     (nW, 64, 64) float32 on the same device; the geometry
     ``check_geometry`` takes."""
     global LAUNCHES
+    refuse_grad("swin_block_cuda", x, bias, *(p[a][b] for a, b in WEIGHT_KEYS))
     B, R, R2, C = x.shape
     H = num_heads
     weights = [p[a][b] for a, b in WEIGHT_KEYS]

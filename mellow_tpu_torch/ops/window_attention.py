@@ -26,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mellow_tpu_torch.ops._build import check, load_library
+from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 1
@@ -69,6 +69,7 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[
     same device; hd = C / H <= 64. Raises on anything else and on a failed
     launch."""
     global LAUNCHES
+    refuse_grad("window_attention_cuda", qkv, bias, mask)
     tensors = [qkv, bias] + ([] if mask is None else [mask])
     if not all(t.is_cuda and t.device == qkv.device for t in tensors):
         raise ValueError("window_attention_cuda needs its tensors on one CUDA device")

@@ -29,9 +29,9 @@ is the JAX wrapper's, on the port's own copies of that code
     GPT-2 ("gpt2"; its prompts get " <|endoftext|>" appended, its bf16
     prefill runs the hand-written prefill-attention kernel, and it takes
     ``weight_dtype="int8"`` but, as in the JAX package, neither
-    ``"int8-w8a8"`` (ValueError) nor an int8 KV cache (ValueError), and
-    the port does not take a GPT-2 cache in another float dtype
-    (NotImplementedError); ``mesh`` raises;
+    ``"int8-w8a8"`` (ValueError) nor an int8 KV cache (ValueError); a
+    GPT-2 cache in another float dtype decodes as llama's does, on the
+    plain formulation; ``mesh`` raises;
   * no power-of-two batch buckets: eager PyTorch does not recompile per
     shape, so the batch runs as given;
   * weights come from ``params=`` (the JAX package's tree layout), then
@@ -298,9 +298,6 @@ class MellowWrapper:
         if kv_cache_dtype not in gen.CACHE_DTYPES:
             raise NotImplementedError(
                 f"kv_cache_dtype={kv_cache_dtype!r} is not ported; use one of {sorted(gen.CACHE_DTYPES)}")
-        if self._gpt2 and kv_cache_dtype != "int8":
-            raise NotImplementedError(
-                f"a gpt2 cache in {kv_cache_dtype} under compute_dtype={self.cfg.compute_dtype!r} is not ported")
         return kv_cache_dtype
 
     def _device_inputs(self, audio1, audio2, text_ids):

@@ -1,31 +1,40 @@
 """The port keeps its own copies of the JAX package's torch-free host code
-(``mellow_tpu_torch.config``, ``io``, ``native``, ``utils``) and of its
-checkpoint tools (``mellow_tpu_torch.tools``): each copied function is held
-bit-equal to the original on the same inputs."""
+(``mellow_tpu_torch.config``, ``io``, ``native``, ``utils``, ``eval`` and
+``train/data``) and of its tools (``mellow_tpu_torch.tools``): each copied
+function is held bit-equal to the original on the same inputs."""
 
 import dataclasses
+import io
+import json
 import wave
+from contextlib import redirect_stdout
 
 import numpy as np
 import pytest
 import torch
 
 from mellow_tpu import config as jconfig
+from mellow_tpu import eval as jeval
 from mellow_tpu.io import bpe as jbpe
 from mellow_tpu.io import resample as jresample
 from mellow_tpu.io import tokenizer as jtokenizer
 from mellow_tpu.io import wav as jwav
 from mellow_tpu.tools import convert_ckpt as jconvert
+from mellow_tpu.tools import eval_reasonaqa as jeval_tool
 from mellow_tpu.tools import export_ckpt as jexport
+from mellow_tpu.train import data as jdata
 from mellow_tpu.utils import params_io as jparams_io
 from mellow_tpu_torch import config as tconfig
+from mellow_tpu_torch import eval as teval
 from mellow_tpu_torch.io import bpe as tbpe
 from mellow_tpu_torch.io import resample as tresample
 from mellow_tpu_torch.io import tokenizer as ttokenizer
 from mellow_tpu_torch.io import wav as twav
 from mellow_tpu_torch.native import binding as tnative
 from mellow_tpu_torch.tools import convert_ckpt as tconvert
+from mellow_tpu_torch.tools import eval_reasonaqa as teval_tool
 from mellow_tpu_torch.tools import export_ckpt as texport
+from mellow_tpu_torch.train import data as tdata
 from mellow_tpu_torch.utils import params_io as tparams_io
 from tests.test_bpe import SAMPLES, _handcrafted_files
 from tests.torch_port_common import TINY, port_params_np
@@ -151,3 +160,78 @@ def test_convert_ckpt_copy_equal():
     ours = tconvert.convert_mellow(sd, TINY.decoder.num_layers)
     _assert_trees_equal(ours, jconvert.convert_mellow(sd, TINY.decoder.num_layers))
     _assert_trees_equal(ours, tree)
+
+
+PREDS = ["A dog barks twice.", "the car", "yes", "rain falls on a tin roof", "", "B"]
+REFS = ["a dog is barking", "The car.", "no", "rain on a metal roof, heavy", "silence", "(b)"]
+
+
+def test_eval_metrics_copy_equal():
+    for p, a in zip(PREDS, REFS):
+        assert teval.normalize_text(p) == jeval.normalize_text(p)
+        assert teval.exact_match(p, a) == jeval.exact_match(p, a)
+        assert teval.token_f1(p, a) == jeval.token_f1(p, a)
+    refs = [[r, r + " outside"] for r in REFS]
+    assert teval.corpus_bleu(PREDS, refs) == jeval.corpus_bleu(PREDS, refs)
+    assert teval.cider_d(PREDS, refs) == jeval.cider_d(PREDS, refs)
+    for sub in ("ClothoAQA-binary.json", "AudioCaps.json", "mcq"):
+        assert teval.score_group(PREDS, REFS, sub) == jeval.score_group(PREDS, REFS, sub)
+
+
+def _manifest(tmp_path) -> str:
+    a = _write_wav(tmp_path / "a.wav", 44100, 1, 2, 3)
+    b = _write_wav(tmp_path / "b.wav", 48000, 2, 2, 4)
+    rows = [{"taskname": "clotho", "filepath1": "a.wav", "filepath2": "", "input": "caption the audio.",
+             "answer": "a busy street", "subtype": "AudioCaps.json"},
+            {"taskname": "aqa", "filepath1": "b.wav", "filepath2": "a.wav", "input": "is it raining?",
+             "answer": "yes", "subtype": "ClothoAQA-binary.json"},
+            {"filepath1": "a.wav", "input": "what is it?", "answer": "noise"}] * 2
+    path = tmp_path / "m.json"
+    path.write_text(json.dumps(rows))
+    return str(path)
+
+
+def test_manifest_and_loader_copy_equal(tmp_path):
+    """``load_json``, ``load_manifest`` and the loader's batches (the audio
+    read through each package's own native library) equal the JAX
+    package's."""
+    path = _manifest(tmp_path)
+    root = str(tmp_path)
+    assert teval.load_manifest(path, root) == [teval.EvalExample(**dataclasses.asdict(e))
+                                               for e in jeval.load_manifest(path, root)]
+    rows_t, rows_j = tdata.load_json(path, root), jdata.load_json(path, root)
+    assert [dataclasses.asdict(r) for r in rows_t] == [dataclasses.asdict(r) for r in rows_j]
+    cfg_t, cfg_j = tconfig.get_config(TINY.name), TINY
+    tok = ttokenizer.ByteTokenizer()
+    ours = list(tdata.PrefetchLoader(tdata.ReasonAQALoader(rows_t, tok, cfg_t, 2, answer_len=8, seed=3)).epoch(1))
+    theirs = list(jdata.PrefetchLoader(jdata.ReasonAQALoader(rows_j, tok, cfg_j, 2, answer_len=8, seed=3)).epoch(1))
+    assert len(ours) == len(theirs) == 3
+    for a, b in zip(ours, theirs):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+class _EchoWrapper:
+    """A wrapper whose answer is its prompt, reversed: the eval tool's logic
+    alone, without a model."""
+
+    def generate(self, examples, max_len, stop_token):
+        return [e[2][::-1] for e in examples]
+
+
+def test_eval_reasonaqa_copy_equal(tmp_path, monkeypatch):
+    """Both tools' ``main`` over the same manifest and an echo wrapper: the
+    same report on stdout and the same ``--out`` JSON."""
+    path = _manifest(tmp_path)
+    outs = []
+    for tool, cli in ((teval_tool, "mellow_tpu_torch.cli"), (jeval_tool, "mellow_tpu.cli")):
+        monkeypatch.setattr(cli + ".build_wrapper", lambda *a, **k: _EchoWrapper())
+        out = tmp_path / f"{tool.__name__}.json"
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            tool.main([path, "--audio-root", str(tmp_path), "--batch-size", "4", "--out", str(out)])
+        outs.append((buf.getvalue(), json.loads(out.read_text())))
+    assert outs[0] == outs[1]
+    assert "OVERALL" in outs[0][0]

@@ -85,10 +85,17 @@ def test_encode_audio_matches_jax(params):
     ours = thtsat.encode_audio(torch.from_numpy(wave), tp, FE, ENC).numpy()
     assert ours.shape == theirs.shape == (2, 1025, TINY.d_proj)
     np.testing.assert_allclose(ours, theirs, **TOL)
-    with pytest.raises(NotImplementedError):
-        thtsat.encode_audio(torch.from_numpy(wave), tp, FE, ENC, rng=0)
-    with pytest.raises(NotImplementedError):
-        thtsat.htsat_embedding(torch.from_numpy(wave), tp, FE, ENC, mixup_lambda=torch.ones(2))
+    # The train-time arguments, which the port refused before training was
+    # ported: mixup weights (1, 0) give the first row's encoding, on the
+    # full 1025-row path; a generator draws dropout, so frame rows stop
+    # repeating.
+    mixed = thtsat.encode_audio(torch.from_numpy(wave), tp, FE, ENC, mixup_lambda=torch.tensor([1.0, 0.0]),
+                                training=True)
+    np.testing.assert_allclose(mixed.numpy(), ours[:1], **TOL)
+    g = torch.Generator()
+    g.manual_seed(0)
+    drawn = thtsat.encode_audio(torch.from_numpy(wave), tp, FE, ENC, rng=g, training=True)
+    assert drawn.shape == ours.shape and not torch.equal(drawn[:, 1], drawn[:, 2])
 
 
 def test_htsat_embedding_long_matches_jax(params):
@@ -164,7 +171,7 @@ def test_registries_name_the_same_functions():
     assert sorted(vars(ours)) == sorted(vars(theirs))
     assert all(getattr(thtsat, n) is f for n, f in vars(ours).items() if n != "projection")
     model = tregistry.get_model("Mellow")
-    assert sorted(vars(model)) == sorted(n for n in vars(jregistry.get_model()) if n != "forward_train")
+    assert sorted(vars(model)) == sorted(vars(jregistry.get_model()))  # forward_train since training
     with pytest.raises(ValueError):
         tregistry.get_audio_encoder("PANN")
     with pytest.raises(ValueError):

@@ -50,6 +50,7 @@ from mellow_tpu_torch.ops import mlp_block as mb
 from mellow_tpu_torch.ops import mlp_block_w8a8 as mw
 from mellow_tpu_torch.ops import swin_block as sb
 from mellow_tpu_torch.ops import window_attention as wa
+from torch_kernel_cases import GRAD_REFUSALS, refuses_grad
 from torch_kernel_cases import bf16 as _bf16
 from torch_kernel_cases import digest as _digest
 from torch_kernel_cases import digest_case as _digest_case
@@ -74,6 +75,13 @@ def device():
 def _wave(b, seed, device):
     rng = np.random.RandomState(seed)
     return torch.from_numpy((rng.randn(b, CFG.num_samples) * 0.1).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("name", GRAD_REFUSALS)
+def test_kernel_refuses_inputs_that_require_grad(device, name):
+    """No kernel has a backward: each CUDA wrapper raises on an input that
+    requires grad, before it launches."""
+    refuses_grad(name, device)
 
 
 @pytest.mark.parametrize("batch", [1, 2, 3, 4])

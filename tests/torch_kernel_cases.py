@@ -10,10 +10,14 @@ import hashlib
 import numpy as np
 import torch
 
+from mellow_tpu_torch.config import FrontendConfig
 from mellow_tpu_torch.models.llama import quantize_kv, quantize_weight
 from mellow_tpu_torch.ops import attn_block as ab
 from mellow_tpu_torch.ops import attn_block_w8a8 as aw
+from mellow_tpu_torch.ops import decode_attention as da
 from mellow_tpu_torch.ops import decode_attention_int8 as di
+from mellow_tpu_torch.ops import flash_gqa_prefill as fp
+from mellow_tpu_torch.ops import melspec
 from mellow_tpu_torch.ops import mlp_block as mb
 from mellow_tpu_torch.ops import mlp_block_w8a8 as mw
 from mellow_tpu_torch.ops import swin_block as sb
@@ -132,3 +136,63 @@ def digest_case(name):
     ws = [bf16(rng, D, scale=0.1) + 1, bf16(rng, D, H * hd, scale=0.05), bf16(rng, D, KV * hd, scale=0.05),
           bf16(rng, D, KV * hd, scale=0.05), bf16(rng, H * hd, D, scale=0.05)]
     return ab.attn_block_cuda(x, *ws, *rope(S, hd), **kw)
+
+
+def _grad_call(name, device):
+    """Call kernel ``name``'s CUDA wrapper once on small tensors on
+    ``device``, one of its float inputs requiring grad (#1: the wave)."""
+    def t(*shape, grad=False, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device=device).requires_grad_(grad)
+
+    D, H, KV, hd, S = 64, 4, 2, 16, 8
+    w = t(D, D)
+    calls = {
+        "log_mel": lambda: melspec.log_mel_cuda(t(1, 16000, grad=True, dtype=torch.float32), FrontendConfig()),
+        "decode_attention": lambda: da.decode_attention_cuda(t(1, H, hd, grad=True), t(1, S, KV, hd),
+                                                             t(1, S, KV, hd), S),
+        "decode_attention_int8": lambda: di.decode_attention_int8_cuda(
+            t(1, H, hd), t(1, S, KV, hd, dtype=torch.int8), t(1, S, KV, hd, dtype=torch.int8),
+            t(1, S, dtype=torch.float32), t(1, S, dtype=torch.float32), S, t(1, 1, KV, hd, grad=True),
+            t(1, 1, KV, hd)),
+        "attn_block": lambda: ab.attn_block_cuda(t(1, S, D), t(D), w, t(D, KV * hd), t(D, KV * hd), t(D, D, grad=True),
+                                                 t(S, hd), t(S, hd), num_heads=H, num_kv_heads=KV, head_dim=hd,
+                                                 eps=1e-5),
+        "attn_block_w8a8": lambda: aw.attn_block_w8a8_cuda(
+            t(1, S, D, grad=True), t(D), t(D, D, dtype=torch.int8), t(D), t(D, KV * hd, dtype=torch.int8), t(KV * hd),
+            t(D, KV * hd, dtype=torch.int8), t(KV * hd), t(D, D, dtype=torch.int8), t(D), t(S, hd), t(S, hd),
+            num_heads=H, num_kv_heads=KV, head_dim=hd, eps=1e-5),
+        "mlp_block": lambda: mb.mlp_block_cuda(t(1, S, D), t(D, grad=True), t(D, 128), t(D, 128), t(128, D), eps=1e-5),
+        "mlp_block_w8a8": lambda: mw.mlp_block_w8a8_cuda(
+            t(1, S, D, grad=True), t(D), t(D, 128, dtype=torch.int8), t(128), t(D, 128, dtype=torch.int8), t(128),
+            t(128, D, dtype=torch.int8), t(D), eps=1e-5),
+        "swin_block": lambda: sb.swin_block_cuda(
+            t(1, 8, 8, 96), {a: {b: t(96, 96, grad=(a, b) == ("qkv", "kernel")) for b in ("kernel", "bias", "scale")}
+                             for a, _ in sb.WEIGHT_KEYS},
+            t(4, 64, 64, dtype=torch.float32), None, num_heads=4, window_size=8),
+        "window_attention": lambda: wa.window_attention_cuda(t(4, 64, 3 * 96, grad=True),
+                                                             t(4, 64, 64, dtype=torch.float32), None, num_heads=4),
+        "flash_gqa_prefill": lambda: fp.flash_gqa_prefill_cuda(t(1, S, H * hd, grad=True), t(1, S, KV * hd),
+                                                               t(1, S, KV * hd), num_heads=H, num_kv_heads=KV,
+                                                               head_dim=hd),
+    }
+    return calls[name]()
+
+
+GRAD_REFUSALS = ("log_mel", "decode_attention", "decode_attention_int8", "attn_block", "attn_block_w8a8",
+                 "mlp_block", "mlp_block_w8a8", "swin_block", "window_attention", "flash_gqa_prefill")
+
+
+def refuses_grad(name, device) -> None:
+    """Kernel ``name``'s CUDA wrapper raises, naming the missing backward,
+    when an input requires grad, and launches nothing."""
+    mod = {"log_mel": melspec, "decode_attention": da, "decode_attention_int8": di, "attn_block": ab,
+           "attn_block_w8a8": aw, "mlp_block": mb, "mlp_block_w8a8": mw, "swin_block": sb,
+           "window_attention": wa, "flash_gqa_prefill": fp}[name]
+    before = mod.LAUNCHES
+    try:
+        _grad_call(name, device)
+    except RuntimeError as e:
+        assert "has no backward" in str(e), e
+    else:
+        raise AssertionError(f"{name}: a tensor that requires grad was taken")
+    assert mod.LAUNCHES == before

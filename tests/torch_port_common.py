@@ -7,10 +7,13 @@ The weights are ``mellow_tpu.models.mellow.init_params`` with seeded noise
 added to every leaf: the plain init has zero biases and identity norms,
 which would hide a bias or norm the port forgot."""
 
+import dataclasses
 import functools
+import os
 
 import numpy as np
 import jax
+import torch
 
 from mellow_tpu.config import HTSATConfig, LlamaConfig, MellowConfig, register_config
 from mellow_tpu.models import mellow as jmellow
@@ -18,6 +21,13 @@ from mellow_tpu.models.gpt2 import GPT2Config
 from mellow_tpu_torch import config as tconfig
 from mellow_tpu_torch.models import gpt2 as tgpt2
 from mellow_tpu_torch.models import mellow as tmellow
+
+# Under pytest-xdist each worker's torch would start a thread per core, and
+# the workers' threads then contend for the same cores: six of the port's
+# test files run at once on eight cores took 257-314 s each, and 27-69 s with
+# one torch thread each (alone: 32-54 s). So the cores are split among the
+# workers; alone (no worker count) torch keeps all of them.
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 DEC = LlamaConfig(
     vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=4,
@@ -73,6 +83,21 @@ tconfig.register_config(TINY_LARGE.name, tconfig.MellowConfig(
 ))
 
 
+# Training's comparisons with JAX's gradients: the tiny decoder at two
+# layers behind a shallower encoder (one shifted-window block, in stage 1),
+# since JAX compiles the whole backward pass for each comparison.
+TINY_TRAIN = MellowConfig(
+    name="test_torch_tiny_train", encoder=HTSATConfig(embed_dim=24, depths=(2, 1, 1, 1), out_emb=192),
+    decoder=dataclasses.replace(DEC, num_layers=2), d_proj=64, text_tokenization_len=8, prefix_length=268,
+).validate()
+register_config(TINY_TRAIN.name, TINY_TRAIN)
+tconfig.register_config(TINY_TRAIN.name, tconfig.MellowConfig(
+    name=TINY_TRAIN.name, encoder=tconfig.HTSATConfig(embed_dim=24, depths=(2, 1, 1, 1), out_emb=192),
+    decoder=tconfig.LlamaConfig(**dataclasses.asdict(TINY_TRAIN.decoder)), d_proj=64, text_tokenization_len=8,
+    prefix_length=268,
+))
+
+
 @functools.lru_cache(maxsize=2)
 def _perturbed(cfg, seed: int) -> dict:
     """The JAX package's init of ``cfg`` as numpy, every leaf perturbed.
@@ -94,25 +119,30 @@ def _scale_up(dec: dict, family: str) -> None:
         dec["layers"][k] *= np.float32(10.0)
 
 
-@functools.lru_cache(maxsize=1)
-def jax_params_np(seed: int = 0) -> dict:
-    """The JAX-layout parameter tree as numpy, every leaf perturbed."""
+@functools.lru_cache(maxsize=2)
+def jax_params_np(seed: int = 0, scaled: bool = True) -> dict:
+    """The JAX-layout parameter tree as numpy, every leaf perturbed;
+    ``scaled=False`` leaves the decoder unscaled (gradient comparisons,
+    where the scaled weights amplify rounding)."""
     tree = jax.tree.map(np.copy, _perturbed(TINY, seed))
-    _scale_up(tree["decoder"], "llama")
+    if scaled:
+        _scale_up(tree["decoder"], "llama")
     return tree
 
 
-@functools.lru_cache(maxsize=2)
-def port_params_np(cfg: MellowConfig, seed: int = 0) -> dict:
+@functools.lru_cache(maxsize=3)
+def port_params_np(cfg: MellowConfig, seed: int = 0, scaled: bool = True) -> dict:
     """``jax_params_np``'s recipe (every leaf perturbed, the decoder scaled
-    up) on the port's numpy init of ``cfg`` (``mellow_tpu_torch.models.
-    mellow.init_params``, the JAX package's tree layout), with no JAX init:
-    other values, for tests that only need one set of weights on both
-    sides. Cached: callers copy before they change a leaf."""
+    up unless ``scaled=False``) on the port's numpy init of ``cfg``
+    (``mellow_tpu_torch.models.mellow.init_params``, the JAX package's tree
+    layout), with no JAX init: other values, for tests that only need one
+    set of weights on both sides. Cached: callers copy before they change a
+    leaf."""
     rng = np.random.default_rng(seed + 100)
     tree = jax.tree.map(lambda a: (a + 0.05 * rng.standard_normal(a.shape)).astype(np.float32),
                         tmellow.init_params(cfg, seed))
-    _scale_up(tree["decoder"], cfg.decoder_family)
+    if scaled:
+        _scale_up(tree["decoder"], cfg.decoder_family)
     return tree
 
 
@@ -130,3 +160,21 @@ def gpt2_params_np(seed: int = 0, scaled: bool = True) -> dict:
     if scaled:
         _scale_up(tree["decoder"], "gpt2")
     return tree
+
+
+def train_params_np(seed: int = 0) -> dict:
+    """``port_params_np`` for TINY_TRAIN, the decoder unscaled (gradient
+    comparisons, where scaled weights amplify rounding)."""
+    return port_params_np(TINY_TRAIN, seed, scaled=False)
+
+
+def train_batch(B: int = 4, T: int = 6, seed: int = 0) -> dict:
+    """A seeded batch with ragged answer masks (3 to 6 tokens a row)."""
+    rng = np.random.RandomState(seed)
+    lens = [T, T - 1, T - 3, T - 2][:B]
+    return {
+        "audio1": waves(B, seed + 1), "audio2": waves(B, seed + 2),
+        "text_ids": rng.randint(0, 512, (B, TINY_TRAIN.text_tokenization_len)).astype(np.int32),
+        "answer_ids": rng.randint(0, 512, (B, T)).astype(np.int32),
+        "answer_mask": np.array([[1.0] * n + [0.0] * (T - n) for n in lens], np.float32),
+    }
