@@ -132,7 +132,17 @@ result line is printed:
    ``/metrics`` showing one generate call of six clips, one SSE stream
    whose text equals the one-shot answer; ``run_eval`` on a 4-row
    manifest, its report printed;
-13. timings of the paths by stage (host preprocessing, log-mel, encoder,
+13. the mesh path (``parallel_phase``) in a one-rank NCCL group (one card
+   holds no more): ``make_mesh()`` as (1, 1); the bf16 v0 wrapper on that
+   mesh (``mellow.generate_tokens_sharded``, every kernel of the bf16
+   path) answering the bf16 path's requests as the plain bf16 wrapper
+   did, each call launching what ``expected_launches`` says, its launches
+   recorded as the path ``mesh_dp``; one full-width v0 decoder layer in
+   ``parallel/tensor.py``'s TP forms at tp=1, forward and backward bit for
+   bit the plain layer's; ``loop.train(mesh=)`` two fp32 steps (B=4)
+   against the unsharded loop's (losses within 1e-6 relative), rank 0's
+   checkpoint the unsharded one's size;
+14. timings of the paths by stage (host preprocessing, log-mel, encoder,
    prefill, decode step as the slope of two lengths, whole request), and
    torch.profiler over one warm B=1 request of each path (device time,
    kernel launches, the device's idle share, and the device time and
@@ -2426,10 +2436,166 @@ def entry_phase(wrappers, cfg, wavs, tmp, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# parallel phase
+# ---------------------------------------------------------------------------
+
+# The TP forms at tp=1 against the plain layer: every collective of a
+# one-rank group returns its input, so the two agree bit for bit.
+PARALLEL_LAYER_ROWS = (2, 16)  # (B, S) of the layer's input
+# The mesh's training steps against the unsharded ones: the same draws
+# (data index 0 draws the unsharded stream), the grad norm summed in
+# another order.
+PARALLEL_LOSS_RTOL = 1e-6
+
+
+def hold_tp_layer(cfg, mesh) -> dict:
+    """One full-width decoder layer (attention, then MLP) of ``cfg`` in
+    ``parallel/tensor.py``'s TP forms at tp=1 through the mesh's NCCL model
+    group, against the plain layer, forward and backward: bit for bit."""
+    from mellow_tpu_torch.parallel import tensor as tpar
+
+    tp = tpar.tp_of(mesh, cfg.num_kv_heads)
+    if tp.size != 1 or not tp.heads:
+        raise RuntimeError(f"parallel: expected a model group of 1 with its heads sharded, got {tp}")
+    rng = np.random.default_rng(SEED)
+
+    def w(*shape, scale=0.05):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).cuda()
+
+    D, I, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    H, KV = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    lp = {"ln_attn": 1 + w(D, scale=0.1), "ln_mlp": 1 + w(D, scale=0.1), "wq": w(D, H), "wk": w(D, KV),
+          "wv": w(D, KV), "wo": w(H, D), "w_gate": w(D, I), "w_up": w(D, I), "w_down": w(I, D)}
+    lp = {k: v.requires_grad_(True) for k, v in lp.items()}
+    B, S = PARALLEL_LAYER_ROWS
+    x = w(B, S, D, scale=1.0)
+    cos, sin = llama.rope_device_tables(cfg, S, torch.float32, x.device)
+    mask = torch.zeros((S, S), device=x.device).masked_fill(
+        ~torch.ones((S, S), dtype=torch.bool, device=x.device).tril(), float("-inf"))
+
+    def plain():
+        q, k, v = llama._qkv(cfg, x, lp, cos, sin)
+        return llama._mlp(cfg, x + llama._mm(llama._attend(cfg, q, k, v, mask), lp["wo"]), lp)
+
+    def sharded():
+        lcfg = tpar.local_config(cfg, tp)
+        q, k, v = tpar.qkv(lcfg, x, lp, cos, sin, tp)
+        return tpar.mlp(lcfg, x + tpar.attn_out(llama._attend(lcfg, q, k, v, mask), lp["wo"], tp), lp, tp)
+
+    outs = []
+    for fn in (plain, sharded):
+        y = fn()
+        grads = torch.autograd.grad((y.float() ** 2).mean(), list(lp.values()))
+        outs.append((y.detach(), grads))
+    torch.cuda.synchronize()
+    out = {"shape": list(outs[0][0].shape), "max_abs_err": (outs[0][0] - outs[1][0]).abs().max().item(),
+           "max_grad_err": max((a - b).abs().max().item() for a, b in zip(outs[0][1], outs[1][1]))}
+    if out["max_abs_err"] or out["max_grad_err"]:
+        raise RuntimeError(f"parallel: the TP layer at tp=1 differs from the plain layer: {out}")
+    return out
+
+
+class _LossRecorder:
+    """Keeps the loss of every ``train_step_accum`` (``train/loop.py`` looks
+    the function up at call time)."""
+
+    def __init__(self):
+        from mellow_tpu_torch.train import step as tstep
+
+        self.mod, self.fn, self.losses = tstep, tstep.train_step_accum, []
+        tstep.train_step_accum = self
+
+    def __call__(self, *args, **kwargs):
+        state, m = self.fn(*args, **kwargs)
+        self.losses.append(float(m["loss"]))
+        return state, m
+
+    def remove(self):
+        self.mod.train_step_accum = self.fn
+
+
+def parallel_phase(wrappers, cfgs, params_np, requests, answers, tmp, card, ckpt_bytes: int) -> dict:
+    """The mesh path on the one card: a one-rank NCCL group; ``make_mesh()``
+    as (1, 1); the v0 bf16 wrapper on that mesh (``mellow.
+    generate_tokens_sharded``, every kernel of the bf16 path) answering the
+    bf16 path's requests as the plain bf16 wrapper did, each call launching
+    what ``expected_launches`` says; one v0 decoder layer in the TP forms;
+    ``loop.train(mesh=)`` two steps of v0 in fp32 (B=4) against the same
+    steps without the mesh, rank 0 writing the checkpoint (the full trees:
+    the unsharded checkpoint's bytes). Raises on any failure; the group is
+    destroyed at the end."""
+    import torch.distributed as dist
+
+    from mellow_tpu_torch.parallel import multihost, sharding
+    from mellow_tpu_torch.parallel.dryrun import free_port
+    from mellow_tpu_torch.train import loop
+    from mellow_tpu_torch.train.data import ReasonAQALoader, load_json
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    info = multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, timeout=120.0)
+    try:
+        out["backend"] = dist.get_backend()
+        if out["backend"] != "nccl" or info["process_count"] != 1:
+            raise RuntimeError(f"parallel: expected a one-rank NCCL group, got {out['backend']}, {info}")
+        mesh = sharding.make_mesh()
+        out["mesh"] = sharding.axis_sizes(mesh)
+        if out["mesh"] != {"data": 1, "model": 1} or mesh.device_type != "cuda":
+            raise RuntimeError(f"parallel: make_mesh() gave {out['mesh']} on {mesh.device_type}")
+
+        cfg = cfgs["v0"]
+        ctor = PATHS["bf16"][1]
+        w = MellowWrapper(config=cfg.name, model="v0", device="cuda", params=params_np,
+                          tokenizer=wrappers["bf16"].tokenizer, mesh=mesh, **ctor)
+        t = time.perf_counter()
+        singles, launches, calls = drive(w, cfg, requests, "bf16", "batch")
+        out["mesh_dp"] = {"seconds": time.perf_counter() - t, "generate_calls": calls, "launches": launches}
+        if singles != answers["bf16"]:
+            raise RuntimeError(f"parallel: the mesh wrapper answered {singles}, the bf16 wrapper {answers['bf16']}")
+        del w
+
+        out["tp_layer"] = hold_tp_layer(cfg.decoder, mesh)
+        print(json.dumps({"parallel_tp_layer": out["tp_layer"], "card": card}))
+
+        fp32 = wrappers["fp32"].params
+        # The training phase's manifest of the smoke's wavs (train.json).
+        loader = ReasonAQALoader(load_json(os.path.join(tmp, "train.json")), wrappers["fp32"].tokenizer, cfg,
+                                 batch_size=4, answer_len=TRAIN_ANSWER_LEN)
+        runs = {}
+        total = {}
+        for label, kw in (("plain", {}), ("mesh", {"mesh": mesh, "ckpt_dir": os.path.join(tmp, "mesh_ckpt"),
+                                                   "ckpt_every": 2})):
+            rec = _LossRecorder()
+            try:
+                state = _train_launches(f"parallel {label}", lambda: loop.train(
+                    fp32, cfg, loader, num_epochs=3, max_steps=2, log_every=1, **kw), 2, total)
+            finally:
+                rec.remove()
+            runs[label] = rec.losses
+            del state
+        errs = [abs(a - b) / abs(b) for a, b in zip(runs["mesh"], runs["plain"])]
+        path = os.path.join(tmp, "mesh_ckpt", "step_2.pt")
+        out["train"] = {"losses": runs, "loss_rel_err": errs, "checkpoint_bytes": os.path.getsize(path)}
+        print(json.dumps({"parallel_train": out["train"], "card": card}))
+        if len(errs) != 2 or max(errs) > PARALLEL_LOSS_RTOL:
+            raise RuntimeError(f"parallel: the mesh's losses are off the unsharded ones: {runs}")
+        if out["train"]["checkpoint_bytes"] != ckpt_bytes:
+            raise RuntimeError(f"parallel: the mesh's checkpoint has {out['train']['checkpoint_bytes']} bytes, "
+                               f"the unsharded one {ckpt_bytes}")
+        out["train_launches"] = total
+    finally:
+        multihost.shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"parallel": {k: v for k, v in out.items() if k != "card"}, "card": card}))
+    print(f"parallel phase took {out['seconds']:.1f} s")
+    return out
+
+
 def slice_phase(card: str) -> dict:
     """Drive every path; return each path's kernel launches and generate
     calls, the encoder entry points' launches, the stage timings, and the
-    training and entry phases."""
+    training, entry and parallel phases."""
     t0 = time.perf_counter()
     register_config(GPT2_CONFIG, gpt2_config())
     register_config(LARGE_CONFIG, htsat_large_config())
@@ -2470,6 +2636,9 @@ def slice_phase(card: str) -> dict:
         training = training_phase(wrappers, cfgs["v0"], (a, b), tmp, card)
         entry = entry_phase(wrappers, cfgs["v0"], (a, b), tmp, card)
         launches["training"], launches["entry_server"] = training["launches"], entry["launches"]
+        parallel = parallel_phase(wrappers, cfgs, params["v0"], requests, answers, tmp, card,
+                                  training["checkpoint"]["bytes"])
+        launches["mesh_dp"] = parallel["mesh_dp"]["launches"]
 
         audio1 = wrappers["fp32"].preprocess_audio([r[0] for r in requests[:2]], True)
         audio2 = wrappers["fp32"].preprocess_audio([r[1] for r in requests[:2]], True)
@@ -2499,7 +2668,8 @@ def slice_phase(card: str) -> dict:
                     (audio1, audio2, texts[name]), int8_cache, int8_tol)
     print(f"family holds took {time.perf_counter() - t:.1f} s")
     return {"launches": launches, "calls": calls, "entries": entries, "timings": timings, "decoding": decoding,
-            "continuous": continuous, "training": training, "entry": entry, "gpt2_float_cache": gpt2_float_cache}
+            "continuous": continuous, "training": training, "entry": entry, "parallel": parallel,
+            "gpt2_float_cache": gpt2_float_cache}
 
 
 # Kernels whose device time per request the profile reports: name -> the

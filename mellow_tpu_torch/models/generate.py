@@ -51,6 +51,14 @@ The core also carries continuous batching's ragged rows
 at its deadline, and per-row ``knobs`` (temperature, top_p, greedy) replace
 the call's sampling options.
 
+Under a mesh's model axis (``tp``, a ``parallel.tensor.TP``; llama only)
+the decoder runs its TP forms on the rank's parameter shards: the cache
+holds the rank's KV heads, the token embedding is the vocab-parallel
+lookup, and the token choice and the done check read the gathered logits,
+so every rank of the model group takes the same branch. ``generate_stream``
+also takes the data group of a DP mesh: it then yields the tokens of every
+data rank and runs until every rank's rows are done.
+
 ``family`` picks the decoder (``models/decoders.py``): "llama" (SmolLM2)
 or "gpt2". As in the JAX package, the gpt2 family has no int8 cache and no
 W8A8 prefill; unlike it, a gpt2 run that would need positions past its
@@ -64,9 +72,12 @@ from typing import Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mellow_tpu_torch.models import gpt2, llama
 from mellow_tpu_torch.models.decoders import get_decoder_ops
+from mellow_tpu_torch.parallel import sharding
+from mellow_tpu_torch.parallel import tensor as tpar
 
 
 CACHE_DTYPES = {"int8": torch.int8, "float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -204,13 +215,16 @@ class DecodeState(NamedTuple):
 
 def _init_state(
     params, cfg, prefix_embeds: torch.Tensor, *, max_len: int, kv_cache_dtype, family: str, W: int,
-    rng, initial_done, repetition_penalty: float, prompt_tokens, prompt_mask, w8a8: bool,
+    rng, initial_done, repetition_penalty: float, prompt_tokens, prompt_mask, w8a8: bool, tp=None,
 ) -> DecodeState:
     """Prefill into a cache of ``P + ceil(max_len / W) * W`` positions, and
     the loop's first state. With a penalty, the seen mask starts from the
     prompt's valid ids (HF penalizes the whole input; the audio prefix has
-    no ids)."""
+    no ids). ``tp``: the rank's KV heads in the cache and the window."""
     ops = get_decoder_ops(family)
+    if tp is not None and family != "llama":
+        raise ValueError(f"the {family} decoder has no tensor-parallel form; it runs replicated")
+    lcfg = cfg if tp is None else tpar.local_config(cfg, tp)
     B, P, _ = prefix_embeds.shape
     device, dtype = prefix_embeds.device, prefix_embeds.dtype
     ML = -(-max_len // W) * W
@@ -218,12 +232,12 @@ def _init_state(
         raise ValueError(
             f"prefix {P} + max_len {max_len} exceeds the decoder's "
             f"{cfg.max_position_embeddings} positions")
-    cache = ops.create_cache(cfg, B, P + ML, device, cache_dtype(kv_cache_dtype, dtype))
+    cache = ops.create_cache(lcfg, B, P + ML, device, cache_dtype(kv_cache_dtype, dtype))
     window = None
     if family == "llama":
-        hidden = ops.prefill(params, cfg, prefix_embeds, cache, w8a8=w8a8)
+        hidden = ops.prefill(params, cfg, prefix_embeds, cache, w8a8=w8a8, tp=tp)
         if llama.uses_window(cache, dtype):
-            window = llama.FlushWindow(cfg, B, W, P, device, dtype)
+            window = llama.FlushWindow(lcfg, B, W, P, device, dtype, tp)
     else:
         if w8a8:
             raise ValueError("w8a8 prefill is llama-family only")
@@ -232,7 +246,7 @@ def _init_state(
             window = gpt2.FlushWindow(cfg, B, W, P, device, dtype)
     seen = None
     if repetition_penalty != 1.0:
-        V = ops.embed_table(params).shape[0]
+        V = ops.embed_table(params).shape[0] if tp is None else cfg.vocab_size
         if prompt_tokens is None:
             seen = torch.zeros((B, V), dtype=torch.bool, device=device)
         else:
@@ -249,7 +263,7 @@ def _init_state(
 
 def _window_body(
     params, cfg, state: DecodeState, *, family: str, max_len: int, stop_token_id: int, greedy: bool,
-    top_p: float, temperature: float, top_k: int, repetition_penalty: float, W: int,
+    top_p: float, temperature: float, top_k: int, repetition_penalty: float, W: int, tp=None,
 ):
     """The one-flush-window step over ``state``'s cache: W sub-steps (choose
     the token at ``t + i``, then the decode step at position ``P + t + i``),
@@ -259,7 +273,7 @@ def _window_body(
     has ragged rows: its ``start`` goes to every decode step, a row is done
     once ``t + 1`` reaches its ``deadline``, and its ``knobs`` choose each
     row's token (greedy rows take the argmax of the raw logits; the others
-    draw with their own temperature and top_p)."""
+    draw with their own temperature and top_p). ``tp``: the TP forms."""
     ops = get_decoder_ops(family)
     ML = state.tokens.shape[1]
     S_max = state.cache.k.shape[2]
@@ -269,11 +283,17 @@ def _window_body(
         cos, sin = llama.rope_device_tables(cfg, S_max, state.last_hidden.dtype, state.last_hidden.device)
 
         def step(s, tok_embed, pos):
-            return ops.decode_step(params, cfg, tok_embed, s.cache, pos, cos, sin, s.window, s.start)
+            return ops.decode_step(params, cfg, tok_embed, s.cache, pos, cos, sin, s.window, s.start, tp=tp)
+
+        def logits_of(hidden):
+            return llama.logits_from_hidden(params, cfg, hidden, tp)
     else:
 
         def step(s, tok_embed, pos):
             return ops.decode_step(params, cfg, tok_embed, s.cache, pos, s.window)
+
+        def logits_of(hidden):
+            return ops.logits_from_hidden(params, cfg, hidden)
 
     def choose(s: DecodeState, logits: torch.Tensor) -> torch.Tensor:
         if s.knobs is None:
@@ -286,7 +306,7 @@ def _window_body(
     def body(s: DecodeState) -> DecodeState:
         hidden = s.last_hidden
         for t in range(s.t, min(s.t + W, max_len)):
-            logits = ops.logits_from_hidden(params, cfg, hidden)
+            logits = logits_of(hidden)
             tok = choose(s, logits)
             s.tokens[:, t] = tok
             s.done.logical_or_(tok == stop_token_id)
@@ -295,7 +315,7 @@ def _window_body(
             if s.seen is not None:
                 s.seen.scatter_(1, tok[:, None], True)
             if t + 1 < max_len:
-                hidden = step(s, embed[tok], P + t)
+                hidden = step(s, embed[tok] if tp is None else tpar.embed(embed, tok, tp), P + t)
         return s._replace(t=s.t + W, last_hidden=hidden)
 
     return body
@@ -304,14 +324,14 @@ def _window_body(
 def _decode_loop(
     params, cfg, state: DecodeState, *, family: str, max_len: int, stop_token_id: int, greedy: bool,
     top_p: float, temperature: float, top_k: int, repetition_penalty: float, W: int,
-    alive_threshold: int = 0,
+    alive_threshold: int = 0, tp=None,
 ) -> DecodeState:
     """Windows until ``max_len``, or until at most ``alive_threshold`` rows
     are unfinished (0: all done, the plain path; the cascade passes half its
     batch). The done mask is read on the host before each window."""
     body = _window_body(params, cfg, state, family=family, max_len=max_len, stop_token_id=stop_token_id,
                         greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
-                        repetition_penalty=repetition_penalty, W=W)
+                        repetition_penalty=repetition_penalty, W=W, tp=tp)
     while state.t < max_len and int((~state.done).sum()) > alive_threshold:
         state = body(state)
     return state
@@ -338,20 +358,21 @@ def generate(
     prompt_tokens: Optional[torch.Tensor] = None,  # (B, T) ids seeding the penalty's mask
     prompt_mask: Optional[torch.Tensor] = None,  # (B, T) bool: the real (non-pad) ids
     w8a8: bool = False,
+    tp=None,  # parallel.tensor.TP: the model group (llama)
 ) -> GenerateResult:
     """Prefill, then flush windows until every row is done or ``max_len``.
     ``kv_cache_dtype``: None (the compute dtype), "int8" or another float
     dtype (``CACHE_DTYPES``); ``w8a8``: the W8A8 prefill blocks for int8
     weights; ``flush_window``: W, as the JAX package's
-    (``effective_window``)."""
+    (``effective_window``); ``tp``: the decoder's TP forms."""
     W = effective_window(flush_window, max_len, prefix_embeds.shape[0])
     state = _init_state(params, cfg, prefix_embeds, max_len=max_len, kv_cache_dtype=kv_cache_dtype,
                         family=family, W=W, rng=rng, initial_done=initial_done,
                         repetition_penalty=repetition_penalty, prompt_tokens=prompt_tokens,
-                        prompt_mask=prompt_mask, w8a8=w8a8)
+                        prompt_mask=prompt_mask, w8a8=w8a8, tp=tp)
     final = _decode_loop(params, cfg, state, family=family, max_len=max_len, stop_token_id=stop_token_id,
                          greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
-                         repetition_penalty=repetition_penalty, W=W)
+                         repetition_penalty=repetition_penalty, W=W, tp=tp)
     return GenerateResult(tokens=final.tokens[:, :max_len], num_steps=min(final.t, max_len))
 
 
@@ -376,23 +397,32 @@ def generate_stream(
     prompt_tokens: Optional[torch.Tensor] = None,
     prompt_mask: Optional[torch.Tensor] = None,
     w8a8: bool = False,
+    tp=None,
+    data_group=None,  # a DP mesh's data group: every data rank's rows
 ) -> Iterator[GenerateResult]:
     """``generate`` one window at a time: yields a snapshot after every
     window, the last one included, its tokens copied to the host (one fetch
-    a window). The tokens are ``generate``'s: the same window body."""
+    a window). The tokens are ``generate``'s: the same window body. With
+    ``data_group``, each snapshot holds the rows of every rank of the group
+    in rank order, and the windows go on until every rank's rows are done
+    (one all-gather and one all-reduce a window, on every rank)."""
     W = effective_window(flush_window, max_len, prefix_embeds.shape[0])
     state = _init_state(params, cfg, prefix_embeds, max_len=max_len, kv_cache_dtype=kv_cache_dtype,
                         family=family, W=W, rng=rng, initial_done=initial_done,
                         repetition_penalty=repetition_penalty, prompt_tokens=prompt_tokens,
-                        prompt_mask=prompt_mask, w8a8=w8a8)
+                        prompt_mask=prompt_mask, w8a8=w8a8, tp=tp)
     body = _window_body(params, cfg, state, family=family, max_len=max_len, stop_token_id=stop_token_id,
                         greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
-                        repetition_penalty=repetition_penalty, W=W)
+                        repetition_penalty=repetition_penalty, W=W, tp=tp)
     while True:
         state = body(state)
         t = min(state.t, max_len)
-        yield GenerateResult(tokens=state.tokens[:, :max_len].to("cpu", copy=True), num_steps=t)
-        if t >= max_len or bool(state.done.all()):
+        tokens, done = state.tokens[:, :max_len], state.done.all()
+        if data_group is not None:
+            tokens, done = sharding.gather_rows(tokens, data_group), done.to(torch.int32)
+            dist.all_reduce(done, op=dist.ReduceOp.MIN, group=data_group)
+        yield GenerateResult(tokens=tokens.to("cpu", copy=True), num_steps=t)
+        if t >= max_len or bool(done):
             return
 
 

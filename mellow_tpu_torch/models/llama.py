@@ -66,6 +66,16 @@ row in the cache's own dtype changes nothing), chunked prefill.
 ``forward`` is the teacher-forced pass of training, on the plain
 formulation in every dtype (the JAX package's ``forward`` never takes its
 kernels either), so autograd differentiates it.
+
+Tensor parallelism: ``forward``, ``prefill``, ``decode_step`` and
+``logits_from_hidden`` take an optional ``tp`` (a ``parallel.tensor.TP``:
+the model group). With it, the parameters are the rank's shards
+(``parallel/sharding.py``; the token embedding is ``tensor.embed``'s
+vocab-parallel lookup, in ``models/mellow.py`` and ``generate``), the
+layers run ``parallel/tensor.py``'s TP forms on
+``tensor.local_config(cfg, tp)``, the cache holds the rank's KV heads, and
+the plain formulation replaces every kernel, as the JAX package turns its
+Pallas kernels off under a model axis. With ``tp=None`` nothing changes.
 """
 
 from __future__ import annotations
@@ -85,6 +95,7 @@ from mellow_tpu_torch.ops.decode_attention import decode_attention, start_mask
 from mellow_tpu_torch.ops.decode_attention_int8 import decode_attention_int8
 from mellow_tpu_torch.ops.mlp_block import mlp_block, rms_norm
 from mellow_tpu_torch.ops.mlp_block_w8a8 import mlp_block_w8a8
+from mellow_tpu_torch.parallel import tensor as tpar
 
 
 class KVCache(NamedTuple):
@@ -124,12 +135,13 @@ class FlushWindow:
     pending rows (``extras`` of its packed decode)."""
 
     def __init__(self, cfg: LlamaConfig, batch: int, window: int, flushed: int, device,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, tp=None):
         shape = (cfg.num_layers, batch, window) + self.row_shape(cfg)
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)
         self.flushed = flushed
         self.count = 0
+        self.tp = tp  # the model group whose ranks share an int8 scale
 
     @staticmethod
     def row_shape(cfg: LlamaConfig) -> tuple:
@@ -156,32 +168,37 @@ class FlushWindow:
         (``flush_pending``), cast for a float one, and start the next
         window."""
         W = self.size
-        write_rows(cache, slice(None), self.flushed, self.k, self.v)
+        write_rows(cache, slice(None), self.flushed, self.k, self.v, self.tp)
         self.flushed += W
         self.count = 0
 
 
-def write_rows(cache: "KVCache", layers, pos: int, k: torch.Tensor, v: torch.Tensor) -> None:
+def write_rows(cache: "KVCache", layers, pos: int, k: torch.Tensor, v: torch.Tensor, tp=None) -> None:
     """Write k/v rows (..., B, S, KV, hd) into ``cache`` at [pos, pos + S)
     of the layers ``layers`` (an index or a slice): quantized per position
-    (``quantize_kv``) for an int8 cache, cast for a float one."""
+    (``quantize_kv``, its scale over the KV heads of every rank of ``tp``)
+    for an int8 cache, cast for a float one."""
     S = k.shape[-3]
     if not cache.quantized:
         cache.k[layers, :, pos : pos + S] = k
         cache.v[layers, :, pos : pos + S] = v
         return
     for rows, vals, scales in ((k, cache.k, cache.k_scale), (v, cache.v, cache.v_scale)):
-        q8, sc = quantize_kv(rows.reshape(*rows.shape[:-2], -1))
+        q8, sc = quantize_kv(rows.reshape(*rows.shape[:-2], -1), tp)
         vals[layers, :, pos : pos + S] = q8.reshape(rows.shape)
         scales[layers, :, pos : pos + S] = sc
 
 
-def quantize_kv(x: torch.Tensor):
+def quantize_kv(x: torch.Tensor, tp=None):
     """Symmetric per-position int8 over the last (packed KV*hd) axis:
     x (..., KV*hd) -> (int8 (..., KV*hd), fp32 scale (...)).
-    (``llama.quantize_kv``: one scale per position for all KV heads.)"""
+    (``llama.quantize_kv``: one scale per position for all KV heads, the
+    heads of every rank of ``tp`` included.)"""
     xf = x.float()
-    scale = xf.abs().amax(-1).clamp_min(1e-8) / 127.0
+    amax = xf.abs().amax(-1)
+    if tp is not None:
+        amax = tpar.kv_amax(amax, tp)
+    scale = amax.clamp_min(1e-8) / 127.0
     return torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8), scale
 
 
@@ -331,8 +348,17 @@ def _attend_window(cfg: LlamaConfig, q, cache: KVCache, li: int, n: int, k_extra
     return (o / denom).reshape(B, 1, H * hd)
 
 
+def _layer_fns(cfg: LlamaConfig, tp):
+    """(config, qkv, wo product, mlp) of a layer: the plain formulation's,
+    or under ``tp`` the TP forms on the rank's configuration."""
+    if tp is None:
+        return cfg, _qkv, _mm, _mlp
+    return (tpar.local_config(cfg, tp), lambda c, x, lp, cos, sin: tpar.qkv(c, x, lp, cos, sin, tp),
+            lambda o, wo: tpar.attn_out(o, wo, tp), lambda c, x, lp: tpar.mlp(c, x, lp, tp))
+
+
 def forward(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, *,
-            attention_mask: Optional[torch.Tensor] = None, remat: bool = False) -> torch.Tensor:
+            attention_mask: Optional[torch.Tensor] = None, remat: bool = False, tp=None) -> torch.Tensor:
     """Full-sequence teacher-forced forward (``llama.forward``): the
     embedded inputs (B, S, D) -> logits (B, S, V), causal, with keys where
     ``attention_mask`` (B, S) is 0 masked out. The plain formulation
@@ -351,17 +377,23 @@ def forward(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, *,
             ~attention_mask.bool()[:, None, None, None, :], float("-inf"))
         mask = mask + pad  # (B, 1, 1, S, S): broadcast over (KV, rep)
 
+    lcfg, qkv, out, mlp = _layer_fns(cfg, tp)
+
     def layer(x, lp):
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
-        return _mlp(cfg, x + _mm(_attend(cfg, q, k, v, mask), lp["wo"]), lp)
+        q, k, v = qkv(lcfg, x, lp, cos, sin)
+        return mlp(lcfg, x + out(_attend(lcfg, q, k, v, mask), lp["wo"]), lp)
 
     x = inputs_embeds
     for lp in params["layers"]:
         x = checkpoint(layer, x, lp, use_reentrant=False) if remat else layer(x, lp)
-    return logits_from_hidden(params, cfg, rms_norm(x, params["norm_f"], cfg.rms_norm_eps))
+    return logits_from_hidden(params, cfg, rms_norm(x, params["norm_f"], cfg.rms_norm_eps), tp)
 
 
-def logits_from_hidden(params: dict, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+def logits_from_hidden(params: dict, cfg: LlamaConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The logits over the vocabulary; under ``tp`` gathered from the
+    ranks' vocabulary shards."""
+    if tp is not None:
+        return tpar.logits(params, cfg, x, tp)
     if "lm_head_q" in params:  # int8 weights (quantize_decoder)
         return _mm(x, params["lm_head_q"])
     head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
@@ -375,7 +407,7 @@ def uses_window(cache: KVCache, dtype: torch.dtype) -> bool:
 
 
 def prefill(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, cache: KVCache,
-            w8a8: bool = False) -> torch.Tensor:
+            w8a8: bool = False, tp=None) -> torch.Tensor:
     """Run the prefix (B, S, D) through the model, writing positions [0, S)
     of ``cache`` in place. Returns the post-final-norm hidden of the last
     position, (B, D). ``w8a8``: with int8 weights, run the fused prefill
@@ -383,11 +415,11 @@ def prefill(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, cache: 
     int8 weights enter the bf16 blocks dequantized per layer. An int8
     cache takes the blocks' in-kernel k/v quantization, or in the plain
     prefill the quantizer after (``write_rows``); a float cache in another
-    dtype takes the rows cast."""
+    dtype takes the rows cast. ``tp``: the plain prefill's TP forms."""
     B, S, D = inputs_embeds.shape
     device = inputs_embeds.device
     cos, sin = rope_device_tables(cfg, S, inputs_embeds.dtype, device)
-    if uses_fused_prefill(cfg, inputs_embeds):
+    if tp is None and uses_fused_prefill(cfg, inputs_embeds):
         kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                   eps=cfg.rms_norm_eps)
         w8 = w8a8 and isinstance(params["layers"][0]["w_gate"], dict)
@@ -422,12 +454,13 @@ def prefill(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, cache: 
     causal = torch.ones((S, S), dtype=torch.bool, device=device).tril()
     mask = torch.zeros((S, S), dtype=torch.float32, device=device).masked_fill(~causal, float("-inf"))
 
+    lcfg, qkv, out, mlp = _layer_fns(cfg, tp)
     x = inputs_embeds
     for li, lp in enumerate(params["layers"]):
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
-        write_rows(cache, li, 0, k, v)
-        x = x + _mm(_attend(cfg, q, k, v, mask), lp["wo"])
-        x = _mlp(cfg, x, lp)
+        q, k, v = qkv(lcfg, x, lp, cos, sin)
+        write_rows(cache, li, 0, k, v, tp)
+        x = x + out(_attend(lcfg, q, k, v, mask), lp["wo"])
+        x = mlp(lcfg, x, lp)
     # The final norm is per position: only the last row feeds decoding.
     return rms_norm(x[:, -1, :], params["norm_f"], cfg.rms_norm_eps)
 
@@ -442,6 +475,7 @@ def decode_step(
     sin_full: torch.Tensor,
     window: Optional[FlushWindow] = None,
     start: Optional[torch.Tensor] = None,  # (B,) int32: each row's first cache column
+    tp=None,
 ) -> torch.Tensor:
     """One incremental step over positions [0, pos]. Returns the
     post-final-norm hidden (B, D). In bf16 the attention is a decode-attention
@@ -462,7 +496,10 @@ def decode_step(
     ``start`` (continuous batching): row b ropes at its local position
     ``pos - start[b]`` (a (B, hd) gather of the tables on the device) and
     attends to columns [start[b], pos] only; ``pos`` stays the batch's
-    shared write column."""
+    shared write column.
+
+    ``tp``: the TP forms on the rank's KV heads, every attention on the
+    plain formulation (``_attend``, ``_attend_window``)."""
     if start is None:
         cos, sin = cos_full[pos : pos + 1], sin_full[pos : pos + 1]
     else:
@@ -470,7 +507,9 @@ def decode_step(
         cos, sin = cos_full[local][:, None], sin_full[local][:, None]
     x = token_embed[:, None, :]
     B, dt = x.shape[0], x.dtype
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lcfg, qkv, out, mlp = _layer_fns(cfg, tp)
+    H, hd = cfg.num_heads, cfg.head_dim
+    kernel = tp is None and dt == torch.bfloat16
     windowed = uses_window(cache, dt)
     if windowed:
         if window is None:
@@ -480,21 +519,21 @@ def decode_step(
             raise ValueError(f"position {pos} is not the next row of the flush window "
                              f"({window.count} of {window.size} rows from {window.flushed})")
     for li, lp in enumerate(params["layers"]):
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        q, k, v = qkv(lcfg, x, lp, cos, sin)
         if windowed:
             window.k[li, :, i] = k[:, 0]
             window.v[li, :, i] = v[:, 0]
             kx, vx = window.k[li, :, : i + 1], window.v[li, :, : i + 1]
-            if cache.quantized and dt == torch.bfloat16:
+            if cache.quantized and kernel:
                 o = decode_attention_int8(q.reshape(B, H, hd), cache.k[li], cache.v[li], cache.k_scale[li],
                                           cache.v_scale[li], window.flushed, kx, vx, start)
                 o = o.reshape(B, 1, H * hd)
             else:
-                o = _attend_window(cfg, q, cache, li, window.flushed, kx, vx, start)
+                o = _attend_window(lcfg, q, cache, li, window.flushed, kx, vx, start)
         else:
             cache.k[li, :, pos : pos + 1] = k
             cache.v[li, :, pos : pos + 1] = v
-            if dt == torch.bfloat16:
+            if kernel:
                 o = decode_attention(q.reshape(B, H, hd), cache.k[li], cache.v[li], pos + 1, start)
                 o = o.reshape(B, 1, H * hd)
             else:
@@ -502,8 +541,8 @@ def decode_step(
                 if start is not None:
                     mask = torch.zeros((B, 1, 1, 1, pos + 1), dtype=torch.float32, device=x.device).masked_fill(
                         start_mask(start, pos + 1)[:, :, None], float("-inf"))
-                o = _attend(cfg, q, cache.k[li, :, : pos + 1], cache.v[li, :, : pos + 1], mask)
-        x = _mlp(cfg, x + _mm(o, lp["wo"]), lp)
+                o = _attend(lcfg, q, cache.k[li, :, : pos + 1], cache.v[li, :, : pos + 1], mask)
+        x = mlp(lcfg, x + out(o, lp["wo"]), lp)
     if windowed:
         window.count = i + 1
         if window.count == window.size:

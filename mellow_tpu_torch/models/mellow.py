@@ -6,6 +6,11 @@ objective (``forward_train``), for both decoder families
 parameter tree is the JAX tree with the decoder's stacked layers split per
 layer (``models/params.py``); ``init_params`` builds the JAX-layout tree in
 numpy, so full-width random weights need no JAX.
+
+Under a mesh (``parallel/``): ``generate_tokens_sharded`` is JAX's
+shard_map path, each data rank running the single-card program on its
+rows; ``tp`` (the model group, llama only) runs the decoder's TP forms and
+``data_group`` makes ``forward_train``'s loss the global batch's.
 """
 
 from __future__ import annotations
@@ -14,11 +19,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mellow_tpu_torch.config import MellowConfig
 from mellow_tpu_torch.models import generate as gen
 from mellow_tpu_torch.models import gpt2, htsat
 from mellow_tpu_torch.models.decoders import get_decoder_ops
+from mellow_tpu_torch.parallel import sharding
+from mellow_tpu_torch.parallel import tensor as tpar
 
 
 def build_prefix(
@@ -29,28 +37,42 @@ def build_prefix(
     text_ids: torch.Tensor,  # (B, T) int
     text_embeds: Optional[torch.Tensor] = None,  # (B, T, D): in place of embed[text_ids]
     compact: bool = True,
+    tp=None,
 ) -> torch.Tensor:
     """(B, 389, D) = [a1 (129) | sep | a2 (129) | sep | text (T)], sep the
     embedding of ``cfg.sep_token_id`` in the family's token table. The
     audio inputs are the compact 33-row forms, or with ``compact=False``
-    the full 1025-row ones, mean-pooled (``htsat.downsample_tokens``)."""
+    the full 1025-row ones, mean-pooled (``htsat.downsample_tokens``).
+    ``tp``: the vocab-parallel lookups."""
     ds = htsat.downsample_tokens_compact if compact else htsat.downsample_tokens
     a1, a2 = ds(audio_proj1), ds(audio_proj2)
     embed = get_decoder_ops(cfg.decoder_family).embed_table(params["decoder"])
-    dtext = embed[text_ids.long()].to(a1.dtype) if text_embeds is None else text_embeds
-    sep = embed[cfg.sep_token_id].to(a1.dtype).expand(a1.shape[0], 1, embed.shape[1])
+    lookup = _lookup(embed, tp)
+    dtext = lookup(text_ids.long()).to(a1.dtype) if text_embeds is None else text_embeds
+    sep_id = cfg.sep_token_id
+    sep = embed[sep_id] if tp is None else lookup(torch.full((1,), sep_id, device=a1.device))[0]
+    sep = sep.to(a1.dtype).expand(a1.shape[0], 1, embed.shape[1])
     return torch.cat([a1, sep, a2, sep, dtext], dim=1)
+
+
+def _lookup(embed: torch.Tensor, tp):
+    """ids -> rows of the token table ``embed``; under ``tp`` (``embed`` this
+    rank's vocabulary shard) the vocab-parallel lookup."""
+    if tp is None:
+        return lambda ids: embed[ids]
+    return lambda ids: tpar.embed(embed, ids, tp)
 
 
 @torch.no_grad()
 def encode_and_prefix(
-    params: dict, cfg: MellowConfig, audio1: torch.Tensor, audio2: torch.Tensor, text_ids: torch.Tensor
+    params: dict, cfg: MellowConfig, audio1: torch.Tensor, audio2: torch.Tensor, text_ids: torch.Tensor,
+    tp=None,
 ) -> torch.Tensor:
     """Encode both clips (one batch-B encoder call each) and assemble the
     prefix."""
     p1 = htsat.encode_audio_compact(audio1, params, cfg.frontend, cfg.encoder)
     p2 = htsat.encode_audio_compact(audio2, params, cfg.frontend, cfg.encoder)
-    return build_prefix(params, cfg, p1, p2, text_ids)
+    return build_prefix(params, cfg, p1, p2, text_ids, tp=tp)
 
 
 def generate_tokens(
@@ -71,14 +93,60 @@ def generate_tokens(
     top_k: int = 0,
     repetition_penalty: float = 1.0,
     w8a8: bool = False,  # W8A8 prefill blocks for int8 decoder weights
+    tp=None,  # parallel.tensor.TP: the decoder's TP forms (llama)
 ) -> gen.GenerateResult:
     """Two waveforms + prompt ids -> token ids, in the dtype of the waves
     and the weights (float32 parity mode or bfloat16 perf mode)."""
-    prefix = encode_and_prefix(params, cfg, audio1, audio2, text_ids)
-    return gen.generate(params["decoder"], cfg.decoder, prefix, **_decode_kwargs(
+    prefix = encode_and_prefix(params, cfg, audio1, audio2, text_ids, tp=tp)
+    return gen.generate(params["decoder"], cfg.decoder, prefix, tp=tp, **_decode_kwargs(
         cfg, text_ids, max_len=max_len, greedy=greedy, top_p=top_p, temperature=temperature, rng=rng,
         kv_cache_dtype=kv_cache_dtype, initial_done=initial_done, stop_token_id=stop_token_id, top_k=top_k,
         repetition_penalty=repetition_penalty, w8a8=w8a8))
+
+
+def generate_tokens_sharded(
+    params: dict,
+    cfg: MellowConfig,
+    audio1: torch.Tensor,  # (B, 320000), the whole batch on every rank
+    audio2: torch.Tensor,
+    text_ids: torch.Tensor,
+    *,
+    mesh,
+    max_len: int,
+    greedy: bool = True,
+    top_p: float = 0.8,
+    temperature: float = 1.0,
+    seed: int = 0,
+    kv_cache_dtype=None,
+    initial_done: Optional[torch.Tensor] = None,
+    stop_token_id=None,
+    top_k: int = 0,
+    repetition_penalty: float = 1.0,
+    w8a8: bool = False,
+    tp=None,
+) -> gen.GenerateResult:
+    """``generate_tokens`` over ``mesh``'s data axis (``mellow_tpu``'s
+    ``generate_tokens_sharded``): each data rank runs the single-card
+    program, kernels included, on its rows of the batch and leaves its loop
+    when its own rows are done; the tokens are all-gathered over the data
+    group, and ``num_steps`` is the slowest rank's. A sampled request draws
+    from a generator per data index (``sharding.data_generator``), as the
+    JAX package folds the device index into its key. ``tp`` (a TP mesh, its
+    decoder on the TP forms) keeps the same rows on every rank of a model
+    group. Raises where the data axis does not divide the batch; every rank
+    calls it with the same arguments."""
+    rows = sharding.data_rows(mesh, audio1.shape[0])
+    if initial_done is not None:
+        initial_done = initial_done[rows]
+    res = generate_tokens(
+        params, cfg, audio1[rows], audio2[rows], text_ids[rows], max_len=max_len, greedy=greedy, top_p=top_p,
+        temperature=temperature, rng=sharding.data_generator(mesh, seed, audio1.device),
+        kv_cache_dtype=kv_cache_dtype, initial_done=initial_done, stop_token_id=stop_token_id, top_k=top_k,
+        repetition_penalty=repetition_penalty, w8a8=w8a8, tp=tp)
+    steps = torch.tensor([res.num_steps], dtype=torch.int64, device=res.tokens.device)
+    dist.all_reduce(steps, op=dist.ReduceOp.MAX, group=sharding.data_group(mesh))
+    return gen.GenerateResult(tokens=sharding.gather_rows(res.tokens, sharding.data_group(mesh)),
+                              num_steps=int(steps))
 
 
 def generate_tokens_dynamic(
@@ -130,6 +198,8 @@ def forward_train(
     rng: Optional[torch.Generator] = None,
     remat: bool = False,
     mixup_lambda: Optional[torch.Tensor] = None,  # (B,) train-time mixup weights
+    tp=None,
+    data_group=None,
 ) -> tuple:
     """The training objective (``mellow.forward_train``): next-token cross
     entropy over the answer span, the prefix positions masked out. Returns
@@ -142,23 +212,30 @@ def forward_train(
     halves the batch: the prompt and answer input embeddings are mixed with
     the same weights, and the loss is the convex combination ``lam *
     CE(y_even) + (1 - lam) * CE(y_odd)``, its accuracy scored against the
-    labels of the row with the larger weight."""
+    labels of the row with the larger weight.
+
+    Under a mesh the batch is the data rank's rows: ``data_group`` sums the
+    log-likelihoods, the token weights and the accuracy's counts over the
+    data ranks before dividing, so the loss is the global batch's token
+    mean (its backward gives this rank's share of the gradient); ``tp``
+    runs the decoder's TP forms."""
     p1, p2 = (htsat.encode_audio(a, params, cfg.frontend, cfg.encoder, rng=rng, mixup_lambda=mixup_lambda,
                                  training=True) for a in (audio1, audio2))
     ops = get_decoder_ops(cfg.decoder_family)
-    embed = ops.embed_table(params["decoder"])
+    lookup = _lookup(ops.embed_table(params["decoder"]), tp)
     answer_ids = answer_ids.long()
-    ans_emb = embed[answer_ids].to(p1.dtype)
+    ans_emb = lookup(answer_ids).to(p1.dtype)
     if mixup_lambda is None:
-        prefix = build_prefix(params, cfg, p1, p2, text_ids, compact=False)
+        prefix = build_prefix(params, cfg, p1, p2, text_ids, compact=False, tp=tp)
     else:
         from mellow_tpu_torch.train.augment import mixup
 
         lam = mixup_lambda.to(p1.dtype)
-        dtext = mixup(embed[text_ids.long()].to(p1.dtype), lam)
-        prefix = build_prefix(params, cfg, p1, p2, text_ids, text_embeds=dtext, compact=False)
+        dtext = mixup(lookup(text_ids.long()).to(p1.dtype), lam)
+        prefix = build_prefix(params, cfg, p1, p2, text_ids, text_embeds=dtext, compact=False, tp=tp)
         ans_emb = mixup(ans_emb, lam)
-    logits = ops.forward(params["decoder"], cfg.decoder, torch.cat([prefix, ans_emb], dim=1), remat=remat)
+    x = torch.cat([prefix, ans_emb], dim=1)
+    logits = ops.forward(params["decoder"], cfg.decoder, x, remat=remat, **({} if tp is None else {"tp": tp}))
     P = prefix.shape[1]
     pred = logits[:, P - 1 : -1]  # position P - 1 + t predicts answer token t
     logp = torch.log_softmax(pred.float(), dim=-1)
@@ -176,10 +253,15 @@ def forward_train(
         acc_ids = torch.where((lam_f[0::2] >= lam_f[1::2])[:, None], answer_ids[0::2], answer_ids[1::2])
         acc_mask = torch.where(w_even >= w_odd, mask[0::2], mask[1::2])
     n = weight.sum()
-    loss = -tok_lp.sum() / n.clamp_min(1.0)
-    correct = (pred.argmax(-1) == acc_ids).float() * acc_mask
-    metrics = {"loss": loss, "num_answer_tokens": n,
-               "accuracy": correct.sum() / acc_mask.sum().clamp_min(1.0)}
+    correct = ((pred.argmax(-1) == acc_ids).float() * acc_mask).sum()
+    total, acc_n = tok_lp.sum(), acc_mask.sum()
+    if data_group is not None:
+        total = tpar.reduce_from(total, data_group)
+        counts = torch.stack([n, correct, acc_n]).detach()
+        dist.all_reduce(counts, group=data_group)
+        n, correct, acc_n = counts.unbind()
+    loss = -total / n.clamp_min(1.0)
+    metrics = {"loss": loss, "num_answer_tokens": n, "accuracy": correct / acc_n.clamp_min(1.0)}
     return loss, metrics
 
 

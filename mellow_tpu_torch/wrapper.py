@@ -31,14 +31,27 @@ is the JAX wrapper's, on the port's own copies of that code
     ``weight_dtype="int8"`` but, as in the JAX package, neither
     ``"int8-w8a8"`` (ValueError) nor an int8 KV cache (ValueError); a
     GPT-2 cache in another float dtype decodes as llama's does, on the
-    plain formulation; ``mesh`` raises;
+    plain formulation;
   * no power-of-two batch buckets: eager PyTorch does not recompile per
     shape, so the batch runs as given;
   * weights come from ``params=`` (the JAX package's tree layout), then
     ``params_path``, then the ``MELLOW_TPU_PARAMS`` and ``MELLOW_TPU_CKPT``
     environment variables: a ``.ckpt``/``.pt`` path is the reference's
     PyTorch state dict, converted by the port's ``tools/convert_ckpt.py``;
-    any other path is a converted ``.npz``. There is no hub download.
+    any other path is a converted ``.npz``. There is no hub download;
+  * ``mesh`` (``parallel.sharding.make_mesh``, one process per card): the
+    parameters are sharded at load and ``generate`` and
+    ``generate_stream`` are collective, every rank calling them with the
+    same arguments, or rank 0 alone while the others run
+    ``parallel.follow(wrapper)``. Rank 0 prepares the batch on the host and
+    sends it to every rank; the batch is padded to a multiple of the data
+    axis with rows that start done. A pure-DP mesh runs the single-card
+    program, kernels included, on each data rank's rows
+    (``mellow.generate_tokens_sharded``); a model axis runs the decoder's
+    TP forms on the plain formulation, as the JAX package turns its Pallas
+    kernels off there. Cascade compaction (``dynamic_batch``) is off under
+    a mesh, as in the JAX package. The wrapper runs on ``cuda:LOCAL_RANK``
+    (the process's current card).
 """
 
 from __future__ import annotations
@@ -49,7 +62,10 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from mellow_tpu_torch import parallel
+from mellow_tpu_torch.parallel import sharding
 from mellow_tpu_torch.config import MellowConfig, get_config
 from mellow_tpu_torch.io.resample import resample
 from mellow_tpu_torch.io.tokenizer import load_tokenizer
@@ -102,9 +118,13 @@ class MellowWrapper:
         if weight_dtype == "int8-w8a8" and self._gpt2:
             raise ValueError("weight_dtype 'int8-w8a8' is llama-family only")
         self._w8a8 = weight_dtype == "int8-w8a8"
-        if mesh is not None:
-            raise NotImplementedError("mesh (multi-device inference) is not ported")
+        self.mesh = mesh
         self.device = torch.device(device)
+        if mesh is not None:
+            if (mesh.device_type == "cuda") != (self.device.type == "cuda"):
+                raise ValueError(f"a {mesh.device_type} mesh cannot drive a wrapper on {self.device}")
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(f"device {self.device} requested but CUDA is not available")
@@ -124,6 +144,10 @@ class MellowWrapper:
             quantize = gpt2.quantize_gpt2 if self._gpt2 else llama.quantize_decoder
             p32["decoder"] = quantize(p32["decoder"], self.cfg.decoder)
             self.params = cast_floating(p32, self.dtype)
+        self._tp = None
+        if mesh is not None:
+            self.params = sharding.shard_params(self.params, mesh, self.cfg)
+            self._tp = sharding.decoder_tp(mesh, self.cfg)
         if use_native_audio is None:
             self._native = native_audio if native_audio.available() else None
         elif use_native_audio:
@@ -233,9 +257,12 @@ class MellowWrapper:
         ``sample=True`` a draw from the top-k / top-p / temperature filtered
         softmax seeded by ``seed``."""
         cache = self.cache_dtype(kv_cache_dtype)
-        audio1 = self.preprocess_audio([e[0] for e in examples], audio_resample, crop_start)
-        audio2 = self.preprocess_audio([e[1] for e in examples], audio_resample, crop_start)
-        text_ids = self.preprocess_text([e[2] for e in examples])
+        if self.mesh is not None:
+            kw = dict(max_len=max_len, top_p=top_p, temperature=temperature, stop_token=stop_token,
+                      sample=sample, seed=seed, kv_cache_dtype=cache, top_k=top_k,
+                      repetition_penalty=repetition_penalty)
+            return self._mesh_call("generate", examples, audio_resample, crop_start, kw)
+        audio1, audio2, text_ids = self._host_inputs(examples, audio_resample, crop_start)
 
         with metrics.timer("generate"):
             gen_fn = mellow_model.generate_tokens_dynamic if dynamic_batch else mellow_model.generate_tokens
@@ -273,10 +300,13 @@ class MellowWrapper:
         the complete texts (``generate``'s: the same tokens, one host fetch
         a window)."""
         cache = self.cache_dtype(kv_cache_dtype)
-        audio1 = self.preprocess_audio([e[0] for e in examples], audio_resample, crop_start)
-        audio2 = self.preprocess_audio([e[1] for e in examples], audio_resample, crop_start)
-        text_ids = self.preprocess_text([e[2] for e in examples])
-        a1, a2, ids = self._device_inputs(audio1, audio2, text_ids)
+        if self.mesh is not None:
+            kw = dict(max_len=max_len, top_p=top_p, temperature=temperature, stop_token=stop_token,
+                      sample=sample, seed=seed, kv_cache_dtype=cache, top_k=top_k,
+                      repetition_penalty=repetition_penalty)
+            yield from self._mesh_call("generate_stream", examples, audio_resample, crop_start, kw)
+            return
+        a1, a2, ids = self._device_inputs(*self._host_inputs(examples, audio_resample, crop_start))
         prefix = mellow_model.encode_and_prefix(self.params, self.cfg, a1, a2, ids)
         for result in gen.generate_stream(
             self.params["decoder"], self.cfg.decoder, prefix,
@@ -299,6 +329,72 @@ class MellowWrapper:
             raise NotImplementedError(
                 f"kv_cache_dtype={kv_cache_dtype!r} is not ported; use one of {sorted(gen.CACHE_DTYPES)}")
         return kv_cache_dtype
+
+    def _host_inputs(self, examples, audio_resample: bool, crop_start):
+        """The batch's waves and prompt ids as numpy arrays."""
+        audio1 = self.preprocess_audio([e[0] for e in examples], audio_resample, crop_start)
+        audio2 = self.preprocess_audio([e[1] for e in examples], audio_resample, crop_start)
+        return audio1, audio2, self.preprocess_text([e[2] for e in examples])
+
+    # ------------------------------------------------------------------
+    # under a mesh
+    # ------------------------------------------------------------------
+
+    def _mesh_call(self, kind: str, examples, audio_resample: bool, crop_start, kw: dict):
+        """One collective ``generate`` (a list of texts) or
+        ``generate_stream`` (an iterator of them): rank 0 prepares the batch
+        on the host and broadcasts it with the options, every rank runs
+        ``_mesh_run`` on rank 0's call (``parallel.follow`` is the same on a
+        rank that did not call)."""
+        msg = None
+        if dist.get_rank() == 0:
+            msg = (kind, self._host_inputs(examples, audio_resample, crop_start), kw)
+        return self._mesh_run(parallel.exchange(msg))
+
+    def _mesh_run(self, msg):
+        kind, (audio1, audio2, text_ids), kw = msg
+        B = audio1.shape[0]
+        dp = sharding.axis_sizes(self.mesh)["data"]
+        pad = -B % dp
+        if pad:  # rows that start done, so they neither extend the loop nor change a real row
+            audio1, audio2, text_ids = (np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+                                        for x in (audio1, audio2, text_ids))
+        done = torch.arange(B + pad, device=self.device) >= B
+        a1, a2, ids = self._device_inputs(audio1, audio2, text_ids)
+        stop_token = kw["stop_token"]
+        opts = dict(max_len=kw["max_len"], greedy=not kw["sample"], top_p=kw["top_p"],
+                    temperature=kw["temperature"], kv_cache_dtype=kw["kv_cache_dtype"],
+                    stop_token_id=self._stop_token_id(stop_token), top_k=kw["top_k"],
+                    repetition_penalty=kw["repetition_penalty"])
+        if kind == "generate_stream":
+            return self._mesh_stream(a1, a2, ids, done, B, kw["seed"], stop_token, opts)
+        with metrics.timer("generate"):
+            result = mellow_model.generate_tokens_sharded(
+                self.params, self.cfg, a1, a2, ids, mesh=self.mesh, seed=kw["seed"], initial_done=done,
+                w8a8=self._w8a8, tp=self._tp, **opts)
+            texts = self._detokenize(result, stop_token)[:B]
+        metrics.count("tokens", B * result.num_steps)
+        metrics.count("clips", 2 * B)
+        metrics.count("generate_calls", 1)
+        return texts
+
+    def _mesh_stream(self, a1, a2, ids, done, B: int, seed: int, stop_token: str, opts: dict):
+        """``generate_stream`` on this rank's rows, every yield all the rows'
+        texts. Closed early, it still runs the windows that the other ranks
+        run, so no rank waits in a collective."""
+        rows = sharding.data_rows(self.mesh, a1.shape[0])
+        prefix = mellow_model.encode_and_prefix(self.params, self.cfg, a1[rows], a2[rows], ids[rows], tp=self._tp)
+        it = gen.generate_stream(
+            self.params["decoder"], self.cfg.decoder, prefix, rng=sharding.data_generator(self.mesh, seed, self.device),
+            initial_done=done[rows], family=self.cfg.decoder_family, prompt_tokens=ids[rows],
+            prompt_mask=ids[rows] != self.cfg.pad_token_id, w8a8=self._w8a8, tp=self._tp,
+            data_group=sharding.data_group(self.mesh), **opts)
+        try:
+            for result in it:
+                yield self._detokenize(result, stop_token)[:B]
+        finally:
+            for _ in it:
+                pass
 
     def _device_inputs(self, audio1, audio2, text_ids):
         return (torch.from_numpy(audio1).to(device=self.device, dtype=self.dtype),

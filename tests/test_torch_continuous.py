@@ -212,7 +212,7 @@ def engine_setup(tmp_path, monkeypatch):
     depend on its batch)."""
     bank = torch.from_numpy((np.random.RandomState(9).randn(4, TINY.prefix_length, CFG.hidden_size) * 0.5)
                             .astype(np.float32))
-    monkeypatch.setattr(tmellow, "encode_and_prefix", lambda params, cfg, a1, a2, ids: bank[ids[:, 0] % 4])
+    monkeypatch.setattr(tmellow, "encode_and_prefix", lambda params, cfg, a1, a2, ids, **kw: bank[ids[:, 0] % 4])
     tw = TorchWrapper(TINY.name, "v0", "cpu", params=port_params_np(TINY), tokenizer=ByteTokenizer(),
                       use_native_audio=False)
     wavs = [_write_wav(tmp_path / f"{i}.wav", i) for i in range(2)]

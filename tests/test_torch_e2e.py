@@ -178,7 +178,9 @@ def test_port_never_imports_jax():
         "        'mellow_tpu_torch.examples.streaming', 'mellow_tpu_torch.examples.aqa',\n"
         "        'mellow_tpu_torch.train.augment', 'mellow_tpu_torch.train.step',\n"
         "        'mellow_tpu_torch.train.loop', 'mellow_tpu_torch.train.checkpoint',\n"
-        "        'mellow_tpu_torch.train.data'} <= set(names)\n"
+        "        'mellow_tpu_torch.train.data', 'mellow_tpu_torch.parallel.multihost',\n"
+        "        'mellow_tpu_torch.parallel.sharding', 'mellow_tpu_torch.parallel.tensor',\n"
+        "        'mellow_tpu_torch.parallel.dryrun'} <= set(names)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'mellow_tpu')\n"
         "       and sys.modules[n] is not None]\n"
         "print(len(names), bad)\n"

@@ -151,7 +151,7 @@ def test_greedy_repetition_penalty_matches_jax(prompt_run, monkeypatch):
     assert not torch.equal(free.tokens, plain.tokens)
     stop = int(free.tokens[1, 2])  # row 1 stops in the first window
     kw = dict(max_len=MAX_LEN, stop_token_id=stop, repetition_penalty=1.3)
-    monkeypatch.setattr(tmellow, "encode_and_prefix", lambda *args: prefix)
+    monkeypatch.setattr(tmellow, "encode_and_prefix", lambda *args, **kw: prefix)
     whole = tmellow.generate_tokens(tp, TINY, None, None, text, **kw)
     direct = tgen.generate(dec, TINY.decoder, prefix, prompt_tokens=text, prompt_mask=mask, **kw)
     assert torch.equal(whole.tokens, direct.tokens) and whole.num_steps == direct.num_steps

@@ -178,3 +178,17 @@ def train_batch(B: int = 4, T: int = 6, seed: int = 0) -> dict:
         "answer_ids": rng.randint(0, 512, (B, T)).astype(np.int32),
         "answer_mask": np.array([[1.0] * n + [0.0] * (T - n) for n in lens], np.float32),
     }
+
+
+# The multi-device dry run's tiny configuration (``mellow_tpu_torch.parallel.
+# dryrun.DRYRUN``, which the port registers itself so its CPU ranks need no
+# JAX), registered in the JAX package too.
+from mellow_tpu_torch.parallel.dryrun import DRYRUN as _DRYRUN  # noqa: E402
+
+DRYRUN_JAX = MellowConfig(
+    name=_DRYRUN.name, encoder=HTSATConfig(embed_dim=8, out_emb=64),
+    decoder=LlamaConfig(**dataclasses.asdict(_DRYRUN.decoder)), d_proj=96, text_tokenization_len=8,
+    prefix_length=268,
+).validate()
+register_config(DRYRUN_JAX.name, DRYRUN_JAX)
+assert dataclasses.asdict(DRYRUN_JAX) == dataclasses.asdict(_DRYRUN)
