@@ -142,8 +142,24 @@ result line is printed:
    bit the plain layer's; ``loop.train(mesh=)`` two fp32 steps (B=4)
    against the unsharded loop's (losses within 1e-6 relative), rank 0's
    checkpoint the unsharded one's size;
-14. timings of the paths by stage (host preprocessing, log-mel, encoder,
-   prefill, decode step as the slope of two lengths, whole request), and
+14. the utilities (``utils_phase``): ``entry.entry()``'s ``fn`` at full v0
+   width in bf16 (finite logits within the bf16 logits limit of the same
+   forward in fp32, launching #1 twice and #8 20 times and nothing else,
+   recorded as the path ``entry_forward``; its device time); one bf16 B=1
+   request at ``max_len=8`` inside ``profiling.trace(dir)`` (one Chrome
+   trace whose kernel events hold each bf16 kernel's launches less at most
+   one; none from a request outside it); ``debug.enable_debug()`` on the
+   bf16 wrapper with a stage-1 qkv weight at 1e38 (the request raises from
+   ``swin_block_cuda``; with the tripwire off it returns with the bf16
+   path's launches); a wheel of this tree, unpacked and run in a fresh
+   interpreter outside the repository (the ten kernels built into a
+   temporary ``XDG_CACHE_HOME``, #1 against its plain version, the native
+   audio library built there), started at the slice phase's start so that
+   its build overlaps the paths, and waited for here;
+15. timings of the paths by stage (host preprocessing, log-mel, encoder,
+   prefill, decode step as the slope of two lengths, with each llama
+   mode's streaming bound ``roofline.decode_step_bytes`` over the HBM rate
+   printed beside it, whole request), and
    torch.profiler over one warm B=1 request of each path (device time,
    kernel launches, the device's idle share, and the device time and
    launches of the log-mel, the decode attention, the prefill attention
@@ -205,7 +221,9 @@ from mellow_tpu_torch.ops import swin_block as sb
 from mellow_tpu_torch.ops import window_attention as wa
 from mellow_tpu_torch.ops.int8 import rms_norm_f32, rowquant
 from mellow_tpu_torch.serving import BatchingEngine
+from mellow_tpu_torch.utils import debug, profiling, roofline
 from mellow_tpu_torch.utils.metrics import GLOBAL as metrics
+from mellow_tpu_torch.utils.roofline import PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_HBM_BYTES, PEAK_INT8_OPS
 
 SEED = 0
 MAX_LEN = 32
@@ -239,12 +257,6 @@ INT8_TOL = (7.5e-2, 6e-2)
 # scales within one bf16 ulp of the row's max (2^-7 relative).
 INT8_LEVELS = 1
 SCALE_RTOL = 2.0 ** -7
-# One NVIDIA H100 SXM (data sheet, dense): bf16 and int8 tensor cores, fp32
-# without tensor cores, HBM3.
-PEAK_BF16 = 989e12
-PEAK_INT8 = 1979e12
-PEAK_FP32 = 67e12
-HBM_BYTES_PER_S = 3.35e12
 # name -> (module, its launch counter, its kernels-per-call constant, source,
 # the TPU kernel it replaces)
 KERNELS = {
@@ -397,7 +409,7 @@ def _paired(kernel, library, rounds: int = 5) -> dict:
 def _bound(n_bytes: float, flops: float, peak: float) -> tuple:
     """The least time for the work, max(bytes / HBM rate, ops / peak), in
     ms, and which of the two it is."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    t_bytes, t_ops = n_bytes / PEAK_HBM_BYTES, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -663,7 +675,7 @@ def bench_log_mel(cfg) -> dict:
         n_bins = cfg.n_fft // 2 + 1
         flops = batch * cfg.num_frames * (cfg.n_fft + 2.5 * cfg.n_fft * np.log2(cfg.n_fft) + 3 * n_bins
                                           + 2 * n_bins * cfg.n_mels + cfg.n_mels)
-        bound = _bound(_nbytes(wave_, out), flops, PEAK_FP32)
+        bound = _bound(_nbytes(wave_, out), flops, PEAK_FP32_FLOPS)
         window = torch.from_numpy(fe.hann_window(cfg.n_fft).astype(np.float32)).cuda()
         fb = fe.device_tables(cfg, wave_.device)[1]
         extra = _composed("log_mel", f"B={batch}", out, lambda: composed_log_mel(wave_, cfg, window, fb),
@@ -696,7 +708,7 @@ def bench_decode_attention(dec, prefix_len: int) -> dict:
         paired = _paired(lambda: da.decode_attention_cuda(q, k, v, n),
                          lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True))
         n_bytes = _nbytes(q, out) + 2 * batch * n * KV * hd * k.element_size()
-        bound = _bound(n_bytes, 4 * batch * H * n * hd, PEAK_BF16)
+        bound = _bound(n_bytes, 4 * batch * H * n * hd, PEAK_BF16_FLOPS)
         cases.append({**_case("decode_attention", f"B={batch} n={n}", err, f"{BF16_KERNEL_TOL} x max|plain|",
                               ms, plain_ms, bound, paired=paired), "cluster_blocks": da.cluster_blocks(n)})
     # Continuous batching's ragged rows: a per-row start at 4 and 8 slots.
@@ -722,7 +734,8 @@ def bench_decode_attention(dec, prefix_len: int) -> dict:
         library_ms = _median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True))
         # The positions this run's starts leave, not all n.
         live = int((n - start).sum().item())
-        bound = _bound(_nbytes(q, out, start) + 2 * live * KV * hd * k.element_size(), 4 * H * live * hd, PEAK_BF16)
+        bound = _bound(_nbytes(q, out, start) + 2 * live * KV * hd * k.element_size(), 4 * H * live * hd,
+                       PEAK_BF16_FLOPS)
         cases.append({**_case("decode_attention", f"B={batch} n={n} start", err, f"{BF16_KERNEL_TOL} x max|plain|",
                               ms, plain_ms, bound, library_ms), "starts": start.tolist(),
                       "start_zero_bit_equal": same})
@@ -766,7 +779,7 @@ def bench_attn_block(dec, S: int) -> dict:
         # Projections, o-proj, and the causal triangle of QK^T and PV.
         flops = (2 * M * D * (H + 2 * KV) * hd + 2 * M * H * hd * D
                  + 2 * 2 * batch * H * hd * (S * (S + 1) // 2))
-        bound = _bound(_nbytes(x, *w, cos, sin, *got), flops, PEAK_BF16)
+        bound = _bound(_nbytes(x, *w, cos, sin, *got), flops, PEAK_BF16_FLOPS)
         split = split_or_none(lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
         _print_split(f"attn_block B={batch} S={S} stages", split)
         wqkv = torch.cat([lp["wq"], lp["wk"], lp["wv"]], dim=1)
@@ -793,7 +806,7 @@ def bench_mlp_block(dec, S: int) -> dict:
         err = _check_bf16("mlp_block", out, mb.mlp_block_plain(x, *w, eps=eps))
         ms, plain_ms = _alternate(lambda: mb.mlp_block_plain(x, *w, eps=eps),
                                   lambda: mb.mlp_block_cuda(x, *w, eps=eps))
-        bound = _bound(_nbytes(x, *w, out), 2 * batch * S * D * I * 3, PEAK_BF16)
+        bound = _bound(_nbytes(x, *w, out), 2 * batch * S * D * I * 3, PEAK_BF16_FLOPS)
         split = split_or_none(lambda: mb.mlp_block_cuda(x, *w, eps=eps))
         _print_split(f"mlp_block B={batch} S={S} stages", split)
         wgu = torch.cat([lp["w_gate"], lp["w_up"]], dim=1)
@@ -860,7 +873,7 @@ def bench_swin_block(encs) -> dict:
                 M = batch * res * res
                 # qkv, proj, fc1, fc2 (12 C^2 per token) and the window QK^T and PV.
                 flops = 2 * M * C * 12 * C + 2 * 2 * M * N * C
-                bound = _bound(_nbytes(x, *weights, out), flops, PEAK_BF16)
+                bound = _bound(_nbytes(x, *weights, out), flops, PEAK_BF16_FLOPS)
                 shape = f"{label} stage {si + 1} B={batch} R={res} C={C} H={H} hd={C // H} SW-MSA"
                 split = split_or_none(lambda: sb.swin_block_cuda(x, p, bias, mask, **kw))
                 _print_split(f"swin_block {shape} stages", split)
@@ -907,7 +920,7 @@ def bench_window_attention(enc) -> dict:
                                  lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=add))
                 # qkv read once, the output written once, the bias as its bf16
                 # table; QK^T and PV over every window.
-                bound = _bound(_nbytes(qkv, out, table), 4 * batch * nW * N * N * C, PEAK_BF16)
+                bound = _bound(_nbytes(qkv, out, table), 4 * batch * nW * N * N * C, PEAK_BF16_FLOPS)
                 cases.append(_case("window_attention", f"HTSAT-large stage {si + 1} B={batch} R={res} C={C} H={H} "
                                    f"hd={C // H} {'SW-MSA' if shifted else 'W-MSA'}", err,
                                    f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound, paired=paired))
@@ -982,7 +995,7 @@ def bench_decode_attention_int8(dec, prefix_len: int) -> dict:
         # q, the extra rows and the output in bf16; n positions of int8 k
         # and v and their fp32 scales. No PyTorch call takes an int8 cache.
         n_bytes = _nbytes(q, out, *cur) + 2 * batch * n * (KV * hd + 4)
-        bound = _bound(n_bytes, 4 * batch * H * (n + E) * hd, PEAK_INT8)
+        bound = _bound(n_bytes, 4 * batch * H * (n + E) * hd, PEAK_INT8_OPS)
         cases.append({**_case("decode_attention_int8", f"B={batch} n={n} E={E}", err,
                               f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound),
                       "cluster_blocks": di.cluster_blocks(n), "ms_one_block": one_ms,
@@ -1009,7 +1022,7 @@ def bench_decode_attention_int8(dec, prefix_len: int) -> dict:
                                   lambda: di.decode_attention_int8_cuda(*args, start))
         live = int((n - start).sum().item())
         bound = _bound(_nbytes(q, out, start, *cur) + 2 * live * (KV * hd + 4), 4 * H * (live + batch * E) * hd,
-                       PEAK_INT8)
+                       PEAK_INT8_OPS)
         cases.append({**_case("decode_attention_int8", f"B={batch} n={n} E={E} start", err,
                               f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound),
                       "starts": start.tolist(), "start_zero_bit_equal": same})
@@ -1041,7 +1054,7 @@ def bench_attn_block_kv_quant(dec, S: int) -> dict:
         kv = _check_int8_kv("attn_block kv_quant", got[1:], ref[1:])
         ms, plain_ms = _alternate(lambda: ab.attn_block_plain(x, *w, cos, sin, **kw),
                                   lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
-        bound = _bound(_nbytes(x, *w, cos, sin, *got), sum(_attn_flops(batch, S, D, H, KV, hd)), PEAK_BF16)
+        bound = _bound(_nbytes(x, *w, cos, sin, *got), sum(_attn_flops(batch, S, D, H, KV, hd)), PEAK_BF16_FLOPS)
         split = split_or_none(lambda: ab.attn_block_cuda(x, *w, cos, sin, **kw))
         _print_split(f"attn_block_kv_quant B={batch} S={S} stages", split)
         cases.append({**_case("attn_block_kv_quant", f"B={batch} S={S}", err,
@@ -1070,8 +1083,8 @@ def bench_attn_block_w8a8(dec, S: int) -> dict:
                                   lambda: aw.attn_block_w8a8_cuda(x, ln, *w, cos, sin, **kw))
         # The projections at the int8 peak, the attention core at bf16's.
         proj, attn = _attn_flops(batch, S, D, H, KV, hd)
-        t_ops = proj / PEAK_INT8 + attn / PEAK_BF16
-        bound = _bound(_nbytes(x, ln, *w, cos, sin, *got), t_ops * PEAK_BF16, PEAK_BF16)
+        t_ops = proj / PEAK_INT8_OPS + attn / PEAK_BF16_FLOPS
+        bound = _bound(_nbytes(x, ln, *w, cos, sin, *got), t_ops * PEAK_BF16_FLOPS, PEAK_BF16_FLOPS)
         split = split_or_none(lambda: aw.attn_block_w8a8_cuda(x, ln, *w, cos, sin, **kw))
         _print_split(f"attn_block_w8a8 B={batch} S={S} stages", split)
         cases.append({**_case("attn_block_w8a8", f"B={batch} S={S} kv_quant", err,
@@ -1094,7 +1107,7 @@ def bench_mlp_block_w8a8(dec, S: int) -> dict:
         err = _check_bf16("mlp_block_w8a8", out, mw.mlp_block_w8a8_plain(x, ln, *w, eps=eps))
         ms, plain_ms = _alternate(lambda: mw.mlp_block_w8a8_plain(x, ln, *w, eps=eps),
                                   lambda: mw.mlp_block_w8a8_cuda(x, ln, *w, eps=eps))
-        bound = _bound(_nbytes(x, ln, *w, out), 2 * batch * S * D * I * 3, PEAK_INT8)
+        bound = _bound(_nbytes(x, ln, *w, out), 2 * batch * S * D * I * 3, PEAK_INT8_OPS)
         split = split_or_none(lambda: mw.mlp_block_w8a8_cuda(x, ln, *w, eps=eps))
         _print_split(f"mlp_block_w8a8 B={batch} S={S} stages", split)
         extra = _composed("mlp_block_w8a8", f"B={batch} S={S}", out,
@@ -1127,7 +1140,7 @@ def bench_flash_gqa_prefill(dec, S: int) -> dict:
         paired = _paired(lambda: fp.flash_gqa_prefill_cuda(q, k, v, **kw),
                          lambda: F.scaled_dot_product_attention(*heads, is_causal=True))
         # q, k, v read once, o written once; the causal triangle of QK^T and PV.
-        bound = _bound(_nbytes(q, k, v, out), 2 * 2 * batch * H * hd * (S * (S + 1) // 2), PEAK_BF16)
+        bound = _bound(_nbytes(q, k, v, out), 2 * 2 * batch * H * hd * (S * (S + 1) // 2), PEAK_BF16_FLOPS)
         cases.append(_case("flash_gqa_prefill", f"B={batch} S={S} H=KV={H} hd={hd}", err,
                            f"{BF16_KERNEL_TOL} x max|plain|", ms, plain_ms, bound, paired=paired))
     return _row("flash_gqa_prefill", cases)
@@ -1387,6 +1400,15 @@ def stage_times(wrapper, cfg, request, batch: int, path: str) -> dict:
     slopes = [(b - a) / 32 for a, b in zip(t32, t64)]
     out["decode_step_ms_min_max"] = [min(slopes), max(slopes)]
     out["decode_tokens_per_s"] = batch / (out["decode_step_ms"] / 1e3)
+    if family == "llama":
+        # Streaming every weight and the 64-token run's whole cache once a
+        # step at the HBM rate: a yardstick, not a limit.
+        compute = str(dt).removeprefix("torch.")
+        n_bytes = roofline.decode_step_bytes(dec, batch, P + 64, "int8" if int8 else compute,
+                                             "int8" if ctor.get("weight_dtype") else compute)
+        bound = out["decode_step_hbm_bound_ms"] = n_bytes / PEAK_HBM_BYTES * 1e3
+        print(f"decode step {path} B={batch}: {out['decode_step_ms']:.4f} ms, streaming bound {bound:.4f} ms "
+              f"({roofline.pct(bound / out['decode_step_ms'])})")
     out["request_ms"] = _host_ms(lambda: wrapper.generate(examples, max_len=MAX_LEN, crop_start=0,
                                                           **gen_kwargs))
     return out
@@ -2592,6 +2614,228 @@ def parallel_phase(wrappers, cfgs, params_np, requests, answers, tmp, card, ckpt
     return out
 
 
+# ---------------------------------------------------------------------------
+# utils phase: the entry module, trace(), the tripwires, an installed copy
+# ---------------------------------------------------------------------------
+
+# The bf16 path's kernels in a Chrome trace: name -> the PROFILED_KERNELS
+# labels of the CUDA symbols each launches.
+TRACE_KERNELS = {"log_mel": ("log_mel",), "swin_block": ("swin_block",), "mlp_block": ("mlp_block",),
+                 "attn_block": ("attn_qkv_projection", "prefill_attention_core", "attn_o_projection"),
+                 "decode_attention": ("decode_attention",)}
+TRACE_MAX_LEN = 8
+
+# Run in a fresh interpreter beside an installed copy of the port (argv: the
+# copy's directory, the cache directory): build the kernels, #1 on a 10 s
+# clip against its plain version, the native audio library; one JSON line.
+INSTALLED_CHECK = r"""
+import json, os, sys, time
+import torch
+import mellow_tpu_torch
+from mellow_tpu_torch.config import get_config
+from mellow_tpu_torch.native import binding
+from mellow_tpu_torch.ops import _build, frontend, melspec
+
+site, cache = sys.argv[1], sys.argv[2]
+if not mellow_tpu_torch.__file__.startswith(site + os.sep):
+    raise SystemExit(f"imported {mellow_tpu_torch.__file__}, not the copy in {site}")
+t = time.perf_counter()
+lib = _build.build()
+build_s = time.perf_counter() - t
+if lib != os.path.join(cache, "mellow_tpu_torch", "libmellow_kernels.so") or not os.path.exists(lib):
+    raise SystemExit(f"the kernel library is at {lib}, not under {cache}")
+cfg = get_config("v0").frontend
+gen = torch.Generator(device="cuda").manual_seed(0)
+wave = torch.randn((1, cfg.num_samples), generator=gen, device="cuda") * 0.1
+out = melspec.log_mel_cuda(wave, cfg)
+ref = frontend.log_mel_spectrogram(wave, cfg)
+torch.testing.assert_close(out, ref, atol=float(sys.argv[3]), rtol=float(sys.argv[4]))
+native = binding.available()
+if not native or not binding._LIB_PATH.startswith(os.path.join(cache, "mellow_tpu_torch") + os.sep):
+    raise SystemExit(f"the native audio library is not built under {cache}: {binding._LIB_PATH}")
+print(json.dumps({"package": mellow_tpu_torch.__file__, "library": lib, "build_s": build_s,
+                  "log_mel_max_abs_err": (out - ref).abs().max().item(), "log_mel_launches": melspec.LAUNCHES,
+                  "native_audio": binding._LIB_PATH}))
+"""
+
+
+def hold_entry(card: str) -> dict:
+    """``entry.entry()``'s ``fn`` on the card at full v0 width: finite
+    logits, within BF16_TOL's logits limit of the same forward in fp32 (the
+    weights and clips cast), launching #1 twice and #8 in each of stages
+    1-3's 20 blocks and nothing else; its device time."""
+    from mellow_tpu_torch import entry
+    from mellow_tpu_torch.models.params import cast_floating
+
+    fn, args = entry.entry("cuda")
+    cfg = get_config("v0")
+    zero_counts()
+    with torch.no_grad():
+        logits = fn(*args)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = encoder_launches(cfg.encoder, 2)
+    if launches != want:
+        raise RuntimeError(f"entry: fn launched {launches}, expected {want}")
+    if logits.shape != (1, cfg.prefix_length + entry.ANSWER_LEN, cfg.decoder.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise RuntimeError(f"entry: logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    p32 = cast_floating(args[0], torch.float32)
+    with torch.no_grad():
+        ref = fn(p32, args[1].float(), args[2].float(), args[3], args[4])
+    del p32
+    err = (logits.float() - ref).abs().max().item() / ref.abs().max().item()
+    _, device_ms = _device_ms(lambda: fn(*args))
+    host_ms = _host_ms(lambda: fn(*args))
+    out = {"launches": launches, "logits_rel_err": err, "limit": BF16_TOL[1], "device_ms": device_ms,
+           "host_ms": host_ms, "card": card}
+    print(json.dumps({"entry_forward": out}))
+    if err > BF16_TOL[1]:
+        raise RuntimeError(f"entry: bf16 logits {err:.3g} x max|fp32| off the fp32 forward's")
+    return out
+
+
+def hold_trace(wrapper, cfg, request, tmp: str) -> dict:
+    """One bf16 B=1 request at max_len 8 inside ``profiling.trace(dir)``: one
+    Chrome trace, JSON, whose kernel events hold each of the bf16 path's
+    kernels' launches (the wrapper's count times its kernels a call) less
+    at most one (the profiler misses the first launch after it starts); a
+    request outside ``trace()`` writes no file."""
+    trace_dir = os.path.join(tmp, "traces")
+    rec = CallRecorder(wrapper)
+    try:
+        with profiling.trace(trace_dir):
+            wrapper.generate([request], max_len=TRACE_MAX_LEN)
+        wrapper.generate([request], max_len=TRACE_MAX_LEN)
+    finally:
+        rec.remove()
+    files = os.listdir(trace_dir)
+    if len(files) != 1:
+        raise RuntimeError(f"trace: {len(files)} files in {trace_dir}, expected 1: {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    call = rec.calls[0]
+    want = expected_launches(cfg, call["steps"], "bf16", TRACE_MAX_LEN)
+    if call["launches"] != want:
+        raise RuntimeError(f"trace: the traced request launched {call['launches']}, expected {want}")
+    seen = {}
+    for name, labels in TRACE_KERNELS.items():
+        syms = [sym for label in labels for sym in PROFILED_KERNELS[label]]
+        seen[name] = sum(any(sym in k for sym in syms) for k in kernels)
+    expected = {name: want[name] * getattr(KERNELS[name][0], KERNELS[name][2]) for name in TRACE_KERNELS}
+    out = {"file_bytes": os.path.getsize(os.path.join(trace_dir, files[0])), "kernel_events": len(kernels),
+           "by_kernel": seen, "expected": expected, "steps": call["steps"]}
+    print(json.dumps({"trace": out}))
+    short = [n for n in TRACE_KERNELS if seen[n] < expected[n] - 1]
+    if short:
+        raise RuntimeError(f"trace: too few kernel events for {short}: {seen}, expected {expected}")
+    return out
+
+
+def hold_tripwire(wrapper, cfg, request) -> dict:
+    """The bf16 wrapper with stage 1's first qkv kernel at +-1e38 (bf16):
+    with ``enable_debug()`` the request raises from #8's wrapper, whose own
+    products overflow; after ``disable_debug()`` the same request returns,
+    with the bf16 path's launches."""
+    qkv = wrapper.params["encoder"]["stages"][0]["blocks"][0]["qkv"]
+    kernel = qkv["kernel"]
+    qkv["kernel"] = torch.where(kernel < 0, -1e38, 1e38).to(kernel.dtype)
+    rec = CallRecorder(wrapper)
+    try:
+        debug.enable_debug()
+        try:
+            wrapper.generate([request], max_len=TRACE_MAX_LEN)
+            raise RuntimeError("tripwire: the request with an overflowing Swin block returned")
+        except FloatingPointError as e:
+            raised = str(e)
+        finally:
+            debug.disable_debug()
+        if not raised.startswith("swin_block_cuda:"):
+            raise RuntimeError(f"tripwire: raised {raised!r}, not from #8's wrapper")
+        wrapper.generate([request], max_len=TRACE_MAX_LEN)
+    finally:
+        qkv["kernel"] = kernel
+        rec.remove()
+    call = rec.calls[-1]
+    want = expected_launches(cfg, call["steps"], "bf16", TRACE_MAX_LEN)
+    if call["launches"] != want:
+        raise RuntimeError(f"tripwire: the request after disable_debug launched {call['launches']}, expected {want}")
+    out = {"raised": raised, "rerun_launches": call["launches"], "rerun_steps": call["steps"]}
+    print(json.dumps({"tripwire": out}))
+    return out
+
+
+def start_installed(tmp: str) -> dict:
+    """A wheel of this tree (``pip wheel --no-build-isolation``, from a copy
+    of the files setuptools reads), unpacked into ``tmp``; then, in the
+    background, ``INSTALLED_CHECK`` in a fresh interpreter outside the
+    repository with only the copy on PYTHONPATH and the cache directory in
+    ``tmp``. Its nvcc build overlaps the paths phase, which the smoke
+    times by nothing it records. Killed at exit if still running."""
+    import atexit
+    import shutil
+    import zipfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    src, wheels, site, cache = (os.path.join(tmp, d) for d in ("src", "wheels", "site", "cache"))
+    skip = shutil.ignore_patterns("__pycache__", "*.so")
+    for name in ("mellow_tpu", "mellow_tpu_torch"):
+        shutil.copytree(os.path.join(root, name), os.path.join(src, name), ignore=skip)
+    for name in ("pyproject.toml", "README.md"):
+        shutil.copy(os.path.join(root, name), src)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pip", "wheel", src, "--no-deps", "--no-build-isolation",
+                           "-w", wheels], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"installed: pip wheel failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    (whl,) = [os.path.join(wheels, f) for f in os.listdir(wheels) if f.endswith(".whl")]
+    with zipfile.ZipFile(whl) as z:
+        z.extractall(site)
+    out = {"wheel": os.path.basename(whl), "wheel_s": time.perf_counter() - t, "log": os.path.join(tmp, "check.log")}
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "XDG_CACHE_HOME")}
+    env.update(PYTHONPATH=site, XDG_CACHE_HOME=cache)
+    with open(out["log"], "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", INSTALLED_CHECK, site, cache, str(KERNEL_TOL["atol"]),
+                                 str(KERNEL_TOL["rtol"])], cwd=tmp, env=env, stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    out.update(proc=proc, started=time.perf_counter())
+    return out
+
+
+def hold_installed(started: dict) -> dict:
+    """Wait for ``start_installed``'s check; its JSON line, the seconds from
+    its start to this wait's end (``check_s``) and the seconds this phase
+    waited for it."""
+    t = time.perf_counter()
+    proc, started_at = started.pop("proc"), started.pop("started")
+    rc = proc.wait(timeout=600)
+    with open(started["log"]) as f:
+        log = f.read()
+    if rc != 0:
+        raise RuntimeError(f"installed: the check failed ({rc}):\n{log}")
+    out = {**started, "check_s": time.perf_counter() - started_at, "waited_s": time.perf_counter() - t,
+           **json.loads([line for line in log.splitlines() if line.startswith("{")][-1])}
+    print(json.dumps({"installed": out}))
+    return out
+
+
+def utils_phase(wrappers, cfg, requests, tmp: str, card: str, installed: dict) -> dict:
+    """(a) ``entry()``'s forward (``hold_entry``), (b) ``trace()``
+    (``hold_trace``), (c) the tripwires (``hold_tripwire``), (d) an
+    installed copy (``start_installed``, ``hold_installed``). Raises on any
+    failure."""
+    t0 = time.perf_counter()
+    out = {"entry": hold_entry(card)}
+    out["trace"] = hold_trace(wrappers["bf16"], cfg, requests[0], tmp)
+    out["tripwire"] = hold_tripwire(wrappers["bf16"], cfg, requests[0])
+    out["installed"] = hold_installed(installed)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"utils": {"seconds": out["seconds"], "card": card}}))
+    print(f"utils phase took {out['seconds']:.1f} s")
+    return out
+
+
 def slice_phase(card: str) -> dict:
     """Drive every path; return each path's kernel launches and generate
     calls, the encoder entry points' launches, the stage timings, and the
@@ -2609,6 +2853,7 @@ def slice_phase(card: str) -> dict:
     timings, launches, answers, calls = {}, {}, {}, {}
     scope = {"int8_weights": "one", "gpt2_int8_weights": "one", "large_fp32": "batch", "large_bf16": "batch"}
     with tempfile.TemporaryDirectory() as tmp:
+        installed = start_installed(os.path.join(tmp, "installed"))
         a = _write_wav(os.path.join(tmp, "a.wav"), 7.0, 1)  # repeat-padded
         b = _write_wav(os.path.join(tmp, "b.wav"), 9.5, 2)
         requests = [[a, b, "caption the audio."],
@@ -2639,6 +2884,8 @@ def slice_phase(card: str) -> dict:
         parallel = parallel_phase(wrappers, cfgs, params["v0"], requests, answers, tmp, card,
                                   training["checkpoint"]["bytes"])
         launches["mesh_dp"] = parallel["mesh_dp"]["launches"]
+        utils = utils_phase(wrappers, cfgs["v0"], requests, tmp, card, installed)
+        launches["entry_forward"] = utils["entry"]["launches"]
 
         audio1 = wrappers["fp32"].preprocess_audio([r[0] for r in requests[:2]], True)
         audio2 = wrappers["fp32"].preprocess_audio([r[1] for r in requests[:2]], True)
@@ -2669,7 +2916,7 @@ def slice_phase(card: str) -> dict:
     print(f"family holds took {time.perf_counter() - t:.1f} s")
     return {"launches": launches, "calls": calls, "entries": entries, "timings": timings, "decoding": decoding,
             "continuous": continuous, "training": training, "entry": entry, "parallel": parallel,
-            "gpt2_float_cache": gpt2_float_cache}
+            "utils": utils, "gpt2_float_cache": gpt2_float_cache}
 
 
 # Kernels whose device time per request the profile reports: name -> the
@@ -2968,6 +3215,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # A trace directory in the environment would trace every request, and
+    # profiling.trace refuses to start inside the profiled phases' profiler.
+    os.environ.pop(profiling.ENV_VAR, None)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -2,10 +2,11 @@
 
 The port's own copy of ``mellow_tpu/native/binding.py``. The library is
 compiled from ``src/audio.cc`` with the host C++ compiler into the
-git-ignored ``build/mellow_tpu_torch/`` beside the package, at first use
-(not beside the source). Without a toolchain the pure-Python readers in
-``mellow_tpu_torch/io`` are used instead; they are the correctness
-reference for the native code."""
+package's build directory (``utils/build_dir.py``: the git-ignored
+``build/mellow_tpu_torch/`` in a checkout, the user's cache directory for
+an installed package), at first use (not beside the source). Without a
+toolchain the pure-Python readers in ``mellow_tpu_torch/io`` are used
+instead; they are the correctness reference for the native code."""
 
 from __future__ import annotations
 
@@ -16,9 +17,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from mellow_tpu_torch.utils.build_dir import build_dir
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src", "audio.cc")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build", "mellow_tpu_torch")
+_BUILD_DIR = build_dir(os.path.dirname(_DIR))
 _LIB_PATH = os.path.join(_BUILD_DIR, "libmellow_audio.so")
 _lib = None
 _load_attempted = False

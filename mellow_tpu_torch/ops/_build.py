@@ -2,8 +2,10 @@
 
 Every ``mellow_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc`` process per source, all started together, and
-the objects are linked into ``build/mellow_tpu_torch/libmellow_kernels.so``
-beside the package, at first use; the library is loaded with ``ctypes``.
+the objects are linked into ``libmellow_kernels.so`` in the build directory
+(``utils/build_dir.py``: ``build/mellow_tpu_torch/`` in a checkout, the
+user's cache directory for an installed package), at first use; the
+library is loaded with ``ctypes``.
 The sources carry a plain C interface (no PyTorch headers), so a build
 takes seconds. The library is rebuilt when the hash of the sources, the
 headers they include (``csrc/*.cuh``, ``csrc/*.h``) and the flags changes.
@@ -22,9 +24,11 @@ import subprocess
 
 import torch
 
+from mellow_tpu_torch.utils.build_dir import build_dir
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "mellow_tpu_torch")
+BUILD_DIR = build_dir(_PKG_DIR)
 LIB_PATH = os.path.join(BUILD_DIR, "libmellow_kernels.so")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -34,6 +34,7 @@ import torch
 from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 from mellow_tpu_torch.ops.int8 import rowquant
 from mellow_tpu_torch.ops.mlp_block import mm, rms_norm
+from mellow_tpu_torch.utils.debug import check_outputs
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 3
@@ -233,7 +234,9 @@ def attn_block_cuda(x, ln_w, wq, wk, wv, wo, cos, sin, *, num_heads: int, num_kv
         LAUNCHES_KV_QUANT += 1
     else:
         LAUNCHES += 1
-    return (out, *kv_results(k_rows, v_rows, k8, v8, ks, vs))
+    res = (out, *kv_results(k_rows, v_rows, k8, v8, ks, vs))
+    check_outputs("attn_block_cuda", *res)
+    return res
 
 
 def attn_block(x, ln_w, wq, wk, wv, wo, cos, sin, *, num_heads: int, num_kv_heads: int,

@@ -32,6 +32,7 @@ from mellow_tpu_torch.ops.attn_block import (
     causal_gqa_plain, check_geometry, copy_kv, kv_destinations, kv_quant_plain, kv_results, quant_args,
     rope_rounded)
 from mellow_tpu_torch.ops.int8 import mm8, rms_norm_f32, rowquant
+from mellow_tpu_torch.utils.debug import check_outputs
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 5
@@ -101,7 +102,9 @@ def attn_block_w8a8_cuda(x, ln_w, wq_q, wq_s, wk_q, wk_s, wv_q, wv_s, wo_q, wo_s
         )
     check(err, "W8A8 attention block kernel")
     LAUNCHES += 1
-    return (out, *kv_results(k_rows, v_rows, k8, v8, ks, vs))
+    res = (out, *kv_results(k_rows, v_rows, k8, v8, ks, vs))
+    check_outputs("attn_block_w8a8_cuda", *res)
+    return res
 
 
 def attn_block_w8a8(x, ln_w, wq_q, wq_s, wk_q, wk_s, wv_q, wv_s, wo_q, wo_s, cos, sin, *,

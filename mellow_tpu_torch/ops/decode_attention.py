@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 
 from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
+from mellow_tpu_torch.utils.debug import check_outputs
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 1
@@ -120,6 +121,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: 
         )
     check(err, "decode attention kernel")
     LAUNCHES += 1
+    check_outputs("decode_attention_cuda", out)
     return out
 
 

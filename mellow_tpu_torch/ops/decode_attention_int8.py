@@ -48,6 +48,7 @@ import torch
 
 from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 from mellow_tpu_torch.ops.decode_attention import MAX_CLUSTER, check_start, cluster_blocks, start_mask
+from mellow_tpu_torch.utils.debug import check_outputs
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 1
@@ -182,6 +183,7 @@ def decode_attention_int8_cuda(q, k8, v8, k_scale, v_scale, n: int, k_extra, v_e
         )
     check(err, "int8 decode attention kernel")
     LAUNCHES += 1
+    check_outputs("decode_attention_int8_cuda", out)
     return out
 
 

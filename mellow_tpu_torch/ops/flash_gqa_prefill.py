@@ -23,6 +23,7 @@ import torch
 
 from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 from mellow_tpu_torch.ops.attn_block import causal_gqa_plain
+from mellow_tpu_torch.utils.debug import check_outputs
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 1
@@ -79,6 +80,7 @@ def flash_gqa_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         )
     check(err, "prefill attention kernel")
     LAUNCHES += 1
+    check_outputs("flash_gqa_prefill_cuda", out)
     return out
 
 

@@ -14,6 +14,7 @@ import torch
 from mellow_tpu_torch.config import FrontendConfig
 from mellow_tpu_torch.ops import frontend as fe
 from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
+from mellow_tpu_torch.utils.debug import check_outputs
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 1
@@ -61,4 +62,5 @@ def log_mel_cuda(wave: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
         )
     check(err, "log-mel kernel")
     LAUNCHES += 1
+    check_outputs("log_mel_cuda", out)
     return out

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
+from mellow_tpu_torch.utils.debug import check_outputs
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 2
@@ -112,6 +113,7 @@ def mlp_block_cuda(x, ln_w, w_gate, w_up, w_down, *, eps: float) -> torch.Tensor
         )
     check(err, "MLP block kernel")
     LAUNCHES += 1
+    check_outputs("mlp_block_cuda", out)
     return out
 
 

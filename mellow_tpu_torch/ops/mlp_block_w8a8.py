@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 from mellow_tpu_torch.ops.int8 import mm8, rms_norm_f32, rowquant
+from mellow_tpu_torch.utils.debug import check_outputs
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 2
@@ -103,6 +104,7 @@ def mlp_block_w8a8_cuda(x, ln_w, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s, *, eps: flo
         )
     check(err, "W8A8 MLP block kernel")
     LAUNCHES += 1
+    check_outputs("mlp_block_w8a8_cuda", out)
     return out
 
 

@@ -28,6 +28,7 @@ import torch
 
 from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
 from mellow_tpu_torch.ops.mlp_block import MAX_SHARED, mm, panel_shared_bytes
+from mellow_tpu_torch.utils.debug import check_outputs
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 5
@@ -158,6 +159,7 @@ def swin_block_cuda(x: torch.Tensor, p: dict, bias: torch.Tensor, mask: Optional
         )
     check(err, "Swin block kernel")
     LAUNCHES += 1
+    check_outputs("swin_block_cuda", out)
     return out
 
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from mellow_tpu_torch.ops._build import check, load_library, refuse_grad
+from mellow_tpu_torch.utils.debug import check_outputs
 
 LAUNCHES = 0
 KERNELS_PER_CALL = 1
@@ -99,6 +100,7 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[
         )
     check(err, "window attention kernel")
     LAUNCHES += 1
+    check_outputs("window_attention_cuda", out)
     return out
 
 

@@ -32,6 +32,8 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mellow_tpu_torch.utils import debug
+
 
 @dataclass(frozen=True)
 class _BatchKey:
@@ -374,11 +376,14 @@ class ContinuousBatchingEngine:
         while alive:
             reqs, alive = self._drain(block=self._sched.idle and alive)
             if reqs:
-                self._encode_and_submit(reqs)
+                with debug.checking():
+                    self._encode_and_submit(reqs)
             if self._sched.idle:
                 continue
             try:
-                for rid, toks in self._sched.step():
+                with debug.checking():
+                    finished = self._sched.step()
+                for rid, toks in finished:
                     fut = self._futures.pop(rid, None)
                     if fut is not None and not fut.done():
                         text = self.wrapper.tokenizer.decode(toks)

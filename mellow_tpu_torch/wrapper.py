@@ -71,6 +71,7 @@ from mellow_tpu_torch.io.resample import resample
 from mellow_tpu_torch.io.tokenizer import load_tokenizer
 from mellow_tpu_torch.io.wav import read_wav
 from mellow_tpu_torch.native import binding as native_audio
+from mellow_tpu_torch.utils import debug, profiling
 from mellow_tpu_torch.utils.metrics import GLOBAL as metrics
 from mellow_tpu_torch.utils.params_io import load_params
 from mellow_tpu_torch.models import generate as gen
@@ -264,7 +265,7 @@ class MellowWrapper:
             return self._mesh_call("generate", examples, audio_resample, crop_start, kw)
         audio1, audio2, text_ids = self._host_inputs(examples, audio_resample, crop_start)
 
-        with metrics.timer("generate"):
+        with profiling.trace(), debug.checking(), metrics.timer("generate"):
             gen_fn = mellow_model.generate_tokens_dynamic if dynamic_batch else mellow_model.generate_tokens
             result = gen_fn(
                 self.params, self.cfg, *self._device_inputs(audio1, audio2, text_ids),
@@ -306,16 +307,18 @@ class MellowWrapper:
                       repetition_penalty=repetition_penalty)
             yield from self._mesh_call("generate_stream", examples, audio_resample, crop_start, kw)
             return
-        a1, a2, ids = self._device_inputs(*self._host_inputs(examples, audio_resample, crop_start))
-        prefix = mellow_model.encode_and_prefix(self.params, self.cfg, a1, a2, ids)
-        for result in gen.generate_stream(
+        host = self._host_inputs(examples, audio_resample, crop_start)
+        with debug.checking():
+            a1, a2, ids = self._device_inputs(*host)
+            prefix = mellow_model.encode_and_prefix(self.params, self.cfg, a1, a2, ids)
+        for result in debug.checked(gen.generate_stream(
             self.params["decoder"], self.cfg.decoder, prefix,
             max_len=max_len, stop_token_id=self._stop_token_id(stop_token), greedy=not sample,
             top_p=top_p, temperature=temperature, rng=self._rng(seed),
             kv_cache_dtype=cache, family=self.cfg.decoder_family, top_k=top_k,
             repetition_penalty=repetition_penalty, prompt_tokens=ids,
             prompt_mask=ids != self.cfg.pad_token_id, w8a8=self._w8a8,
-        ):
+        )):
             yield self._detokenize(result, stop_token)
 
     def cache_dtype(self, kv_cache_dtype: Optional[str]) -> Optional[str]:
@@ -368,7 +371,7 @@ class MellowWrapper:
                     repetition_penalty=kw["repetition_penalty"])
         if kind == "generate_stream":
             return self._mesh_stream(a1, a2, ids, done, B, kw["seed"], stop_token, opts)
-        with metrics.timer("generate"):
+        with profiling.trace(), debug.checking(), metrics.timer("generate"):
             result = mellow_model.generate_tokens_sharded(
                 self.params, self.cfg, a1, a2, ids, mesh=self.mesh, seed=kw["seed"], initial_done=done,
                 w8a8=self._w8a8, tp=self._tp, **opts)
@@ -383,12 +386,14 @@ class MellowWrapper:
         texts. Closed early, it still runs the windows that the other ranks
         run, so no rank waits in a collective."""
         rows = sharding.data_rows(self.mesh, a1.shape[0])
-        prefix = mellow_model.encode_and_prefix(self.params, self.cfg, a1[rows], a2[rows], ids[rows], tp=self._tp)
-        it = gen.generate_stream(
+        with debug.checking():
+            prefix = mellow_model.encode_and_prefix(self.params, self.cfg, a1[rows], a2[rows], ids[rows],
+                                                    tp=self._tp)
+        it = debug.checked(gen.generate_stream(
             self.params["decoder"], self.cfg.decoder, prefix, rng=sharding.data_generator(self.mesh, seed, self.device),
             initial_done=done[rows], family=self.cfg.decoder_family, prompt_tokens=ids[rows],
             prompt_mask=ids[rows] != self.cfg.pad_token_id, w8a8=self._w8a8, tp=self._tp,
-            data_group=sharding.data_group(self.mesh), **opts)
+            data_group=sharding.data_group(self.mesh), **opts))
         try:
             for result in it:
                 yield self._detokenize(result, stop_token)[:B]

@@ -6,6 +6,7 @@ function is held bit-equal to the original on the same inputs."""
 import dataclasses
 import io
 import json
+import os
 import wave
 from contextlib import redirect_stdout
 
@@ -25,6 +26,7 @@ from mellow_tpu.tools import export_ckpt as jexport
 from mellow_tpu.train import data as jdata
 from mellow_tpu.utils import params_io as jparams_io
 from mellow_tpu_torch import config as tconfig
+from mellow_tpu_torch import config_yaml as tconfig_yaml
 from mellow_tpu_torch import eval as teval
 from mellow_tpu_torch.io import bpe as tbpe
 from mellow_tpu_torch.io import resample as tresample
@@ -120,6 +122,21 @@ def _flatten(tree, prefix=""):
 @pytest.mark.parametrize("name", ["v0", "v0_s"])
 def test_config_copy_equal(name):
     assert dataclasses.asdict(tconfig.get_config(name)) == dataclasses.asdict(jconfig.get_config(name))
+
+
+def test_v0_yaml_copy_equal_and_loads_as_v0():
+    """The port ships its own ``configs/v0.yaml``, byte-equal to the JAX
+    package's, and its YAML loader reads it back as ``get_config("v0")``,
+    field for field (the name aside)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ours = os.path.join(root, "mellow_tpu_torch", "configs", "v0.yaml")
+    with open(ours, "rb") as f, open(os.path.join(root, "mellow_tpu", "configs", "v0.yaml"), "rb") as g:
+        assert f.read() == g.read()
+    cfg, ref = tconfig_yaml.load_yaml_config(ours, "v0_from_yaml"), tconfig.get_config("v0")
+    assert cfg.name == "v0_from_yaml"
+    for field in dataclasses.fields(ref):
+        if field.name != "name":
+            assert getattr(cfg, field.name) == getattr(ref, field.name), field.name
 
 
 def test_native_copy_builds_outside_the_package_and_matches_python(tmp_path):
