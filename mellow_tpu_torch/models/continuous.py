@@ -61,6 +61,7 @@ import torch
 
 from mellow_tpu_torch.models import generate as gen
 from mellow_tpu_torch.models import llama
+from mellow_tpu_torch.utils.profiling import annotate
 
 # The per-request top_p the JAX package's rejection sampler covers
 # (``generate._REJECT_MIN_TOP_P``); kept as a refusal for API parity.
@@ -359,7 +360,8 @@ class ContinuousScheduler:
         """Admit what fits, run one stage, return the finished (rid,
         token list) pairs. Call until ``idle``."""
         if self._done_host is None:
-            self._done_host = self.state.done.cpu().numpy().copy()
+            with annotate("mellow.host_sync"):
+                self._done_host = self.state.done.cpu().numpy().copy()
         done_host = self._done_host
         active = any(s is not None for s in self._slot)
         if self._queue and not any(self._admissible(q[2]) for q in self._queue):
@@ -382,8 +384,10 @@ class ContinuousScheduler:
             stop_token_id=self.stop_token_id, greedy=self.greedy, top_p=self.top_p,
             temperature=self.temperature, top_k=self.top_k, W=self.W)
         self._t = self.state.t
-        self._done_host = self.state.done.cpu().numpy().copy()
-        return self._collect(self._done_host, self.state.tokens.cpu().numpy(), self._t)
+        with annotate("mellow.host_sync"):
+            self._done_host = self.state.done.cpu().numpy().copy()
+            tokens = self.state.tokens.cpu().numpy()
+        return self._collect(self._done_host, tokens, self._t)
 
     @property
     def clock(self) -> int:

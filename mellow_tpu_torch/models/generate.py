@@ -78,6 +78,7 @@ from mellow_tpu_torch.models import gpt2, llama
 from mellow_tpu_torch.models.decoders import get_decoder_ops
 from mellow_tpu_torch.parallel import sharding
 from mellow_tpu_torch.parallel import tensor as tpar
+from mellow_tpu_torch.utils.profiling import annotate
 
 
 CACHE_DTYPES = {"int8": torch.int8, "float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -232,18 +233,19 @@ def _init_state(
         raise ValueError(
             f"prefix {P} + max_len {max_len} exceeds the decoder's "
             f"{cfg.max_position_embeddings} positions")
-    cache = ops.create_cache(lcfg, B, P + ML, device, cache_dtype(kv_cache_dtype, dtype))
-    window = None
-    if family == "llama":
-        hidden = ops.prefill(params, cfg, prefix_embeds, cache, w8a8=w8a8, tp=tp)
-        if llama.uses_window(cache, dtype):
-            window = llama.FlushWindow(lcfg, B, W, P, device, dtype, tp)
-    else:
-        if w8a8:
-            raise ValueError("w8a8 prefill is llama-family only")
-        hidden = ops.prefill(params, cfg, prefix_embeds, cache)
-        if gpt2.uses_window(cache, dtype):
-            window = gpt2.FlushWindow(cfg, B, W, P, device, dtype)
+    with annotate("mellow.prefill"):
+        cache = ops.create_cache(lcfg, B, P + ML, device, cache_dtype(kv_cache_dtype, dtype))
+        window = None
+        if family == "llama":
+            hidden = ops.prefill(params, cfg, prefix_embeds, cache, w8a8=w8a8, tp=tp)
+            if llama.uses_window(cache, dtype):
+                window = llama.FlushWindow(lcfg, B, W, P, device, dtype, tp)
+        else:
+            if w8a8:
+                raise ValueError("w8a8 prefill is llama-family only")
+            hidden = ops.prefill(params, cfg, prefix_embeds, cache)
+            if gpt2.uses_window(cache, dtype):
+                window = gpt2.FlushWindow(cfg, B, W, P, device, dtype)
     seen = None
     if repetition_penalty != 1.0:
         V = ops.embed_table(params).shape[0] if tp is None else cfg.vocab_size
@@ -280,7 +282,8 @@ def _window_body(
     P = S_max - ML
     embed = ops.embed_table(params)
     if family == "llama":
-        cos, sin = llama.rope_device_tables(cfg, S_max, state.last_hidden.dtype, state.last_hidden.device)
+        with annotate("mellow.host_sync"):  # a copy from host memory: it waits for the stream (the prefill)
+            cos, sin = llama.rope_device_tables(cfg, S_max, state.last_hidden.dtype, state.last_hidden.device)
 
         def step(s, tok_embed, pos):
             return ops.decode_step(params, cfg, tok_embed, s.cache, pos, cos, sin, s.window, s.start, tp=tp)
@@ -304,19 +307,22 @@ def _window_body(
         return torch.where(gmask, torch.argmax(logits, dim=-1), drawn)
 
     def body(s: DecodeState) -> DecodeState:
-        hidden = s.last_hidden
-        for t in range(s.t, min(s.t + W, max_len)):
-            logits = logits_of(hidden)
-            tok = choose(s, logits)
-            s.tokens[:, t] = tok
-            s.done.logical_or_(tok == stop_token_id)
-            if s.deadline is not None:
-                s.done.logical_or_(s.deadline <= t + 1)
-            if s.seen is not None:
-                s.seen.scatter_(1, tok[:, None], True)
-            if t + 1 < max_len:
-                hidden = step(s, embed[tok] if tp is None else tpar.embed(embed, tok, tp), P + t)
-        return s._replace(t=s.t + W, last_hidden=hidden)
+        with annotate("mellow.decode_window"):
+            hidden = s.last_hidden
+            for t in range(s.t, min(s.t + W, max_len)):
+                with annotate("mellow.token_choice"):
+                    logits = logits_of(hidden)
+                    tok = choose(s, logits)
+                s.tokens[:, t] = tok
+                s.done.logical_or_(tok == stop_token_id)
+                if s.deadline is not None:
+                    s.done.logical_or_(s.deadline <= t + 1)
+                if s.seen is not None:
+                    s.seen.scatter_(1, tok[:, None], True)
+                if t + 1 < max_len:
+                    with annotate("mellow.decode_step"):
+                        hidden = step(s, embed[tok] if tp is None else tpar.embed(embed, tok, tp), P + t)
+            return s._replace(t=s.t + W, last_hidden=hidden)
 
     return body
 
@@ -332,7 +338,11 @@ def _decode_loop(
     body = _window_body(params, cfg, state, family=family, max_len=max_len, stop_token_id=stop_token_id,
                         greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
                         repetition_penalty=repetition_penalty, W=W, tp=tp)
-    while state.t < max_len and int((~state.done).sum()) > alive_threshold:
+    while state.t < max_len:
+        with annotate("mellow.host_sync"):
+            alive = int((~state.done).sum())
+        if alive <= alive_threshold:
+            break
         state = body(state)
     return state
 
@@ -421,8 +431,11 @@ def generate_stream(
         if data_group is not None:
             tokens, done = sharding.gather_rows(tokens, data_group), done.to(torch.int32)
             dist.all_reduce(done, op=dist.ReduceOp.MIN, group=data_group)
-        yield GenerateResult(tokens=tokens.to("cpu", copy=True), num_steps=t)
-        if t >= max_len or bool(done):
+        with annotate("mellow.host_sync"):
+            snapshot = GenerateResult(tokens=tokens.to("cpu", copy=True), num_steps=t)
+            last = t >= max_len or bool(done)
+        yield snapshot
+        if last:
             return
 
 
@@ -490,7 +503,8 @@ def generate_cascade(
                              greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
                              repetition_penalty=repetition_penalty, W=W,
                              alive_threshold=cur // 2 if cur > min_batch else 0)
-        done = state.done.cpu()
+        with annotate("mellow.host_sync"):
+            done = state.done.cpu()
         if state.t >= max_len or bool(done.all()):
             break
         alive, dropped = torch.nonzero(~done)[:, 0], torch.nonzero(done)[:, 0]

@@ -96,6 +96,7 @@ from mellow_tpu_torch.ops.decode_attention_int8 import decode_attention_int8
 from mellow_tpu_torch.ops.mlp_block import mlp_block, rms_norm
 from mellow_tpu_torch.ops.mlp_block_w8a8 import mlp_block_w8a8
 from mellow_tpu_torch.parallel import tensor as tpar
+from mellow_tpu_torch.utils.profiling import annotate
 
 
 class KVCache(NamedTuple):
@@ -418,7 +419,8 @@ def prefill(params: dict, cfg: LlamaConfig, inputs_embeds: torch.Tensor, cache: 
     dtype takes the rows cast. ``tp``: the plain prefill's TP forms."""
     B, S, D = inputs_embeds.shape
     device = inputs_embeds.device
-    cos, sin = rope_device_tables(cfg, S, inputs_embeds.dtype, device)
+    with annotate("mellow.host_sync"):  # a copy from host memory: it waits for the stream (the encoder)
+        cos, sin = rope_device_tables(cfg, S, inputs_embeds.dtype, device)
     if tp is None and uses_fused_prefill(cfg, inputs_embeds):
         kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                   eps=cfg.rms_norm_eps)

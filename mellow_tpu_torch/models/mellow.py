@@ -27,6 +27,7 @@ from mellow_tpu_torch.models import gpt2, htsat
 from mellow_tpu_torch.models.decoders import get_decoder_ops
 from mellow_tpu_torch.parallel import sharding
 from mellow_tpu_torch.parallel import tensor as tpar
+from mellow_tpu_torch.utils.profiling import annotate
 
 
 def build_prefix(
@@ -70,9 +71,12 @@ def encode_and_prefix(
 ) -> torch.Tensor:
     """Encode both clips (one batch-B encoder call each) and assemble the
     prefix."""
-    p1 = htsat.encode_audio_compact(audio1, params, cfg.frontend, cfg.encoder)
-    p2 = htsat.encode_audio_compact(audio2, params, cfg.frontend, cfg.encoder)
-    return build_prefix(params, cfg, p1, p2, text_ids, tp=tp)
+    with annotate("mellow.encode"):
+        p1 = htsat.encode_audio_compact(audio1, params, cfg.frontend, cfg.encoder)
+    with annotate("mellow.encode"):
+        p2 = htsat.encode_audio_compact(audio2, params, cfg.frontend, cfg.encoder)
+    with annotate("mellow.prefix"):
+        return build_prefix(params, cfg, p1, p2, text_ids, tp=tp)
 
 
 def generate_tokens(
@@ -97,11 +101,12 @@ def generate_tokens(
 ) -> gen.GenerateResult:
     """Two waveforms + prompt ids -> token ids, in the dtype of the waves
     and the weights (float32 parity mode or bfloat16 perf mode)."""
-    prefix = encode_and_prefix(params, cfg, audio1, audio2, text_ids, tp=tp)
-    return gen.generate(params["decoder"], cfg.decoder, prefix, tp=tp, **_decode_kwargs(
-        cfg, text_ids, max_len=max_len, greedy=greedy, top_p=top_p, temperature=temperature, rng=rng,
-        kv_cache_dtype=kv_cache_dtype, initial_done=initial_done, stop_token_id=stop_token_id, top_k=top_k,
-        repetition_penalty=repetition_penalty, w8a8=w8a8))
+    with annotate("mellow.generate_tokens"):
+        prefix = encode_and_prefix(params, cfg, audio1, audio2, text_ids, tp=tp)
+        return gen.generate(params["decoder"], cfg.decoder, prefix, tp=tp, **_decode_kwargs(
+            cfg, text_ids, max_len=max_len, greedy=greedy, top_p=top_p, temperature=temperature, rng=rng,
+            kv_cache_dtype=kv_cache_dtype, initial_done=initial_done, stop_token_id=stop_token_id, top_k=top_k,
+            repetition_penalty=repetition_penalty, w8a8=w8a8))
 
 
 def generate_tokens_sharded(
@@ -171,11 +176,12 @@ def generate_tokens_dynamic(
 ) -> gen.GenerateResult:
     """``generate_tokens`` with cascade compaction: finished rows stop
     costing decode steps (``generate.generate_cascade``)."""
-    prefix = encode_and_prefix(params, cfg, audio1, audio2, text_ids)
-    return gen.generate_cascade(params["decoder"], cfg.decoder, prefix, min_batch=min_batch, **_decode_kwargs(
-        cfg, text_ids, max_len=max_len, greedy=greedy, top_p=top_p, temperature=temperature, rng=rng,
-        kv_cache_dtype=kv_cache_dtype, initial_done=initial_done, stop_token_id=stop_token_id, top_k=top_k,
-        repetition_penalty=repetition_penalty, w8a8=w8a8))
+    with annotate("mellow.generate_tokens"):
+        prefix = encode_and_prefix(params, cfg, audio1, audio2, text_ids)
+        return gen.generate_cascade(params["decoder"], cfg.decoder, prefix, min_batch=min_batch, **_decode_kwargs(
+            cfg, text_ids, max_len=max_len, greedy=greedy, top_p=top_p, temperature=temperature, rng=rng,
+            kv_cache_dtype=kv_cache_dtype, initial_done=initial_done, stop_token_id=stop_token_id, top_k=top_k,
+            repetition_penalty=repetition_penalty, w8a8=w8a8))
 
 
 def _decode_kwargs(cfg: MellowConfig, text_ids: torch.Tensor, *, stop_token_id, **kwargs) -> dict:

@@ -1,7 +1,6 @@
 """Lightweight structured metrics (SURVEY.md section 5.5 — the reference has
-only a tqdm bar and a parameter-count print; this provides the numbers the
-benchmark targets are defined in: clips/sec, decode tokens/sec, generate
-latency percentiles, compile counts)."""
+only a tqdm bar and a parameter-count print; this provides counters,
+decode tokens/sec and generate latency percentiles)."""
 
 from __future__ import annotations
 
@@ -52,8 +51,6 @@ class Metrics:
                 out[f"{name}_calls"] = len(xs)
         if "tokens" in self.counters and "generate" in self.durations:
             out["tokens_per_sec"] = round(self.rate("tokens", "generate"), 1)
-        if "clips" in self.counters and "encode" in self.durations:
-            out["clips_per_sec"] = round(self.rate("clips", "encode"), 1)
         return out
 
     def dump(self, stream=sys.stderr) -> None:

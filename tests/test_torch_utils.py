@@ -1,7 +1,7 @@
 """The port's utilities against the JAX package's, on the CPU at the tiny
 configuration: ``utils/roofline.py`` (the counts equal, the attention
 FLOPs on the head dimension; the H100 peaks), ``utils/profiling.py``
-(``trace`` and ``annotate``), ``utils/debug.py`` (the NaN/Inf tripwires),
+(``trace``, ``annotate`` and the generate path's spans), ``utils/debug.py`` (the NaN/Inf tripwires),
 ``entry.py`` (the example arguments bit for bit; ``fn`` against JAX's),
 and where the port builds its native libraries and which files its
 package ships."""
@@ -138,6 +138,57 @@ def test_trace_inside_another_profiler_raises(tmp_path, monkeypatch):
         torch.ones(4).sum()
     assert os.listdir(tmp_path) == []
     assert any(e.name == "aten::sum" for e in outer.events())
+
+
+SPANS = {"mellow.generate_tokens": 1, "mellow.encode": 2, "mellow.prefix": 1, "mellow.prefill": 1,
+         "mellow.decode_window": 1, "mellow.token_choice": 4, "mellow.decode_step": 3}
+
+
+@pytest.fixture(scope="module")
+def tiny_call():
+    """One B=1 ``generate_tokens`` call at ``max_len`` 4 (one window of 4
+    token choices and 3 decode steps) on the tiny config, made under a CPU
+    ``torch.profiler`` session -> (the call, its result, its ``mellow.*``
+    spans as (name, start ns, end ns))."""
+    params = params_from_jax(port_params_np(TINY), "cpu")
+    cfg = tconfig.get_config(TINY.name)
+    a1, a2 = torch.from_numpy(waves(1, 11)), torch.from_numpy(waves(1, 12))
+    ids = torch.tensor([[5, 9, 17, 3, 1, 1, 1, 1]])
+    call = lambda: tmellow.generate_tokens(params, cfg, a1, a2, ids, max_len=4)  # noqa: E731
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        result = call()
+    spans = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in prof.profiler.kineto_results.events() if e.name().startswith("mellow.")]
+    return call, result, spans
+
+
+def test_generate_tokens_records_its_spans_under_a_profiler(tiny_call):
+    """Under a CPU ``torch.profiler`` session the call records each span of
+    the generate path once per layer boundary crossed, and at least one
+    host sync, every one inside the call's root span."""
+    _, _, spans = tiny_call
+    names = [n for n, _, _ in spans]
+    assert {n: names.count(n) for n in SPANS} == SPANS
+    assert names.count("mellow.host_sync") >= 1
+    (root,) = [(s, e) for n, s, e in spans if n == "mellow.generate_tokens"]
+    assert all(root[0] <= s <= e <= root[1] for _, s, e in spans)
+
+
+def test_spans_build_no_record_function_without_a_profiler(tiny_call, monkeypatch):
+    """With no profiler session ``annotate`` hands back a null context: no
+    range (``record_function`` or the function range a span is) is built,
+    and the tokens are the profiled call's."""
+    call, want, _ = tiny_call
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a profiler range was built")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(profiling, "_RANGE", refuse)
+    got = call()
+    assert torch.equal(got.tokens, want.tokens) and got.num_steps == want.num_steps == 4
+    with profiling.annotate("mellow.x") as ctx:
+        assert ctx is None
 
 
 # ---------------------------------------------------------------------------
