@@ -41,13 +41,21 @@ result line is printed:
    ``composed_mlp_block``, ``composed_mlp_block_w8a8``,
    ``composed_swin_block``), yardsticks that are not the table's library
    call;
+   then the decode-step graph's row (``decode_graph_row``): one v0 decode
+   step at B = 128 after a 389-position prefill, eager on a fresh cache
+   against the replay of ``llama.DecodeWorkspace``'s graph, in host issue
+   time, device time and host-inclusive time, the two outputs bit for
+   bit; and #2 with its length on the host against on the device;
 4. fp32 path: ``MellowWrapper(config="v0", device="cuda")`` at full v0 width
    with random weights from a seed answers requests one at a time, as a
    batch, and through the port's ``BatchingEngine``; every ``generate``
    call's kernel launches are checked (log-mel only); a batch of 2 answers
    as the single requests do;
 5. bf16 path: the same requests at ``compute_dtype="bfloat16"``, every
-   call's launches of each kernel checked against what the path must make;
+   call's launches of each kernel checked against what the path must make
+   (a step replayed from the decode-step graph launches nothing from the
+   host: the call's graph counters, ``check_graph``, say how many steps
+   replayed and whether it captured);
    each request's first greedy token equals fp32's; at a batch of 2 the
    bf16 prefix, prefill logits and one decode step's logits are held
    against the fp32 CUDA path (and fp32 CUDA against the CPU); the greedy
@@ -1157,17 +1165,103 @@ def kernel_phase(cfg, gpt2_cfg, large_cfg) -> list:
             bench_window_attention(large_cfg.encoder)]
 
 
+def _seeded_decoder(dec, seed: int) -> dict:
+    """bf16 llama weights made on the card from ``seed``: kernels and norm
+    offsets N(0, 2 / sqrt(D)), the tied embedding N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    D, I, H, KV, hd = dec.hidden_size, dec.intermediate_size, dec.num_heads, dec.num_kv_heads, dec.head_dim
+    std = 2 / D ** 0.5
+
+    def w(*shape, scale=std, mean=0.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale + mean).bfloat16()
+
+    shapes = {"wq": (D, H * hd), "wk": (D, KV * hd), "wv": (D, KV * hd), "wo": (H * hd, D),
+              "w_gate": (D, I), "w_up": (D, I), "w_down": (I, D)}
+    layers = [{"ln_attn": w(D, mean=1.0), "ln_mlp": w(D, mean=1.0), **{k: w(*s) for k, s in shapes.items()}}
+              for _ in range(dec.num_layers)]
+    return {"embed": w(dec.vocab_size, D, scale=1.0), "layers": layers, "norm_f": w(D, mean=1.0)}
+
+
+def decode_graph_row(dec, batch: int = 128, P: int = 389, S: int = 393) -> dict:
+    """One v0 decode step at B = 128 after a 389-position prefill (S_max 393,
+    the benchmark's short answers), eager on a fresh cache against the
+    replay of the workspace's decode-step graph (``llama.DecodeWorkspace``),
+    on seeded weights: the host's time to issue one step (median of 20,
+    host clock, no sync), its device time (``_median_ms``, queued behind a
+    spin), the host-inclusive time (``_median_ms(host=True)``), and the
+    launches and graph counters of one step; the two outputs bit for bit.
+    Then #2 at B = 1 and 128 and n = 390, the host-length launch against
+    the device-length launch the graph holds (split as S_max = 393), in
+    device time."""
+    params = _seeded_decoder(dec, SEED)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prefix = torch.randn(batch, P, dec.hidden_size, generator=g, device="cuda").bfloat16()
+    tok = params["embed"][torch.randint(0, dec.vocab_size, (batch,), generator=g, device="cuda")]
+    out = {"batch": batch, "prefix": P, "s_max": S}
+    with torch.no_grad(), llama.decode_workspace(params, dec, batch, S, "cuda", torch.bfloat16) as ws:
+        cache = llama.KVCache.create(dec, batch, S, "cuda", torch.bfloat16)
+        cos, sin = llama.rope_device_tables(dec, S, torch.bfloat16, "cuda")
+        llama.prefill(params, dec, prefix, cache)
+        llama.prefill(params, dec, prefix, ws.cache)
+        steps = {"eager": lambda: llama.decode_step(params, dec, tok, cache, P, cos, sin),
+                 "replay": lambda: llama.decode_step(params, dec, tok, ws.cache, P, ws.cos, ws.sin)}
+        first = {name: fn() for name, fn in steps.items()}  # the replay's first call captures
+        torch.cuda.synchronize()
+        if not torch.equal(first["eager"], first["replay"]):
+            raise RuntimeError("decode graph: the replayed step differs from the eager step")
+        for name, fn in steps.items():
+            zero_counts()
+            fn()
+            row = {"launches": {k: n for k, n in read_counts().items() if n}, "graph": graph_counts()}
+            want = {"decode_graph_captures": 0, "decode_graph_replays": int(name == "replay"),
+                    "decode_eager_steps": int(name == "eager")}
+            if row["graph"] != want:
+                raise RuntimeError(f"decode graph: one {name} step counted {row['graph']}, expected {want}")
+            issue = []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                issue.append((time.perf_counter() - t) * 1e3)
+            row.update(issue_ms=statistics.median(issue), device_ms=_median_ms(fn),
+                       host_ms=_median_ms(fn, host=True))
+            out[name] = row
+        n = 390
+        for b in (1, batch):
+            q = torch.randn(b, dec.num_heads, dec.head_dim, generator=g, device="cuda").bfloat16()
+            k, v = (torch.randn(b, S, dec.num_kv_heads, dec.head_dim, generator=g, device="cuda").bfloat16()
+                    for _ in range(2))
+            n_dev = torch.tensor([n], dtype=torch.int32, device="cuda")
+            host, devn = (lambda: da.decode_attention_cuda(q, k, v, n)), (lambda: da.decode_attention_cuda_at(q, k, v, n_dev))
+            if not torch.equal(host(), devn()):
+                raise RuntimeError(f"decode graph: #2's device length differs from its host length at B={b}")
+            out[f"decode_attention B={b}"] = {"host_n_ms": _median_ms(host), "device_n_ms": _median_ms(devn)}
+    print(json.dumps({"decode_graph": out}))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
 
+# The decode step's graph counters (``utils.metrics``; ``models/llama.py``):
+# each llama or gpt2 decode step is a replay or an eager step.
+GRAPH_COUNTERS = ("decode_graph_captures", "decode_graph_replays", "decode_eager_steps")
+
+
 def zero_counts() -> None:
     for mod, counter, *_ in KERNELS.values():
         setattr(mod, counter, 0)
+    for name in GRAPH_COUNTERS:
+        metrics.counters[name] = 0.0
 
 
 def read_counts() -> dict:
     return {name: getattr(mod, counter) for name, (mod, counter, *_) in KERNELS.items()}
+
+
+def graph_counts() -> dict:
+    return {name: int(metrics.counters.get(name, 0)) for name in GRAPH_COUNTERS}
 
 
 class CallRecorder:
@@ -1184,12 +1278,13 @@ class CallRecorder:
 
     def __call__(self, examples, *args, **kwargs):
         with self._lock:
-            before, tokens = read_counts(), metrics.counters.get("tokens", 0.0)
+            before, tokens, graph = read_counts(), metrics.counters.get("tokens", 0.0), graph_counts()
             texts = self.generate(examples, *args, **kwargs)
-            after = read_counts()
+            after, graph_after = read_counts(), graph_counts()
             steps = (metrics.counters.get("tokens", 0.0) - tokens) / len(examples)
             self.calls.append({"rows": len(examples), "steps": int(round(steps)),
-                               "launches": {k: after[k] - before[k] for k in after}})
+                               "launches": {k: after[k] - before[k] for k in after},
+                               "graph": {k: graph_after[k] - graph[k] for k in graph}})
             return texts
 
     def remove(self):
@@ -1229,7 +1324,7 @@ def decode_steps(steps: int, max_len: int = MAX_LEN) -> int:
     return steps - 1 if steps == max_len else steps
 
 
-def expected_launches(cfg, steps: int, path: str, max_len: int = MAX_LEN) -> dict:
+def expected_launches(cfg, steps: int, path: str, max_len: int = MAX_LEN, graph=None) -> dict:
     """What one generate call of ``path`` (``cfg`` its config) that ran
     ``steps`` steps of ``max_len`` must launch: log-mel once per clip batch;
     beyond fp32 also, per clip batch, the kernel of each Swin block's route
@@ -1241,7 +1336,12 @@ def expected_launches(cfg, steps: int, path: str, max_len: int = MAX_LEN) -> dic
     their kv_quant mode (attention) and as they are (MLP) with the int8
     decode attention on the int8-weights path. GPT-2 in bf16 (int8 weights
     or not) runs the prefill attention once per layer, and its decode step
-    no kernel."""
+    no kernel.
+
+    ``graph``: the call's change of ``GRAPH_COUNTERS``. A replayed step of
+    the bf16 path's decode-step graph counts no launch (the wrapper never
+    runs); a capture counts ``llama.CAPTURE_PASSES`` steps' launches (its
+    warm-up and the capture). Without it every step is taken as eager."""
     mode = _mode(path)
     if mode == "fp32":
         return {name: 2 if name == "log_mel" else 0 for name in KERNELS}
@@ -1254,18 +1354,47 @@ def expected_launches(cfg, steps: int, path: str, max_len: int = MAX_LEN) -> dic
                          "int8": ("attn_block_w8a8", "mlp_block_w8a8", "decode_attention_int8"),
                          "int8_weights": ("attn_block_kv_quant", "mlp_block", "decode_attention_int8")}[mode]
     want[attn] = want[mlp] = L
-    want[decode] = L * decode_steps(steps, max_len)
+    graph = graph or {}
+    eager = decode_steps(steps, max_len) - graph.get("decode_graph_replays", 0)
+    want[decode] = L * (eager + llama.CAPTURE_PASSES * graph.get("decode_graph_captures", 0))
     return want
+
+
+def fresh_workspaces() -> None:
+    """Drop the decode-step workspaces kept so far. The smoke makes more
+    weight sets and batch shapes than ``llama.WORKSPACES``, all of them alive
+    to its end, and a key past a full table decodes eagerly by design
+    (``llama.decode_workspace``), where ``check_graph`` expects every bf16
+    llama step to replay: so each phase starts with an empty table."""
+    torch.cuda.synchronize()
+    with llama._WORKSPACES_LOCK:
+        llama._WORKSPACES.clear()
+
+
+def check_graph(path: str, cfg, steps: int, graph: dict, max_len: int = MAX_LEN, compacted: bool = False) -> None:
+    """A call's decode steps are its replays and its eager steps. On the bf16
+    llama path with a bf16 cache every step replays and a call captures at
+    most once (no call of the smoke holds a workspace that another needs),
+    except after a cascade's compaction (``compacted``), whose stages decode
+    eagerly; every other path replays none."""
+    n = decode_steps(steps, max_len)
+    graphed = _mode(path) == "bf16" and cfg.decoder_family == "llama" and not PATHS[path][2].get("kv_cache_dtype")
+    replays, eager = graph["decode_graph_replays"], graph["decode_eager_steps"]
+    if (replays + eager != n or graph["decode_graph_captures"] > (1 if graphed else 0)
+            or (replays if not graphed else 0 if compacted else eager)):
+        raise RuntimeError(f"{path}: {steps} steps of {max_len} ran the decode steps {graph}")
 
 
 def check_calls(path: str, cfg, calls) -> None:
     """Each recorded generate call launched what ``expected_launches`` says
-    for its steps."""
+    for its steps and its graph counters (a call marked ``compacted`` may
+    decode eagerly after its compaction)."""
     for i, call in enumerate(calls):
-        want = expected_launches(cfg, call["steps"], path)
+        check_graph(path, cfg, call["steps"], call["graph"], compacted=call.get("compacted", False))
+        want = expected_launches(cfg, call["steps"], path, graph=call["graph"])
         if call["launches"] != want:
-            raise RuntimeError(f"{path}: call {i} ({call['rows']} rows, {call['steps']} steps) "
-                               f"launched {call['launches']}, expected {want}")
+            raise RuntimeError(f"{path}: call {i} ({call['rows']} rows, {call['steps']} steps, graph "
+                               f"{call['graph']}) launched {call['launches']}, expected {want}")
 
 
 # What drive() sends on a path: the first request alone; the three singles
@@ -1317,7 +1446,10 @@ def drive(wrapper, cfg, requests, path: str, calls: str = "all") -> tuple:
     if rows < CALLS_ROWS[calls]:
         raise RuntimeError(f"{path}: only {rows} rows answered")
     check_calls(path, cfg, rec.calls)
-    missing = [k for k, n in expected_launches(cfg, 2, path).items() if n and not launches[k]]
+    # A replayed decode-step graph holds #2's launches, captured from its wrapper.
+    replayed = sum(c["graph"]["decode_graph_replays"] for c in rec.calls)
+    missing = [k for k, n in expected_launches(cfg, 2, path).items()
+               if n and not launches[k] and not (k == "decode_attention" and replayed)]
     if missing:
         raise RuntimeError(f"{path}: kernels never launched on the path: {missing}")
     print(f"{path}: {rows} rows in {len(rec.calls)} generate calls, launches {launches}")
@@ -1687,18 +1819,20 @@ def hold_stream(path, wrapper, cfg, examples) -> dict:
     t = time.perf_counter()
     yields = list(wrapper.generate_stream(examples, max_len=MAX_LEN, **kw))
     stream_s = time.perf_counter() - t
-    launches = read_counts()
+    launches, graph = read_counts(), graph_counts()
     whole = wrapper.generate(examples, max_len=MAX_LEN, **kw)
     if yields[-1] != whole:
         raise RuntimeError(f"{path}: the stream's last yield differs from generate")
     if not all(a == b[: len(a)] for y, z in zip(yields, yields[1:]) for a, b in zip(y, z)):
         raise RuntimeError(f"{path}: a stream yield is not a prefix of the next")
     W = gen.effective_window(None, MAX_LEN, len(examples))
-    want = expected_launches(cfg, min(len(yields) * W, MAX_LEN), path)
+    steps = min(len(yields) * W, MAX_LEN)
+    check_graph(path, cfg, steps, graph)
+    want = expected_launches(cfg, steps, path, graph=graph)
     if launches != want:
         raise RuntimeError(f"{path}: the stream launched {launches}, expected {want}")
     out = {"path": path, "yields": len(yields), "window": W, "latency_s": stream_s,
-           "last_equals_generate": True, "launches": launches}
+           "last_equals_generate": True, "launches": launches, "graph": graph}
     print(json.dumps({"stream": out}))
     return out
 
@@ -1727,7 +1861,7 @@ def hold_cascade(path, wrapper, cfg, requests) -> dict:
         zero_counts()
         with StepRecorder() as rec:
             res = mellow_model.generate_tokens(wrapper.params, cfg, *inputs, stop_token_id=-1, **kw)
-        calls.append({"rows": 4, "steps": res.num_steps, "launches": read_counts()})
+        calls.append({"rows": 4, "steps": res.num_steps, "launches": read_counts(), "graph": graph_counts()})
         return inputs, res.tokens.cpu(), [logits for logits, _, _ in rec.steps]
 
     inputs, tokens, ref_logits = static([0, 1, 2, 0])
@@ -1754,7 +1888,8 @@ def hold_cascade(path, wrapper, cfg, requests) -> dict:
                                                    initial_done=initial_done, **kw)
         got = dyn.tokens.cpu()
     dyn_s = time.perf_counter() - t
-    calls.append({"rows": 4, "steps": dyn.num_steps, "launches": read_counts()})
+    calls.append({"rows": 4, "steps": dyn.num_steps, "launches": read_counts(), "graph": graph_counts(),
+                  "compacted": True})
     check_calls(path, cfg, calls)
     if not comp.seen:
         raise RuntimeError(f"{path}: the cascade never compacted")
@@ -2698,7 +2833,8 @@ def hold_entry(card: str) -> dict:
 def hold_trace(wrapper, cfg, request, tmp: str) -> dict:
     """One bf16 B=1 request at max_len 8 inside ``profiling.trace(dir)``: one
     Chrome trace, JSON, whose kernel events hold each of the bf16 path's
-    kernels' launches (the wrapper's count times its kernels a call) less
+    kernels' launches (the wrapper's count times its kernels a call; #2
+    once a layer a step, replayed from the decode-step graph or not) less
     at most one (the profiler misses the first launch after it starts); a
     request outside ``trace()`` writes no file."""
     trace_dir = os.path.join(tmp, "traces")
@@ -2716,7 +2852,8 @@ def hold_trace(wrapper, cfg, request, tmp: str) -> dict:
         events = json.load(f)["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     call = rec.calls[0]
-    want = expected_launches(cfg, call["steps"], "bf16", TRACE_MAX_LEN)
+    check_graph("bf16", cfg, call["steps"], call["graph"], TRACE_MAX_LEN)
+    want = expected_launches(cfg, call["steps"], "bf16", TRACE_MAX_LEN, call["graph"])
     if call["launches"] != want:
         raise RuntimeError(f"trace: the traced request launched {call['launches']}, expected {want}")
     seen = {}
@@ -2724,6 +2861,11 @@ def hold_trace(wrapper, cfg, request, tmp: str) -> dict:
         syms = [sym for label in labels for sym in PROFILED_KERNELS[label]]
         seen[name] = sum(any(sym in k for sym in syms) for k in kernels)
     expected = {name: want[name] * getattr(KERNELS[name][0], KERNELS[name][2]) for name in TRACE_KERNELS}
+    # #2 runs once a layer in each step, eager or replayed, and in a capture's
+    # warm-up; the capture pass itself launches nothing on the card.
+    graph = call["graph"]
+    expected["decode_attention"] = cfg.decoder.num_layers * (
+        decode_steps(call["steps"], TRACE_MAX_LEN) + graph["decode_graph_captures"])
     out = {"file_bytes": os.path.getsize(os.path.join(trace_dir, files[0])), "kernel_events": len(kernels),
            "by_kernel": seen, "expected": expected, "steps": call["steps"]}
     print(json.dumps({"trace": out}))
@@ -2758,7 +2900,8 @@ def hold_tripwire(wrapper, cfg, request) -> dict:
         qkv["kernel"] = kernel
         rec.remove()
     call = rec.calls[-1]
-    want = expected_launches(cfg, call["steps"], "bf16", TRACE_MAX_LEN)
+    check_graph("bf16", cfg, call["steps"], call["graph"], TRACE_MAX_LEN)
+    want = expected_launches(cfg, call["steps"], "bf16", TRACE_MAX_LEN, call["graph"])
     if call["launches"] != want:
         raise RuntimeError(f"tripwire: the request after disable_debug launched {call['launches']}, expected {want}")
     out = {"raised": raised, "rerun_launches": call["launches"], "rerun_steps": call["steps"]}
@@ -2876,14 +3019,20 @@ def slice_phase(card: str) -> dict:
         entries = hold_encoder_entries(cfgs[LARGE_CONFIG], wrappers["large_bf16"].params,
                                        wrappers["large_fp32"].params)
         print(f"encoder entry points took {time.perf_counter() - t:.1f} s")
+        fresh_workspaces()
         decoding = decoding_phase(wrappers, cfgs, requests, answers)
+        fresh_workspaces()
         continuous = continuous_phase(wrappers, cfgs["v0"], params["v0"], (a, b))
+        fresh_workspaces()
         training = training_phase(wrappers, cfgs["v0"], (a, b), tmp, card)
+        fresh_workspaces()
         entry = entry_phase(wrappers, cfgs["v0"], (a, b), tmp, card)
         launches["training"], launches["entry_server"] = training["launches"], entry["launches"]
+        fresh_workspaces()
         parallel = parallel_phase(wrappers, cfgs, params["v0"], requests, answers, tmp, card,
                                   training["checkpoint"]["bytes"])
         launches["mesh_dp"] = parallel["mesh_dp"]["launches"]
+        fresh_workspaces()
         utils = utils_phase(wrappers, cfgs["v0"], requests, tmp, card, installed)
         launches["entry_forward"] = utils["entry"]["launches"]
 
@@ -3242,6 +3391,9 @@ def main() -> int:
     rows = kernel_phase(get_config("v0"), gpt2_config(), htsat_large_config())
     print(f"kernel phase took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
+    graph_row = decode_graph_row(get_config("v0").decoder)
+    print(f"decode graph row took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     run = slice_phase(card)
     launches = run["launches"]
     print(f"slice phase took {time.perf_counter() - t:.1f} s")
@@ -3264,7 +3416,7 @@ def main() -> int:
         row["launches_by_encoder_entry"] = {e: counts[name] for e, counts in run["entries"].items()}
         row["kernel_launches_per_call"] = getattr(mod, per_call)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "decode_graph": graph_row}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

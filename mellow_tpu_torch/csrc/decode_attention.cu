@@ -22,6 +22,11 @@
 // keeps start[b] <= n - 1 (the step's own position is always attended).
 // The kernel is instantiated with and without a start (template START),
 // so a launch without one runs the code it ran before starts existed.
+// A second entry point (mellow_decode_attention_devn) reads n from a device
+// int32 when the kernel runs, so that a CUDA graph of the decode step
+// replays one launch at every position; its split is that of the cache's
+// capacity S_max, which at v0's lengths (390-392 of 393) is the host
+// launch's split of n (9 blocks of 44 positions), so the bits are the same.
 //
 // What bounds it: bytes. Each step reads the whole valid cache of a layer,
 // 2 * B * n * KV * hd * 2 bytes (at v0, B=1, n ~ 400: 0.3 MB per layer,
@@ -85,8 +90,8 @@ template <int HD, int REP, bool START>
 __global__ void __launch_bounds__(DTHREADS)
 decode_gqa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
                   const bf16* __restrict__ vc, bf16* __restrict__ out,
-                  const int* __restrict__ start, int H, int n, int chunk,
-                  long long kv_bstride, int kv_sstride, float scale) {
+                  const int* __restrict__ start, const int* __restrict__ n_dev, int H, int n_host,
+                  int chunk, long long kv_bstride, int kv_sstride, float scale) {
   constexpr int CH = HD / 8;        // 16-byte chunks of a row
   // Chunks each of a position's two lanes scores; at HD = 8 the pair's
   // second lane idles.
@@ -99,6 +104,7 @@ decode_gqa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   __shared__ float recv_sum[DMAX_BLOCKS][REP];  // every block's local sums
   cg::cluster_group cluster = cg::this_cluster();
   cluster_arrive_relaxed();
+  const int n = n_dev ? __ldg(n_dev) : n_host;
   const int nblk = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int per = (REP * HD + nblk - 1) / nblk;  // outputs each block combines and writes
@@ -304,10 +310,11 @@ decode_gqa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   }
 }
 
+// `n` sets the split: the host length, or with `n_dev` the cache's capacity.
 template <int HD, int REP, bool START>
-int launch_decode(const void* q, const void* k, const void* v, void* out, const int* start, int B,
-                  int H, int KV, int n, long long kv_bstride, int kv_sstride, int blocks,
-                  cudaStream_t stream) {
+int launch_decode(const void* q, const void* k, const void* v, void* out, const int* start,
+                  const int* n_dev, int B, int H, int KV, int n, long long kv_bstride,
+                  int kv_sstride, int blocks, cudaStream_t stream) {
   const int chunk = (n + blocks - 1) / blocks;
   const int per = (REP * HD + blocks - 1) / blocks;
   const size_t smem =
@@ -335,21 +342,21 @@ int launch_decode(const void* q, const void* k, const void* v, void* out, const 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                           static_cast<const bf16*>(v), static_cast<bf16*>(out), start, H, n, chunk,
-                           kv_bstride, kv_sstride, 1.f / sqrtf((float)HD));
+                           static_cast<const bf16*>(v), static_cast<bf16*>(out), start, n_dev, H, n,
+                           chunk, kv_bstride, kv_sstride, 1.f / sqrtf((float)HD));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_decode_rep(const void* q, const void* k, const void* v, void* out, const int* start,
-                      int B, int H, int KV, int n, long long kv_bstride, int kv_sstride, int blocks,
-                      cudaStream_t stream) {
+                      const int* n_dev, int B, int H, int KV, int n, long long kv_bstride,
+                      int kv_sstride, int blocks, cudaStream_t stream) {
 #define MELLOW_DECODE_REP(R)                                                                        \
   case R:                                                                                           \
-    return start ? launch_decode<HD, R, true>(q, k, v, out, start, B, H, KV, n, kv_bstride, kv_sstride, \
-                                              blocks, stream)                                       \
-                 : launch_decode<HD, R, false>(q, k, v, out, start, B, H, KV, n, kv_bstride,         \
+    return start ? launch_decode<HD, R, true>(q, k, v, out, start, n_dev, B, H, KV, n, kv_bstride,  \
+                                              kv_sstride, blocks, stream)                           \
+                 : launch_decode<HD, R, false>(q, k, v, out, start, n_dev, B, H, KV, n, kv_bstride,  \
                                                kv_sstride, blocks, stream);
   switch (H / KV) {
     MELLOW_DECODE_REP(1)
@@ -366,6 +373,23 @@ int launch_decode_rep(const void* q, const void* k, const void* v, void* out, co
 #undef MELLOW_DECODE_REP
 }
 
+int decode_attention(const void* q, const void* k, const void* v, void* out, const void* start,
+                     const int* n_dev, int B, int H, int KV, int hd, int n, long long kv_bstride,
+                     int kv_sstride, int blocks, void* stream) {
+  if (KV < 1 || H % KV || H / KV > DMAX_REP || n < 1 || blocks < 1 || blocks > DMAX_BLOCKS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* s0 = static_cast<const int*>(start);
+  switch (hd) {
+    case 8: return launch_decode_rep<8>(q, k, v, out, s0, n_dev, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
+    case 16: return launch_decode_rep<16>(q, k, v, out, s0, n_dev, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
+    case 32: return launch_decode_rep<32>(q, k, v, out, s0, n_dev, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
+    case 64: return launch_decode_rep<64>(q, k, v, out, s0, n_dev, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
+    case 128: return launch_decode_rep<128>(q, k, v, out, s0, n_dev, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Launches one kernel on `stream`; returns the cudaError_t, 0 on success.
@@ -375,16 +399,20 @@ extern "C" int mellow_decode_attention(const void* q, const void* k, const void*
                                        const void* start, int B, int H, int KV, int hd, int n,
                                        long long kv_bstride, int kv_sstride, int blocks,
                                        void* stream) {
-  if (KV < 1 || H % KV || H / KV > DMAX_REP || n < 1 || blocks < 1 || blocks > DMAX_BLOCKS)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* s0 = static_cast<const int*>(start);
-  switch (hd) {
-    case 8: return launch_decode_rep<8>(q, k, v, out, s0, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
-    case 16: return launch_decode_rep<16>(q, k, v, out, s0, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
-    case 32: return launch_decode_rep<32>(q, k, v, out, s0, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
-    case 64: return launch_decode_rep<64>(q, k, v, out, s0, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
-    case 128: return launch_decode_rep<128>(q, k, v, out, s0, B, H, KV, n, kv_bstride, kv_sstride, blocks, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return decode_attention(q, k, v, out, start, nullptr, B, H, KV, hd, n, kv_bstride, kv_sstride, blocks,
+                          stream);
+}
+
+// The same launch with the length on the device: positions [0, *n_dev)
+// are attended, read by the kernel when it runs (a CUDA graph replays the
+// launch at each step's length). The split is that of `s_max` positions,
+// the cache's capacity, which the caller keeps at or above *n_dev; a block
+// whose positions all lie at or past *n_dev holds none.
+extern "C" int mellow_decode_attention_devn(const void* q, const void* k, const void* v, void* out,
+                                            const void* start, const void* n_dev, int B, int H, int KV,
+                                            int hd, int s_max, long long kv_bstride, int kv_sstride,
+                                            int blocks, void* stream) {
+  if (n_dev == nullptr) return (int)cudaErrorInvalidValue;
+  return decode_attention(q, k, v, out, start, static_cast<const int*>(n_dev), B, H, KV, hd, s_max,
+                          kv_bstride, kv_sstride, blocks, stream);
 }

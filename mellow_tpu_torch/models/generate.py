@@ -59,6 +59,21 @@ so every rank of the model group takes the same branch. ``generate_stream``
 also takes the data group of a DP mesh: it then yields the tokens of every
 data rank and runs until every rank's rows are done.
 
+The decode step as a CUDA graph: a llama call on the card in bf16 with a
+bf16 cache and no ``tp`` (``generate``, ``generate_stream``, the first
+stage of ``generate_cascade``) holds a ``llama.DecodeWorkspace`` for its
+batch bucket (``llama.batch_bucket``), cache length and weights while it
+runs (``_workspace``): the prefill writes the first B rows of the
+workspace's cache, the window takes the workspace's rope tables (no host
+copy), and each decode step replays the workspace's graph of the step,
+captured at the workspace's first step. A call that finds the workspace
+held by another or finds no room for it (``llama.decode_workspace``), a
+compacted cascade stage, continuous batching's ragged rows and every other
+cache or dtype decode eagerly. ``utils.metrics.GLOBAL`` counts
+``decode_graph_captures``, ``decode_graph_replays`` and
+``decode_eager_steps`` (each step is one of the last two; replays over all
+steps is the graph's hit share).
+
 ``family`` picks the decoder (``models/decoders.py``): "llama" (SmolLM2)
 or "gpt2". As in the JAX package, the gpt2 family has no int8 cache and no
 W8A8 prefill; unlike it, a gpt2 run that would need positions past its
@@ -68,6 +83,7 @@ clamps them silently).
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Iterator, List, NamedTuple, Optional
 
 import numpy as np
@@ -78,6 +94,7 @@ from mellow_tpu_torch.models import gpt2, llama
 from mellow_tpu_torch.models.decoders import get_decoder_ops
 from mellow_tpu_torch.parallel import sharding
 from mellow_tpu_torch.parallel import tensor as tpar
+from mellow_tpu_torch.utils import debug
 from mellow_tpu_torch.utils.profiling import annotate
 
 
@@ -212,16 +229,33 @@ class DecodeState(NamedTuple):
     start: Optional[torch.Tensor] = None  # (B,) int32: each row's first cache column
     deadline: Optional[torch.Tensor] = None  # (B,) int32: a row is done once t reaches it
     knobs: Optional[tuple] = None  # (temperature (B,) fp32, top_p (B,) fp32, greedy (B,) bool)
+    workspace: Optional[llama.DecodeWorkspace] = None  # the cache's and rope tables' owner (_workspace)
+
+
+def _workspace(params, cfg, prefix_embeds: torch.Tensor, *, max_len: int, W: int, kv_cache_dtype,
+               family: str, tp):
+    """A context holding the call's ``llama.DecodeWorkspace`` (None where the
+    call cannot replay the decode-step graph, or ``llama.decode_workspace``
+    gives none): a llama call on the card in bf16 with a bf16 cache, no
+    ``tp`` and the tripwires off."""
+    dtype = prefix_embeds.dtype
+    if (family != "llama" or tp is not None or not llama.on_card(prefix_embeds) or dtype != torch.bfloat16
+            or cache_dtype(kv_cache_dtype, dtype) != dtype or debug.enabled()):
+        return nullcontext()
+    B, P, _ = prefix_embeds.shape
+    return llama.decode_workspace(params, cfg, B, P + -(-max_len // W) * W, prefix_embeds.device, dtype)
 
 
 def _init_state(
     params, cfg, prefix_embeds: torch.Tensor, *, max_len: int, kv_cache_dtype, family: str, W: int,
     rng, initial_done, repetition_penalty: float, prompt_tokens, prompt_mask, w8a8: bool, tp=None,
+    workspace: Optional[llama.DecodeWorkspace] = None,
 ) -> DecodeState:
     """Prefill into a cache of ``P + ceil(max_len / W) * W`` positions, and
     the loop's first state. With a penalty, the seen mask starts from the
     prompt's valid ids (HF penalizes the whole input; the audio prefix has
-    no ids). ``tp``: the rank's KV heads in the cache and the window."""
+    no ids). ``tp``: the rank's KV heads in the cache and the window.
+    ``workspace`` (``_workspace``): its cache instead of a new one."""
     ops = get_decoder_ops(family)
     if tp is not None and family != "llama":
         raise ValueError(f"the {family} decoder has no tensor-parallel form; it runs replicated")
@@ -234,7 +268,8 @@ def _init_state(
             f"prefix {P} + max_len {max_len} exceeds the decoder's "
             f"{cfg.max_position_embeddings} positions")
     with annotate("mellow.prefill"):
-        cache = ops.create_cache(lcfg, B, P + ML, device, cache_dtype(kv_cache_dtype, dtype))
+        cache = (workspace.cache if workspace is not None
+                 else ops.create_cache(lcfg, B, P + ML, device, cache_dtype(kv_cache_dtype, dtype)))
         window = None
         if family == "llama":
             hidden = ops.prefill(params, cfg, prefix_embeds, cache, w8a8=w8a8, tp=tp)
@@ -260,7 +295,8 @@ def _init_state(
     done = (torch.zeros((B,), dtype=torch.bool, device=device) if initial_done is None
             else initial_done.to(device=device, dtype=torch.bool).clone())
     return DecodeState(cache=cache, tokens=torch.zeros((B, ML), dtype=torch.int32, device=device),
-                       last_hidden=hidden, t=0, done=done, rng=rng, seen=seen, window=window)
+                       last_hidden=hidden, t=0, done=done, rng=rng, seen=seen, window=window,
+                       workspace=workspace)
 
 
 def _window_body(
@@ -282,8 +318,11 @@ def _window_body(
     P = S_max - ML
     embed = ops.embed_table(params)
     if family == "llama":
-        with annotate("mellow.host_sync"):  # a copy from host memory: it waits for the stream (the prefill)
-            cos, sin = llama.rope_device_tables(cfg, S_max, state.last_hidden.dtype, state.last_hidden.device)
+        if state.workspace is not None:
+            cos, sin = state.workspace.cos, state.workspace.sin
+        else:
+            with annotate("mellow.host_sync"):  # a copy from host memory: it waits for the stream (the prefill)
+                cos, sin = llama.rope_device_tables(cfg, S_max, state.last_hidden.dtype, state.last_hidden.device)
 
         def step(s, tok_embed, pos):
             return ops.decode_step(params, cfg, tok_embed, s.cache, pos, cos, sin, s.window, s.start, tp=tp)
@@ -376,13 +415,15 @@ def generate(
     weights; ``flush_window``: W, as the JAX package's
     (``effective_window``); ``tp``: the decoder's TP forms."""
     W = effective_window(flush_window, max_len, prefix_embeds.shape[0])
-    state = _init_state(params, cfg, prefix_embeds, max_len=max_len, kv_cache_dtype=kv_cache_dtype,
-                        family=family, W=W, rng=rng, initial_done=initial_done,
-                        repetition_penalty=repetition_penalty, prompt_tokens=prompt_tokens,
-                        prompt_mask=prompt_mask, w8a8=w8a8, tp=tp)
-    final = _decode_loop(params, cfg, state, family=family, max_len=max_len, stop_token_id=stop_token_id,
-                         greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
-                         repetition_penalty=repetition_penalty, W=W, tp=tp)
+    with _workspace(params, cfg, prefix_embeds, max_len=max_len, W=W, kv_cache_dtype=kv_cache_dtype,
+                    family=family, tp=tp) as ws:
+        state = _init_state(params, cfg, prefix_embeds, max_len=max_len, kv_cache_dtype=kv_cache_dtype,
+                            family=family, W=W, rng=rng, initial_done=initial_done,
+                            repetition_penalty=repetition_penalty, prompt_tokens=prompt_tokens,
+                            prompt_mask=prompt_mask, w8a8=w8a8, tp=tp, workspace=ws)
+        final = _decode_loop(params, cfg, state, family=family, max_len=max_len, stop_token_id=stop_token_id,
+                             greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
+                             repetition_penalty=repetition_penalty, W=W, tp=tp)
     return GenerateResult(tokens=final.tokens[:, :max_len], num_steps=min(final.t, max_len))
 
 
@@ -417,26 +458,28 @@ def generate_stream(
     in rank order, and the windows go on until every rank's rows are done
     (one all-gather and one all-reduce a window, on every rank)."""
     W = effective_window(flush_window, max_len, prefix_embeds.shape[0])
-    state = _init_state(params, cfg, prefix_embeds, max_len=max_len, kv_cache_dtype=kv_cache_dtype,
-                        family=family, W=W, rng=rng, initial_done=initial_done,
-                        repetition_penalty=repetition_penalty, prompt_tokens=prompt_tokens,
-                        prompt_mask=prompt_mask, w8a8=w8a8, tp=tp)
-    body = _window_body(params, cfg, state, family=family, max_len=max_len, stop_token_id=stop_token_id,
-                        greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
-                        repetition_penalty=repetition_penalty, W=W, tp=tp)
-    while True:
-        state = body(state)
-        t = min(state.t, max_len)
-        tokens, done = state.tokens[:, :max_len], state.done.all()
-        if data_group is not None:
-            tokens, done = sharding.gather_rows(tokens, data_group), done.to(torch.int32)
-            dist.all_reduce(done, op=dist.ReduceOp.MIN, group=data_group)
-        with annotate("mellow.host_sync"):
-            snapshot = GenerateResult(tokens=tokens.to("cpu", copy=True), num_steps=t)
-            last = t >= max_len or bool(done)
-        yield snapshot
-        if last:
-            return
+    with _workspace(params, cfg, prefix_embeds, max_len=max_len, W=W, kv_cache_dtype=kv_cache_dtype,
+                    family=family, tp=tp) as ws:
+        state = _init_state(params, cfg, prefix_embeds, max_len=max_len, kv_cache_dtype=kv_cache_dtype,
+                            family=family, W=W, rng=rng, initial_done=initial_done,
+                            repetition_penalty=repetition_penalty, prompt_tokens=prompt_tokens,
+                            prompt_mask=prompt_mask, w8a8=w8a8, tp=tp, workspace=ws)
+        body = _window_body(params, cfg, state, family=family, max_len=max_len, stop_token_id=stop_token_id,
+                            greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
+                            repetition_penalty=repetition_penalty, W=W, tp=tp)
+        while True:
+            state = body(state)
+            t = min(state.t, max_len)
+            tokens, done = state.tokens[:, :max_len], state.done.all()
+            if data_group is not None:
+                tokens, done = sharding.gather_rows(tokens, data_group), done.to(torch.int32)
+                dist.all_reduce(done, op=dist.ReduceOp.MIN, group=data_group)
+            with annotate("mellow.host_sync"):
+                snapshot = GenerateResult(tokens=tokens.to("cpu", copy=True), num_steps=t)
+                last = t >= max_len or bool(done)
+            yield snapshot
+            if last:
+                return
 
 
 def _compact_state(state: DecodeState, perm: torch.Tensor) -> DecodeState:
@@ -448,7 +491,7 @@ def _compact_state(state: DecodeState, perm: torch.Tensor) -> DecodeState:
     return state._replace(
         cache=cache, tokens=state.tokens[perm], last_hidden=state.last_hidden[perm], done=state.done[perm],
         seen=None if state.seen is None else state.seen[perm],
-        window=None if state.window is None else state.window.select(perm))
+        window=None if state.window is None else state.window.select(perm), workspace=None)
 
 
 @torch.no_grad()
@@ -491,31 +534,33 @@ def generate_cascade(
     B = prefix_embeds.shape[0]
     device = prefix_embeds.device
     W = effective_window(flush_window, max_len, B)
-    state = _init_state(params, cfg, prefix_embeds, max_len=max_len, kv_cache_dtype=kv_cache_dtype,
-                        family=family, W=W, rng=rng, initial_done=initial_done,
-                        repetition_penalty=repetition_penalty, prompt_tokens=prompt_tokens,
-                        prompt_mask=prompt_mask, w8a8=w8a8)
-    out_tokens = torch.zeros_like(state.tokens)
-    orig = torch.arange(B, device=device)  # row of the batch -> row of the request
-    cur = B
-    while True:
-        state = _decode_loop(params, cfg, state, family=family, max_len=max_len, stop_token_id=stop_token_id,
-                             greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
-                             repetition_penalty=repetition_penalty, W=W,
-                             alive_threshold=cur // 2 if cur > min_batch else 0)
-        with annotate("mellow.host_sync"):
-            done = state.done.cpu()
-        if state.t >= max_len or bool(done.all()):
-            break
-        alive, dropped = torch.nonzero(~done)[:, 0], torch.nonzero(done)[:, 0]
-        new_b = max(min_batch, 1 << (len(alive) - 1).bit_length())
-        assert new_b < cur, (new_b, cur, len(alive))  # the stage's threshold guarantees it
-        dropped = dropped.to(device)
-        out_tokens[orig[dropped]] = state.tokens[dropped]
-        perm = torch.cat([alive.to(device), dropped[: new_b - len(alive)]])
-        state = _compact_state(state, perm)
-        orig = orig[perm]
-        cur = new_b
+    with _workspace(params, cfg, prefix_embeds, max_len=max_len, W=W, kv_cache_dtype=kv_cache_dtype,
+                    family=family, tp=None) as ws:
+        state = _init_state(params, cfg, prefix_embeds, max_len=max_len, kv_cache_dtype=kv_cache_dtype,
+                            family=family, W=W, rng=rng, initial_done=initial_done,
+                            repetition_penalty=repetition_penalty, prompt_tokens=prompt_tokens,
+                            prompt_mask=prompt_mask, w8a8=w8a8, workspace=ws)
+        out_tokens = torch.zeros_like(state.tokens)
+        orig = torch.arange(B, device=device)  # row of the batch -> row of the request
+        cur = B
+        while True:
+            state = _decode_loop(params, cfg, state, family=family, max_len=max_len, stop_token_id=stop_token_id,
+                                 greedy=greedy, top_p=top_p, temperature=temperature, top_k=top_k,
+                                 repetition_penalty=repetition_penalty, W=W,
+                                 alive_threshold=cur // 2 if cur > min_batch else 0)
+            with annotate("mellow.host_sync"):
+                done = state.done.cpu()
+            if state.t >= max_len or bool(done.all()):
+                break
+            alive, dropped = torch.nonzero(~done)[:, 0], torch.nonzero(done)[:, 0]
+            new_b = max(min_batch, 1 << (len(alive) - 1).bit_length())
+            assert new_b < cur, (new_b, cur, len(alive))  # the stage's threshold guarantees it
+            dropped = dropped.to(device)
+            out_tokens[orig[dropped]] = state.tokens[dropped]
+            perm = torch.cat([alive.to(device), dropped[: new_b - len(alive)]])
+            state = _compact_state(state, perm)
+            orig = orig[perm]
+            cur = new_b
     out_tokens[orig] = state.tokens
     return GenerateResult(tokens=out_tokens[:, :max_len], num_steps=min(state.t, max_len))
 

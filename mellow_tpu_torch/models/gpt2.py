@@ -57,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from mellow_tpu_torch.models import llama
 from mellow_tpu_torch.models.llama import _mm, quantize_weight
 from mellow_tpu_torch.ops.flash_gqa_prefill import flash_gqa_prefill
+from mellow_tpu_torch.utils.metrics import GLOBAL as metrics
 
 
 @dataclass(frozen=True)
@@ -229,7 +230,9 @@ def decode_step(params: dict, cfg: GPT2Config, token_embed: torch.Tensor, cache:
     in another float dtype (``uses_window``) leaves it in ``window`` (row
     ``pos - window.flushed``), attends over the flushed positions read back
     in the compute dtype plus the window's rows, and once the window is
-    full writes its rows into the cache; it raises without ``window``."""
+    full writes its rows into the cache; it raises without ``window``.
+    Always eager (``decode_eager_steps``): the family has no step graph."""
+    metrics.count("decode_eager_steps")
     B, D = token_embed.shape
     H, hd = cfg.num_heads, cfg.head_dim
     n = pos + 1

@@ -47,6 +47,19 @@ its prefix prefilled at local positions. The step ropes row b at its
 local position ``pos - start[b]`` and attends to columns ``[start[b],
 pos]`` only; the bf16 and int8 kernels take the same ``start``.
 
+The bf16 decode step on the card replays a CUDA graph (``DecodeWorkspace``,
+one per batch bucket, cache length and weight set, at most ``WORKSPACES``
+kept; a call of B rows decodes in the first B rows of the power-of-two
+bucket at or above B, ``batch_bucket``): the whole step, 30 layers of
+RMSNorm, q/k/v products, rope, the cache write, #2, ``wo``, the MLP and the
+final norm (``_decode_layers``, the eager step's own loop), captured from
+the step's own kernels with the position and #2's length read on the card
+(``decode_attention_cuda_at``). ``decode_step`` replays it where
+``generate`` handed it a workspace's cache (``decode_workspace``); every
+other step (the CPU, fp32, a windowed cache, a ``start``, ``tp``) runs
+eagerly. ``utils.metrics.GLOBAL`` counts ``decode_graph_captures``,
+``decode_graph_replays`` and ``decode_eager_steps``.
+
 Parameters are per layer (the JAX tree stacks them on a leading L axis;
 ``models/params.py`` unstacks):
 
@@ -81,6 +94,10 @@ Pallas kernels off under a model axis. With ``tp=None`` nothing changes.
 from __future__ import annotations
 
 import copy
+import threading
+import warnings
+from collections import OrderedDict
+from contextlib import contextmanager
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -91,11 +108,13 @@ from torch.utils.checkpoint import checkpoint
 from mellow_tpu_torch.config import LlamaConfig
 from mellow_tpu_torch.ops.attn_block import attn_block
 from mellow_tpu_torch.ops.attn_block_w8a8 import attn_block_w8a8
-from mellow_tpu_torch.ops.decode_attention import decode_attention, start_mask
+from mellow_tpu_torch.ops.decode_attention import decode_attention, decode_attention_cuda_at, start_mask
 from mellow_tpu_torch.ops.decode_attention_int8 import decode_attention_int8
 from mellow_tpu_torch.ops.mlp_block import mlp_block, rms_norm
 from mellow_tpu_torch.ops.mlp_block_w8a8 import mlp_block_w8a8
 from mellow_tpu_torch.parallel import tensor as tpar
+from mellow_tpu_torch.utils import debug
+from mellow_tpu_torch.utils.metrics import GLOBAL as metrics
 from mellow_tpu_torch.utils.profiling import annotate
 
 
@@ -501,15 +520,24 @@ def decode_step(
     shared write column.
 
     ``tp``: the TP forms on the rank's KV heads, every attention on the
-    plain formulation (``_attend``, ``_attend_window``)."""
+    plain formulation (``_attend``, ``_attend_window``).
+
+    On a ``DecodeWorkspace``'s cache, held by the call whose ``params`` these
+    are, with its rope tables, a bf16 CUDA step with no ``window``,
+    ``start`` or ``tp`` replays the workspace's CUDA graph of this body
+    (``DecodeWorkspace.step``); every other step runs the body below."""
+    ws = _graph_workspace(params, cfg, token_embed, cache, cos_full, sin_full, window, start, tp)
+    hidden = None if ws is None else ws.step(params, token_embed, pos)
+    if hidden is not None:
+        return hidden
+    metrics.count("decode_eager_steps")
     if start is None:
         cos, sin = cos_full[pos : pos + 1], sin_full[pos : pos + 1]
     else:
         local = pos - start.long()
         cos, sin = cos_full[local][:, None], sin_full[local][:, None]
-    x = token_embed[:, None, :]
-    B, dt = x.shape[0], x.dtype
-    lcfg, qkv, out, mlp = _layer_fns(cfg, tp)
+    B, dt = token_embed.shape[0], token_embed.dtype
+    lcfg = _layer_fns(cfg, tp)[0]
     H, hd = cfg.num_heads, cfg.head_dim
     kernel = tp is None and dt == torch.bfloat16
     windowed = uses_window(cache, dt)
@@ -520,8 +548,8 @@ def decode_step(
         if i != window.count or i >= window.size:
             raise ValueError(f"position {pos} is not the next row of the flush window "
                              f"({window.count} of {window.size} rows from {window.flushed})")
-    for li, lp in enumerate(params["layers"]):
-        q, k, v = qkv(lcfg, x, lp, cos, sin)
+
+    def attend(li, q, k, v):
         if windowed:
             window.k[li, :, i] = k[:, 0]
             window.v[li, :, i] = v[:, 0]
@@ -529,24 +557,228 @@ def decode_step(
             if cache.quantized and kernel:
                 o = decode_attention_int8(q.reshape(B, H, hd), cache.k[li], cache.v[li], cache.k_scale[li],
                                           cache.v_scale[li], window.flushed, kx, vx, start)
-                o = o.reshape(B, 1, H * hd)
-            else:
-                o = _attend_window(lcfg, q, cache, li, window.flushed, kx, vx, start)
-        else:
-            cache.k[li, :, pos : pos + 1] = k
-            cache.v[li, :, pos : pos + 1] = v
-            if kernel:
-                o = decode_attention(q.reshape(B, H, hd), cache.k[li], cache.v[li], pos + 1, start)
-                o = o.reshape(B, 1, H * hd)
-            else:
-                mask = None
-                if start is not None:
-                    mask = torch.zeros((B, 1, 1, 1, pos + 1), dtype=torch.float32, device=x.device).masked_fill(
-                        start_mask(start, pos + 1)[:, :, None], float("-inf"))
-                o = _attend(lcfg, q, cache.k[li, :, : pos + 1], cache.v[li, :, : pos + 1], mask)
-        x = mlp(lcfg, x + out(o, lp["wo"]), lp)
+                return o.reshape(B, 1, H * hd)
+            return _attend_window(lcfg, q, cache, li, window.flushed, kx, vx, start)
+        cache.k[li, :, pos : pos + 1] = k
+        cache.v[li, :, pos : pos + 1] = v
+        if kernel:
+            o = decode_attention(q.reshape(B, H, hd), cache.k[li], cache.v[li], pos + 1, start)
+            return o.reshape(B, 1, H * hd)
+        mask = None
+        if start is not None:
+            mask = torch.zeros((B, 1, 1, 1, pos + 1), dtype=torch.float32, device=q.device).masked_fill(
+                start_mask(start, pos + 1)[:, :, None], float("-inf"))
+        return _attend(lcfg, q, cache.k[li, :, : pos + 1], cache.v[li, :, : pos + 1], mask)
+
+    hidden = _decode_layers(params, cfg, token_embed, cos, sin, attend, tp)
     if windowed:
         window.count = i + 1
         if window.count == window.size:
             window.flush(cache)
+    return hidden
+
+
+def _decode_layers(params: dict, cfg: LlamaConfig, token_embed: torch.Tensor, cos, sin, attend, tp=None):
+    """The decode step's layers and final norm on one position: ``token_embed``
+    (B, D) -> the post-final-norm hidden (B, D). ``attend(li, q, k, v)`` keeps
+    layer ``li``'s roped k and v (B, 1, KV, hd) where the step writes them and
+    returns the attention of q (B, 1, H, hd) over the cached positions, (B, 1,
+    H * hd); ``decode_step`` and the graph's body (``DecodeWorkspace``) differ
+    only there."""
+    lcfg, qkv, out, mlp = _layer_fns(cfg, tp)
+    x = token_embed[:, None, :]
+    for li, lp in enumerate(params["layers"]):
+        q, k, v = qkv(lcfg, x, lp, cos, sin)
+        x = mlp(lcfg, x + out(attend(li, q, k, v), lp["wo"]), lp)
     return rms_norm(x[:, 0, :], params["norm_f"], cfg.rms_norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 decode step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+# Workspaces kept at once (batch buckets, cache lengths and weight sets).
+WORKSPACES = 8
+# A kept workspace makes room for a new key only once it has gone unused for
+# this many calls; until then the new key's calls decode eagerly, so traffic
+# with more live keys than WORKSPACES does not capture anew at every call.
+IDLE_CALLS = 64
+# Host passes of the step's body in a capture: the eager warm-up on a side
+# stream and the capture itself. Each calls every kernel wrapper once.
+CAPTURE_PASSES = 2
+# CUDA's refusals of a stream capture, cudaErrorStreamCaptureUnsupported (900)
+# to cudaErrorStreamCaptureWrongThread (908): the only errors after which a
+# workspace stays eager instead of raising.
+CAPTURE_REFUSED = range(900, 909)
+
+_WORKSPACES: "OrderedDict[tuple, DecodeWorkspace]" = OrderedDict()
+_WORKSPACES_LOCK = threading.Lock()
+_calls = 0  # calls that asked decode_workspace for a workspace
+
+
+def _step_weights(params: dict) -> list:
+    """The tensors a decode step reads: each layer's weights (an int8
+    kernel's q and scale) and the final norm."""
+    return [t for lp in params["layers"] for w in lp.values()
+            for t in (w.values() if isinstance(w, dict) else (w,))] + [params["norm_f"]]
+
+
+def batch_bucket(batch: int) -> int:
+    """The batch a workspace is made for: the power of two at or above
+    ``batch``. A call of fewer rows uses the first ``batch`` of them."""
+    return 1 << (batch - 1).bit_length()
+
+
+def _capture_refused(e: BaseException) -> bool:
+    """Whether ``e`` is CUDA refusing a capture: torch raises a CUDA error
+    as an ``AcceleratorError`` (a RuntimeError) carrying its ``error_code``."""
+    return getattr(e, "error_code", None) in CAPTURE_REFUSED
+
+
+class DecodeWorkspace:
+    """What the bf16 decode steps of one batch bucket, one cache length and
+    one weight set keep on the card from call to call: the cache ``kv``
+    (bucket, S_max), the rope tables ``cos``, ``sin`` for S_max (made once),
+    the step's position ``pos`` (int64) and #2's length ``n`` (int32, pos + 1)
+    as device scalars, and the CUDA graph of the step over the whole bucket
+    with its static input ``x`` (bucket, D) and output ``out``. The call that
+    holds it decodes its ``rows`` in the first rows of each (``cache``, a view
+    of ``kv``); the rows past them are computed and ignored, each row's step
+    reading only its own row. The cache is never zeroed: the prefill writes
+    [0, P) and each step writes its position before #2 reads [0, pos]."""
+
+    def __init__(self, cfg: LlamaConfig, batch: int, max_len: int, device, dtype: torch.dtype):
+        self.cfg = cfg
+        self.kv = KVCache.create(cfg, batch, max_len, device, dtype)
+        self.rope = torch.stack(rope_device_tables(cfg, max_len, dtype, device))  # (2, S_max, hd)
+        self.cos, self.sin = self.rope.unbind(0)
+        self.pos = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.n = torch.zeros((1,), dtype=torch.int32, device=device)
+        self.x = torch.zeros((batch, cfg.hidden_size), dtype=dtype, device=device)
+        self.graph = self.out = None
+        self.eager = False  # CUDA refused the capture: this workspace's steps stay eager
+        self.owner = None  # id() of the params of the call that holds it
+        self.rows, self.cache = batch, self.kv
+        self.used = 0  # the last call that held it, in decode_workspace's count
+
+    def _take(self, owner: int, rows: int) -> None:
+        self.owner, self.rows = owner, rows
+        self.cache = self.kv if rows == self.x.shape[0] else KVCache(self.kv.k[:, :rows], self.kv.v[:, :rows])
+
+    def _body(self, params: dict) -> torch.Tensor:
+        """``decode_step``'s bf16 body on ``x`` at the device position: the
+        rope rows gathered, the k/v rows written and #2's length read on the
+        card."""
+        cfg, kv = self.cfg, self.kv
+        B, H, hd = self.x.shape[0], cfg.num_heads, cfg.head_dim
+        torch.add(self.pos, 1, out=self.n)
+        cos, sin = self.rope.index_select(1, self.pos).unbind(0)
+
+        def attend(li, q, k, v):
+            kv.k[li].index_copy_(1, self.pos, k)
+            kv.v[li].index_copy_(1, self.pos, v)
+            return decode_attention_cuda_at(q.reshape(B, H, hd), kv.k[li], kv.v[li], self.n).reshape(B, 1, H * hd)
+
+        return _decode_layers(params, cfg, self.x, cos, sin, attend)
+
+    def _warm_up(self, params: dict) -> None:
+        """The body run once on a side stream, as a capture wants."""
+        device = self.x.device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self._body(params)
+        torch.cuda.current_stream(device).wait_stream(side)
+
+    def _record(self, params: dict):
+        """The body captured: (the graph, its output)."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = self._body(params)
+        return graph, out
+
+    def _capture(self, params: dict) -> bool:
+        """``_warm_up``, then ``_record``; False, with a warning, where CUDA
+        refused the capture (``CAPTURE_REFUSED``). Any other error raises."""
+        self._warm_up(params)
+        try:
+            self.graph, self.out = self._record(params)
+        except RuntimeError as e:
+            if not _capture_refused(e):
+                raise
+            warnings.warn(f"decode step graph not captured, its steps stay eager: {e}", RuntimeWarning)
+            self.eager = True
+            return False
+        metrics.count("decode_graph_captures")
+        return True
+
+    def step(self, params: dict, token_embed: torch.Tensor, pos: int) -> Optional[torch.Tensor]:
+        """The step at ``pos``: a replay of the graph (captured at the first
+        step), the held rows of its output copied out. None where CUDA
+        refused the capture."""
+        self.x[: self.rows].copy_(token_embed)
+        self.pos.fill_(pos)
+        if self.graph is None and not self._capture(params):
+            return None
+        self.graph.replay()
+        metrics.count("decode_graph_replays")
+        return self.out[: self.rows].clone()
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies where the step graph runs: on a CUDA device."""
+    return t.is_cuda
+
+
+def _graph_workspace(params, cfg, token_embed, cache, cos_full, sin_full, window, start, tp):
+    """The workspace whose graph this step replays, or None: the step must
+    be bf16 on the card with no window, start or tp, on a workspace's cache
+    and rope tables, from the call that holds it, and with the tripwires
+    off (a replay checks no output)."""
+    if (start is not None or tp is not None or window is not None or not on_card(token_embed)
+            or token_embed.dtype != torch.bfloat16 or debug.enabled()):
+        return None
+    with _WORKSPACES_LOCK:
+        ws = next((w for w in _WORKSPACES.values() if w.cache is cache), None)
+    if (ws is None or ws.eager or ws.owner != id(params) or cfg != ws.cfg or token_embed.shape[0] != ws.rows
+            or cos_full is not ws.cos or sin_full is not ws.sin):
+        return None
+    return ws
+
+
+@contextmanager
+def decode_workspace(params: dict, cfg: LlamaConfig, batch: int, max_len: int, device, dtype: torch.dtype):
+    """The ``DecodeWorkspace`` of (device, ``batch_bucket(batch)``, max_len,
+    dtype, cfg, the ``data_ptr`` of each tensor the step reads), made at its
+    first use and held for this call's ``batch`` rows until the block ends.
+    None where another call holds it, or where ``WORKSPACES`` are kept and
+    none of those that no call holds has gone unused for ``IDLE_CALLS``
+    calls (else the least recently used such one is dropped for it)."""
+    global _calls
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    bucket = batch_bucket(batch)
+    key = (device, bucket, max_len, dtype, cfg, tuple(t.data_ptr() for t in _step_weights(params)))
+    with _WORKSPACES_LOCK:
+        _calls += 1
+        ws = _WORKSPACES.get(key)
+        if ws is None:
+            if len(_WORKSPACES) >= WORKSPACES:
+                stale = next((k for k, w in _WORKSPACES.items() if w.owner is None and _calls - w.used > IDLE_CALLS),
+                             None)
+                if stale is not None:
+                    del _WORKSPACES[stale]
+            if len(_WORKSPACES) < WORKSPACES:
+                ws = _WORKSPACES[key] = DecodeWorkspace(cfg, bucket, max_len, device, dtype)
+        elif ws.owner is not None:
+            ws = None
+        if ws is not None:
+            _WORKSPACES.move_to_end(key)
+            ws._take(id(params), batch)
+            ws.used = _calls
+    try:
+        yield ws
+    finally:
+        if ws is not None:
+            ws.owner = None

@@ -44,6 +44,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "mellow_log_mel": [_P] * 5 + [_I, _P, _I, _I, _F, _F, _P],
     "mellow_decode_attention": [_P] * 5 + [_I] * 5 + [_L, _I, _I, _P],
+    "mellow_decode_attention_devn": [_P] * 6 + [_I] * 5 + [_L, _I, _I, _P],
     "mellow_attn_block": [_P] * 11 + [_L] + [_P] * 4 + [_L, _P, _P, _L] + [_I] * 6 + [_F, _P],
     "mellow_mlp_block": [_P] * 7 + [_I, _I, _I, _F, _P],
     "mellow_swin_block": [_P] * 20 + [_I, _I, _I, _I, _F, _F, _P],

@@ -25,7 +25,11 @@ columns before it belong to other requests. The blocks still split
 
 ``decode_attention`` dispatches by device: a CUDA tensor goes through the
 kernel (it raises on what the kernel does not take), a CPU tensor through
-``decode_attention_plain``. ``LAUNCHES`` counts the kernel's launches.
+``decode_attention_plain``. ``decode_attention_cuda_at`` is the kernel
+with the length on the device instead of on the host, for the decode
+step's CUDA graph (``models/llama.py``), split as the cache's capacity.
+``LAUNCHES`` counts the kernel's launches from the host: a graph's replay
+runs its captured launch without counting it.
 """
 
 from __future__ import annotations
@@ -89,6 +93,28 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: 
     ``start`` None or (B,) int32 on the device, each ``start[b] < n`` (not
     checked: reading it would sync with the host). Raises on any input it
     does not take and on a failed launch."""
+    return _launch(q, k, v, n, start, None)
+
+
+def decode_attention_cuda_at(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_dev: torch.Tensor,
+                             start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``decode_attention_cuda`` with the length on the device: ``n_dev`` a
+    (1,) int32 CUDA tensor holding n, which the kernel reads when it runs,
+    so a CUDA graph replays the launch at every length. The split is
+    ``cluster_blocks(S_max)``'s over the cache's S_max positions; at the
+    lengths where that equals ``cluster_blocks(n)``'s split the output is
+    the host-length launch's bit for bit. 1 <= n <= S_max and each
+    ``start[b] < n`` are the caller's to keep (not checked: reading them
+    would sync with the host)."""
+    if n_dev.shape != (1,) or n_dev.dtype != torch.int32 or n_dev.device != q.device:
+        raise ValueError(f"n_dev must be a (1,) int32 tensor on {q.device}, got {tuple(n_dev.shape)} "
+                         f"{n_dev.dtype} on {n_dev.device}")
+    return _launch(q, k, v, k.shape[1], start, n_dev)
+
+
+def _launch(q, k, v, n: int, start, n_dev) -> torch.Tensor:
+    """One launch: ``n`` attended positions, or with ``n_dev`` the capacity
+    that sets the split."""
     global LAUNCHES
     refuse_grad("decode_attention_cuda", q, k, v)
     B, H, hd = q.shape
@@ -113,12 +139,13 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: 
     check_start(start, B, q.device)
     lib = load_library()
     out = torch.empty_like(q)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if start is None else start.data_ptr())
     with torch.cuda.device(q.device):
-        err = lib.mellow_decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if start is None else start.data_ptr(), B, H, KV, hd, n,
-            k.stride(0), k.stride(1), blocks, torch.cuda.current_stream().cuda_stream,
-        )
+        tail = (k.stride(0), k.stride(1), blocks, torch.cuda.current_stream().cuda_stream)
+        if n_dev is None:
+            err = lib.mellow_decode_attention(*head, B, H, KV, hd, n, *tail)
+        else:
+            err = lib.mellow_decode_attention_devn(*head, n_dev.data_ptr(), B, H, KV, hd, n, *tail)
     check(err, "decode attention kernel")
     LAUNCHES += 1
     check_outputs("decode_attention_cuda", out)

@@ -56,6 +56,11 @@ def disable_debug() -> None:
     _NANS = _INFS = _ON = False
 
 
+def enabled() -> bool:
+    """Whether the tripwires are on."""
+    return _ON
+
+
 def _floating(x) -> bool:
     return isinstance(x, torch.Tensor) and (x.is_floating_point() or x.is_complex())
 

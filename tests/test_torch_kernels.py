@@ -374,6 +374,53 @@ def test_decode_attention_kernel_rejects_a_bad_start(device):
             da.decode_attention_cuda(q, k, k, 10, bad)
 
 
+@pytest.mark.parametrize("kind", ["ragged", "none"])
+@pytest.mark.parametrize("n", [390, 391, 392])
+def test_decode_attention_device_length_equals_the_host_length(device, n, kind):
+    """#2 with n on the device (the decode-step graph's launch, split as the
+    cache's 393 positions) against the launch with n from the host (split
+    as n's), bit for bit: at v0's lengths both are 9 blocks of 44."""
+    rng = np.random.RandomState(n)
+    B, H, KV, hd, s_max = 4, 9, 3, 64, 393
+    assert da.cluster_blocks(s_max) == da.cluster_blocks(n)
+    q = _bf16(rng, B, H, hd)
+    k = _bf16(rng, B, s_max, KV, hd)
+    v = _bf16(rng, B, s_max, KV, hd)
+    start = _starts(B, n, "ragged") if kind == "ragged" else None
+    n_dev = torch.tensor([n], dtype=torch.int32, device="cuda")
+    before = da.LAUNCHES
+    out = da.decode_attention_cuda_at(q, k, v, n_dev, start)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES == before + 1
+    assert torch.equal(out, da.decode_attention_cuda(q, k, v, n, start))
+
+
+@pytest.mark.parametrize("n, s_max", [(1, 450), (7, 450), (400, 413), (413, 413), (800, 4096)])
+def test_decode_attention_device_length_reads_only_n_positions(device, n, s_max):
+    """The device length at splits other than n's, the positions past n
+    holding NaN: the plain version's output within the bf16 tolerance."""
+    rng = np.random.RandomState(n + s_max)
+    B, H, KV, hd = 2, 9, 3, 64
+    q = _bf16(rng, B, H, hd)
+    k = _bf16(rng, B, s_max, KV, hd)
+    v = _bf16(rng, B, s_max, KV, hd)
+    k[:, n:] = float("nan")
+    v[:, n:] = float("nan")
+    out = da.decode_attention_cuda_at(q, k, v, torch.tensor([n], dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    _close_bf16(out, da.decode_attention_plain(q, k, v, n))
+
+
+def test_decode_attention_device_length_rejects_a_host_length(device):
+    rng = np.random.RandomState(0)
+    q = _bf16(rng, 2, 9, 64)
+    k = _bf16(rng, 2, 20, 3, 64)
+    for bad in (torch.tensor([5], dtype=torch.int64, device="cuda"), torch.tensor([5], dtype=torch.int32),
+                torch.tensor([5, 6], dtype=torch.int32, device="cuda")):
+        with pytest.raises(ValueError, match="n_dev must be"):
+            da.decode_attention_cuda_at(q, k, k, bad)
+
+
 # ---------------------------------------------------------------------------
 # int8 kernels
 # ---------------------------------------------------------------------------
